@@ -7,22 +7,30 @@ Phases (any failure exits non-zero before the result line):
   1. device  - the card's name and power limit (nvidia-smi);
   2. build   - nvcc builds every kernel in src/repro_torch/csrc, in parallel;
   3. parity  - each kernel against its plain PyTorch version on the card:
-               flash attention (bf16, rel. err < 2e-2) and the two dispatch
-               scoring kernels (max |out - float64| == 0.0);
-  4. model   - the reduced internlm2 and gemma3 decoders, prefill and eight
-               decode steps on the card against the same weights on the CPU
-               (plain versions): logits rel. err < 2e-2, equal greedy tokens;
-  5. serve   - internlm2-1.8b at full published width (random weights from a
+               flash attention (bf16, rel. err < 2e-2, head dims up to 256),
+               the two dispatch scoring kernels (max |out - float64| ==
+               0.0), the grouped expert GEMM (1e-5 f32, 3e-2 bf16), the
+               RG-LRU scan (1e-5) and WKV6 (1e-4; 1e-3 under strong decay),
+               the two scans with a carried-in state and on their final state;
+  4. model   - the reduced internlm2, gemma3, olmoe, recurrentgemma and
+               rwkv6 decoders, prefill and eight decode steps on the card
+               against the same weights on the CPU (plain versions): logits
+               rel. err < 2e-2, equal greedy tokens;
+  5. serve   - each family at full published width (random weights from a
                seed) served through DiffusionServer with the vectorized
                dispatcher and the batch drain, which puts the dispatcher's
                scoring on the card (the bulk rescore and the score mirror):
-               the launcher's stream (seed 0, 8 sessions, 16-token prompts,
-               32 requests, 8 new tokens, bursts of 8).  Kernel launch
-               counters are zeroed just before and read just after;
+               internlm2-1.8b on the launcher's stream (seed 0, 8 sessions,
+               16-token prompts, 32 requests, 8 new tokens, bursts of 8),
+               then olmoe-1b-7b, recurrentgemma-9b and rwkv6-3b on 4
+               sessions and 16 requests, one model on the card at a time.
+               Kernel launch counters are zeroed just before each and read
+               just after;
   6. timing  - each kernel at the main path's shapes: CUDA-event times of
-               the kernel, its plain version and one library call, beside
-               the card's bound (bytes over 3.35 TB/s or operations over the
-               type's peak, whichever is larger).
+               the kernel, its plain version and one library call where one
+               computes the same function, beside the card's bound (bytes
+               over 3.35 TB/s or operations over the type's peak, whichever
+               is larger).
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is the device record.  Exits non-zero without CUDA, and when the
 repository's ``src/repro_torch`` is not next to this file.
@@ -30,6 +38,7 @@ repository's ``src/repro_torch`` is not next to this file.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -46,12 +55,24 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:87",
     "dispatch_scores": "src/repro/kernels/dispatch_score/dispatch_score.py:111",
     "dispatch_score_update": "src/repro/kernels/dispatch_score/dispatch_score.py:74",
+    "moe_gmm": "src/repro/kernels/moe_gmm/moe_gmm.py:39",
+    "rglru_scan": "src/repro/kernels/rglru_scan/rglru_scan.py:41",
+    "wkv6": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:87",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "dispatch_scores": "src/repro_torch/csrc/dispatch_score.cu",
     "dispatch_score_update": "src/repro_torch/csrc/dispatch_score.cu",
+    "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu",
+    "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
+    "wkv6": "src/repro_torch/csrc/wkv6.cu",
 }
+# The served families: (arch, sessions, requests, the kernels its path must
+# launch besides the two scoring kernels every vectorized drain runs).
+FAMILIES = (("internlm2-1.8b", 8, 32, ("flash_attention",)),
+            ("olmoe-1b-7b", 4, 16, ("flash_attention", "moe_gmm")),
+            ("recurrentgemma-9b", 4, 16, ("flash_attention", "rglru_scan")),
+            ("rwkv6-3b", 4, 16, ("wkv6",)))
 
 
 def fail(msg: str) -> None:
@@ -242,13 +263,154 @@ def update_case(W, K, E, seed=7, timed=False):
     return row
 
 
+# --------------------------------------------------------- grouped expert GEMM
+def gmm_case(E, C, D, F, dtype_name="bf16", out_dtype=None, seed=2, timed=False):
+    import torch
+    from repro_torch.kernels.moe_gmm.ops import gmm_ref, moe_gmm
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn((E, C, D), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((E, D, F), generator=g, device="cuda") / D ** 0.5).to(dtype)
+    out = moe_gmm(x, w, out_dtype)
+    torch.cuda.synchronize()
+    ref = gmm_ref(x, w, out_dtype)
+    tol = 3e-2 if dtype_name == "bf16" else 1e-5
+    row = {"shape": [E, C, D, F], "dtype": dtype_name,
+           "out_dtype": str(out.dtype).replace("torch.", ""),
+           "rel_err": rel_err(out, ref),
+           "max_abs_err": float((out.float() - ref.float()).abs().max())}
+    if not (row["rel_err"] < tol and out.dtype == ref.dtype):
+        fail(f"moe_gmm {row} exceeds {tol}")
+    if timed:
+        row["ms"] = cuda_ms(lambda: moe_gmm(x, w, out_dtype))
+        row["plain_ms"] = cuda_ms(lambda: gmm_ref(x, w, out_dtype))
+        row["library_ms"] = cuda_ms(lambda: torch.bmm(x, w))
+        elem = x.element_size()
+        nbytes = elem * (E * C * D + E * D * F) + out.element_size() * E * C * F
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * E * C * D * F,
+                                                    dtype_name)
+    return row
+
+
+# -------------------------------------------------------------- RG-LRU scan
+def rglru_case(B, T, W, with_h0=True, seed=3, timed=False):
+    import torch
+    from repro_torch.kernels.rglru_scan.ops import rglru_ref, rglru_scan
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, T, W), generator=g, device="cuda"))
+    b = torch.randn((B, T, W), generator=g, device="cuda")
+    h0 = torch.randn((B, W), generator=g, device="cuda") if with_h0 else None
+    y, hT = rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    y_r, h_r = rglru_ref(a, b, h0)
+    row = {"shape": [B, T, W], "h0": with_h0, "rel_err_y": rel_err(y, y_r),
+           "rel_err_hT": rel_err(hT, h_r),
+           "max_abs_err": max(float((y - y_r).abs().max()),
+                              float((hT - h_r).abs().max()))}
+    if not (row["rel_err_y"] < 1e-5 and row["rel_err_hT"] < 1e-5):
+        fail(f"rglru_scan {row} exceeds 1e-5")
+    if timed:
+        row["ms"] = cuda_ms(lambda: rglru_scan(a, b, h0))
+        row["plain_ms"] = cuda_ms(lambda: rglru_ref(a, b, h0))
+        row["library_ms"] = None        # no single PyTorch call computes it
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            4.0 * (3 * B * T * W + 2 * B * W), 2.0 * B * T * W, "f32")
+    return row
+
+
+# --------------------------------------------------------------------- WKV6
+def wkv6_case(B, T, H, N, rkv="f32", decay=None, seed=4, timed=False):
+    """r, k, v ~ 0.5 N(0,1) in ``rkv``; w = exp(-exp(x)), x ~ N(-2, 0.5) (the
+    reference's kernel test) or the constant ``decay``; s0 != 0."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan.ops import wkv6, wkv6_ref
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dt = torch.bfloat16 if rkv == "bf16" else torch.float32
+    r, k, v = (0.5 * torch.randn((B, T, H, N), generator=g, device="cuda")
+               for _ in range(3))
+    r, k, v = r.to(dt), k.to(dt), v.to(dt)
+    x = torch.randn((B, T, H, N), generator=g, device="cuda")
+    w = (torch.exp(-torch.exp(0.5 * x - 2.0)) if decay is None
+         else torch.full_like(x, decay))
+    u = 0.3 * torch.ones((H, N), device="cuda")
+    s0 = 0.5 * torch.randn((B, H, N, N), generator=g, device="cuda")
+    out, sT = wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    o_r, s_r = wkv6_ref(r, k, v, w, u, s0)
+    tol = 1e-3 if decay is not None else 1e-4
+    row = {"shape": [B, T, H, N], "rkv": rkv, "decay": decay,
+           "rel_err_out": rel_err(out, o_r), "rel_err_sT": rel_err(sT, s_r),
+           "max_abs_err": max(float((out - o_r).abs().max()),
+                              float((sT - s_r).abs().max())),
+           "finite": bool(torch.isfinite(out).all() and torch.isfinite(sT).all())}
+    if not (row["finite"] and row["rel_err_out"] < tol and row["rel_err_sT"] < tol):
+        fail(f"wkv6 {row} exceeds {tol}")
+    if timed:
+        row["ms"] = cuda_ms(lambda: wkv6(r, k, v, w, u, s0))
+        row["plain_ms"] = cuda_ms(lambda: wkv6_ref(r, k, v, w, u, s0))
+        row["library_ms"] = None        # no single PyTorch call computes it
+        nbytes = (3 * r.element_size() * B * T * H * N + 4 * B * T * H * N * 2
+                  + 4 * H * N + 2 * 4 * B * H * N * N)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 6.0 * B * T * H * N * N,
+                                                    "f32")
+    return row
+
+
 # ----------------------------------------------------------------- model check
+class RoutingReplay:
+    """Teacher-forced MoE routing for the card-vs-CPU model check.
+
+    Top-k routing is discontinuous: where two experts' router probabilities
+    tie to within rounding, any change of summation order can swap them and
+    change the layer's output wholesale.  The CPU pass records each router
+    call's expert choice; the card pass computes its own probabilities and
+    gate values but routes to the CPU's experts, so the logits compare the
+    rest of the computation.  Every call where the card's own choice differs
+    is counted, and it must be a tie: the CPU's margin between the k-th and
+    the (k+1)-th probability under ``TIE``.
+    """
+
+    TIE = 2e-3
+
+    def __init__(self, moe):
+        self.moe, self.orig = moe, moe._router
+        self.recorded, self.flips, self.mode, self.i = [], [], "record", 0
+
+    def __call__(self, p, x2d, top_k):
+        import torch
+        probs, gate_vals, gate_idx = self.orig(p, x2d, top_k)
+        if self.mode == "record":
+            top = torch.topk(probs, top_k + 1, dim=-1).values
+            self.recorded.append((gate_idx.cpu(), (top[:, -2] - top[:, -1]).cpu()))
+            return probs, gate_vals, gate_idx
+        idx, margin = self.recorded[self.i]
+        self.i += 1
+        own = gate_idx.cpu()
+        for t in torch.nonzero((own.sort(-1).values != idx.sort(-1).values).any(-1)):
+            self.flips.append(float(margin[t]))
+        idx = idx.to(probs.device)
+        vals = torch.gather(probs, 1, idx)
+        return probs, vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9), idx
+
+    def __enter__(self):
+        self.moe._router = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self.orig
+
+
 def model_check(arch: str, prompt_len: int):
-    """Reduced decoder on the card vs the same weights on the CPU."""
+    """Reduced decoder on the card vs the same weights on the CPU.  Returns
+    (worst logits rel. err, routing flips at ties, problems found)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import cache_init, init_params
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.lm import lm_decode, lm_prefill
     from repro_torch.runtime.serve_loop import _merge_prefill_caches
     cfg = get_arch(arch).reduced()
@@ -256,28 +418,42 @@ def model_check(arch: str, prompt_len: int):
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, prompt_len)))
     forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 1)))
-    worst = 0.0
     res = {}
-    for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
-        logits, pre = lm_prefill(params, {"tokens": tokens.to(dev)}, cfg)
-        caches = _merge_prefill_caches(cache_init(cfg, 1, 64, device=dev), pre, cfg)
-        steps = [logits]
-        for i in range(8):      # teacher-forced decode
-            logits, caches = lm_decode(params, {"token": forced[i].to(dev),
-                                                "pos": prompt_len + i,
-                                                "caches": caches}, cfg)
-            steps.append(logits)
-        # padded vocab entries hold -1e30 on both sides; compare the real ones
-        res[dev] = [x[..., :cfg.vocab_size].float().cpu() for x in steps]
-    for a, b in zip(res["cuda"], res["cpu"]):
-        worst = max(worst, rel_err(a, b))
+    ops = kernel_ops()
+    before = {k: fn.launches for k, fn in ops.items()}
+    with RoutingReplay(moe_mod) as replay:
+        for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+            replay.mode = "record" if dev == "cpu" else "replay"
+            logits, pre = lm_prefill(params, {"tokens": tokens.to(dev)}, cfg)
+            caches = _merge_prefill_caches(cache_init(cfg, 1, 64, device=dev), pre, cfg)
+            steps = [logits]
+            for i in range(8):      # teacher-forced decode
+                logits, caches = lm_decode(params, {"token": forced[i].to(dev),
+                                                    "pos": prompt_len + i,
+                                                    "caches": caches}, cfg)
+                steps.append(logits)
+            # padded vocab entries hold -1e30 on both sides; compare the real ones
+            res[dev] = [x[..., :cfg.vocab_size].float().cpu() for x in steps]
+    card = {k: fn.launches - before[k] for k, fn in ops.items()
+            if fn.launches > before[k]}
+    problems = []
+    errs = [rel_err(a, b) for a, b in zip(res["cuda"], res["cpu"])]
+    for step, (a, b) in enumerate(zip(res["cuda"], res["cpu"])):
         if not bool(torch.isfinite(a).all()):
-            fail(f"{arch}: non-finite logits on the card")
+            problems.append(f"{arch}: non-finite logits on the card (step {step})")
         if not torch.equal(a.argmax(-1), b.argmax(-1)):
-            fail(f"{arch}: greedy token differs between card and CPU")
-    if not worst < 2e-2:
-        fail(f"{arch}: logits rel. err {worst} >= 2e-2")
-    return worst
+            problems.append(f"{arch}: greedy token differs between card and CPU "
+                            f"(step {step})")
+    if not max(errs) < 2e-2:
+        problems.append(f"{arch}: logits rel. err {max(errs)} >= 2e-2")
+    if any(m >= RoutingReplay.TIE for m in replay.flips):
+        problems.append(f"{arch}: the card routed differently where the CPU's "
+                        f"top-k margin was not a tie: {replay.flips}")
+    say(f"model {arch} reduced: per-step rel. err "
+        + " ".join(f"{e:.2e}" for e in errs)
+        + f"; routing flips at ties {len(replay.flips)} (CPU margins "
+        f"{[f'{m:.1e}' for m in replay.flips]}); card launches {card}")
+    return max(errs), replay.flips, problems
 
 
 def _to(tree, dev):
@@ -289,7 +465,22 @@ def _to(tree, dev):
 
 
 # ----------------------------------------------------------------------- serve
-def serve_full_width(ops_fa, ops_ds):
+def kernel_ops():
+    """{name: wrapper} for every kernel; each wrapper carries ``launches``."""
+    from repro_torch.kernels.dispatch_score import ops as ops_ds
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rwkv6_scan.ops import wkv6
+    return {"flash_attention": flash_attention,
+            "dispatch_scores": ops_ds.dispatch_scores,
+            "dispatch_score_update": ops_ds.dispatch_score_update,
+            "moe_gmm": moe_gmm, "rglru_scan": rglru_scan, "wkv6": wkv6}
+
+
+def serve_full_width(arch, n_sessions, n_req, needs, ops):
+    """Serve ``arch`` at full width on the launcher's kind of stream; the
+    launch counters cover this run alone.  Frees the model before returning."""
     from dataclasses import asdict
 
     import numpy as np
@@ -297,10 +488,12 @@ def serve_full_width(ops_fa, ops_ds):
     from repro_torch.configs import get_arch
     from repro_torch.runtime.serve_loop import DiffusionServer
 
-    cfg = get_arch("internlm2-1.8b")
-    say(f"serve: {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
-        f"heads={cfg.num_heads}/{cfg.num_kv_heads} vocab={cfg.vocab_size} "
-        f"params={cfg.param_count() / 1e9:.3f}e9")
+    cfg = get_arch(arch)
+    say(f"serve: {cfg.name} layers={cfg.num_layers} pattern="
+        f"{''.join(cfg.layer_pattern) or 'A'} d_model={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} experts={cfg.num_experts} "
+        f"vocab={cfg.vocab_size} params={cfg.param_count() / 1e9:.3f}e9")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     srv = DiffusionServer(cfg, device="cuda", dispatcher_impl="vectorized",
                           batch_drain=True, seed=0)
@@ -322,7 +515,7 @@ def serve_full_width(ops_fa, ops_ds):
             logits, caches = fn(params, batch)
             torch.cuda.synchronize()
             timing[kind].append(time.perf_counter() - t)
-            finite = finite & torch.isfinite(logits).all()
+            finite = finite & torch.isfinite(logits[..., :cfg.vocab_size]).all()
             return logits, caches
         return call
 
@@ -330,13 +523,14 @@ def serve_full_width(ops_fa, ops_ds):
     srv.decode_fn = timed("decode", srv.decode_fn)
 
     rng = np.random.default_rng(0)
-    prompts = {f"s{i}": rng.integers(0, cfg.vocab_size, size=(16,)) for i in range(8)}
+    prompts = {f"s{i}": rng.integers(0, cfg.vocab_size, size=(16,))
+               for i in range(n_sessions)}
     sids = list(prompts)
-    n_req, burst = 32, 8
+    burst = 8
     verify_checks = 0
 
     torch.cuda.synchronize()
-    for fn in (ops_fa, ops_ds.dispatch_scores, ops_ds.dispatch_score_update):
+    for fn in ops.values():
         fn.launches = 0
     t_start = time.perf_counter()
     for i in range(n_req):
@@ -346,25 +540,24 @@ def serve_full_width(ops_fa, ops_ds):
             srv.step()          # rescore, drain, serve, mirror flush
             err = mirror.verify()
             if err != 0.0:
-                fail(f"device mirror verify() = {err} after a step")
+                fail(f"{arch}: device mirror verify() = {err} after a step")
             verify_checks += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    launches = {"flash_attention": ops_fa.launches,
-                "dispatch_scores": ops_ds.dispatch_scores.launches,
-                "dispatch_score_update": ops_ds.dispatch_score_update.launches}
+    launches = {k: fn.launches for k, fn in ops.items()}
 
     s, sc = srv.stats, srv.score_stats
     sb, sw = disp.rebuild_scores(backend="cuda")
     nb, nw = disp.rebuild_scores(backend="numpy")
     checks = {
-        "served == 32": s.served == n_req,
+        f"served == {n_req}": s.served == n_req,
         "check_consistency": disp.check_consistency(),
         "rebuild_scores exact": np.array_equal(sb, nb) and np.array_equal(sw, nw),
         "finite logits": bool(finite),
         "mirror verify": mirror.verify() == 0.0,
         "a rescore every step": sc.epochs == verify_checks,
-        **{f"{k} launched": v > 0 for k, v in launches.items()},
+        **{f"{k} launched": launches[k] > 0
+           for k in ("dispatch_scores", "dispatch_score_update", *needs)},
     }
     r = srv.router.stats
     say(f"served={s.served} prefix_hit={s.hit_rate:.0%} prefills={s.prefills} "
@@ -374,28 +567,32 @@ def serve_full_width(ops_fa, ops_ds):
         f"win_p50={r.p50_s * 1e3:.1f}ms win_p99={r.p99_s * 1e3:.1f}ms")
     pre, dec = timing["prefill"], timing["decode"]
     perf = {
+        "arch": arch, "served": s.served, "prefix_hits": s.prefix_hits,
+        "prefills": s.prefills, "decode_steps": s.decode_steps,
         "prefill_ms_per_request": 1e3 * float(np.mean(pre)),
         "prefill_ms_per_request_after_first": 1e3 * float(np.mean(pre[1:] or pre)),
         "decode_ms_per_token": 1e3 * float(np.mean(dec)),
         "decode_ms_per_token_after_first": 1e3 * float(np.mean(dec[1:] or dec)),
         "decode_tokens_per_s": len(dec) / float(np.sum(dec)),
         "stream_tokens_per_s": s.decode_steps / wall,
-        "wall_s": wall, "prefills": len(pre), "decode_steps": len(dec),
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "mirror": mirror.stats.snapshot(), "scores": asdict(sc),
-        "verify_checks": verify_checks,
+        "verify_checks": verify_checks, "launches": launches,
     }
-    say("serve perf: " + json.dumps(perf))
-    say("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    say(f"serve perf {arch}: " + json.dumps(perf))
+    say(f"kernels {arch}: " + " ".join(f"{k}={v}" for k, v in launches.items()))
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        fail(f"serve checks failed: {bad}")
+        fail(f"{arch}: serve checks failed: {bad}")
     shapes = {"flash_attention": (1, 16, 16, cfg.num_heads, cfg.num_kv_heads,
                                   cfg.head_dim),
               "dispatch_scores": (max(1, sc.max_rows), disp._presence.shape[1],
                                   disp._presence.shape[0]),
               "dispatch_score_update": (disp._Sw.shape[0], max(1, sc.max_epoch_keys),
                                         disp._Sw.shape[1])}
+    del srv, disp, mirror, sb, sw
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches, shapes, perf
 
 
@@ -435,8 +632,9 @@ def main() -> None:
                 if "Used" in line or "spill" in line:
                     say(f"  ptxas {src}: {line.strip()}")
 
-    from repro_torch.kernels.dispatch_score import ops as ops_ds
-    from repro_torch.kernels.flash_attention.ops import flash_attention as ops_fa
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe import capacity
+    ops = kernel_ops()
 
     # 3. parity
     t0 = time.perf_counter()
@@ -449,10 +647,13 @@ def main() -> None:
             ((2, 128, 256, 4, 4, 64), True, 0),
             ((1, 256, 256, 2, 2, 64), False, 0),
             ((1, 100, 100, 4, 1, 32), True, 0),
-            ((1, 70, 70, 2, 2, 16), True, 16)):
+            ((1, 70, 70, 2, 2, 16), True, 16),
+            ((1, 16, 16, 16, 1, 256), True, 2048),     # recurrentgemma prefill
+            ((1, 512, 512, 16, 1, 256), True, 2048)):
         flash_rows.append(flash_case(shape, causal, window, "bf16",
                                      timed=shape[1] >= 512))
-    for shape in ((1, 16, 16, 16, 8, 128), (2, 256, 256, 4, 2, 64)):
+    for shape in ((1, 16, 16, 16, 8, 128), (2, 256, 256, 4, 2, 64),
+                  (1, 16, 16, 16, 1, 256)):
         flash_rows.append(flash_case(shape, True, 0, "f32"))
     for row in flash_rows:
         say("parity flash_attention: " + json.dumps(row))
@@ -462,26 +663,64 @@ def main() -> None:
     for W, K, E in ((16, 3, 4), (256, 128, 64), (300, 200, 96), (64, 8, 4)):
         say("parity dispatch_score_update: " + json.dumps(update_case(W, K, E)))
     z = torch.arange(12.0, device="cuda").reshape(3, 4)
-    before = ops_ds.dispatch_score_update.launches
-    same = ops_ds.dispatch_score_update(z, torch.zeros((3, 0), device="cuda"),
+    before = ops["dispatch_score_update"].launches
+    same = ops["dispatch_score_update"](z, torch.zeros((3, 0), device="cuda"),
                                         torch.zeros((0, 4), device="cuda"))
-    if not torch.equal(same, z) or ops_ds.dispatch_score_update.launches != before:
+    if not torch.equal(same, z) or ops["dispatch_score_update"].launches != before:
         fail("dispatch_score_update with K == 0 must copy and launch nothing")
+    olmoe = get_arch("olmoe-1b-7b")
+    E, K, D, F = olmoe.num_experts, olmoe.moe_top_k, olmoe.d_model, olmoe.d_ff
+    C = capacity(1, K, E, olmoe.capacity_factor)         # 8 at T = 1 and T = 16
+    for dt in ("f32", "bf16"):
+        for shape in ((2, 128, 256, 128), (4, 256, 512, 256), (8, 128, 128, 512)):
+            say("parity moe_gmm: " + json.dumps(gmm_case(*shape, dtype_name=dt)))
+    for shape in ((E, C, D, F), (E, C, F, D), (E, 13, D, F)):
+        for out_dtype in (torch.float32, None):
+            say("parity moe_gmm: " + json.dumps(gmm_case(*shape, out_dtype=out_dtype)))
+    rg = get_arch("recurrentgemma-9b")
+    for shape in ((1, 128, 256), (2, 256, 512), (3, 512, 128)):
+        for with_h0 in (False, True):
+            say("parity rglru_scan: " + json.dumps(rglru_case(*shape, with_h0)))
+    for shape in ((2, 17, 300), (1, 1, rg.rnn_width), (1, 16, rg.rnn_width)):
+        say("parity rglru_scan: " + json.dumps(rglru_case(*shape)))
+    rw = get_arch("rwkv6-3b")
+    H, N = rw.d_model // rw.rwkv_head_dim, rw.rwkv_head_dim
+    for shape in ((1, 128, 2, 64), (2, 256, 2, 64), (1, 256, 4, 64)):
+        say("parity wkv6: " + json.dumps(wkv6_case(*shape)))
+    say("parity wkv6: " + json.dumps(wkv6_case(1, 128, 1, 64, decay=0.01)))
+    for shape in ((1, 1, H, N), (1, 16, H, N), (2, 7, 3, 16), (1, 5, 2, 32)):
+        say("parity wkv6: " + json.dumps(wkv6_case(*shape, rkv="bf16")))
     say(f"parity: ok in {time.perf_counter() - t0:.1f}s")
 
     # 4. model on the card vs the CPU
     t0 = time.perf_counter()
-    for arch, plen in (("internlm2-1.8b", 16), ("gemma3-1b", 40)):
-        say(f"model {arch} reduced: card vs cpu logits rel. err "
-            f"{model_check(arch, plen):.3e}")
+    problems = []
+    for arch, plen in (("internlm2-1.8b", 16), ("gemma3-1b", 40),
+                       ("olmoe-1b-7b", 16), ("recurrentgemma-9b", 40),
+                       ("rwkv6-3b", 16)):
+        worst, _, found = model_check(arch, plen)
+        problems += found
+        say(f"model {arch} reduced: card vs cpu logits rel. err {worst:.3e}")
+    if problems:
+        fail("model checks failed: " + "; ".join(problems))
     say(f"model: ok in {time.perf_counter() - t0:.1f}s")
 
-    # 5. serve at full width
-    t0 = time.perf_counter()
-    launches, shapes, perf = serve_full_width(ops_fa, ops_ds)
-    say(f"serve: ok in {time.perf_counter() - t0:.1f}s")
+    # 5. serve at full width, one family at a time
+    served = {}
+    for arch, sessions, n_req, needs in FAMILIES:
+        t0 = time.perf_counter()
+        served[arch] = serve_full_width(arch, sessions, n_req, needs, ops)
+        say(f"serve {arch}: ok in {time.perf_counter() - t0:.1f}s")
+    # each kernel's launches are read from the run of the family whose path
+    # it was ported for
+    owner = {"flash_attention": "internlm2-1.8b", "dispatch_scores": "internlm2-1.8b",
+             "dispatch_score_update": "internlm2-1.8b", "moe_gmm": "olmoe-1b-7b",
+             "rglru_scan": "recurrentgemma-9b", "wkv6": "rwkv6-3b"}
+    launches = {k: served[a][0][k] for k, a in owner.items()}
+    shapes = served["internlm2-1.8b"][1]
 
-    # 6. timing at the main path's shapes
+    # 6. timing at the main path's shapes (decode shapes for the scans,
+    # whose decode launches outnumber their prefill launches eightfold)
     main_rows = {
         "flash_attention": flash_case(shapes["flash_attention"], True, 0, "bf16",
                                       timed=True),
@@ -489,10 +728,26 @@ def main() -> None:
                                        timed=True),
         "dispatch_score_update": update_case(*shapes["dispatch_score_update"],
                                              timed=True),
+        "moe_gmm": gmm_case(E, C, F, D, timed=True),                    # w2
+        "rglru_scan": rglru_case(1, 1, rg.rnn_width, timed=True),
+        "wkv6": wkv6_case(1, 1, H, N, rkv="bf16", timed=True),
     }
-    for k, row in main_rows.items():
+    more_rows = {
+        "flash_attention D=256 (recurrentgemma prefill)": flash_case(
+            (1, 16, 16, rg.num_heads, rg.num_kv_heads, rg.head_dim), True,
+            rg.window_size, "bf16", timed=True),
+        "moe_gmm w1/w3 (f32 out)": gmm_case(E, C, D, F, out_dtype=torch.float32,
+                                             timed=True),
+        "rglru_scan T=16 (prefill)": rglru_case(1, 16, rg.rnn_width, timed=True),
+        "wkv6 T=16 (prefill)": wkv6_case(1, 16, H, N, rkv="bf16", timed=True),
+    }
+
+    def ms(x):
+        return "none" if x is None else f"{x:.4f}"
+
+    for k, row in list(main_rows.items()) + list(more_rows.items()):
         say(f"timing {k} (main path shape): kernel_ms={row['ms']:.4f} "
-            f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} library_ms={ms(row['library_ms'])} "
             f"bound_us={row['bound_ms'] * 1e3:.3f} ({row['bound_by']})")
     kernels = []
     for k, row in main_rows.items():
@@ -508,7 +763,8 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi_line, "flash_rows": flash_rows,
-         "main_rows": main_rows, "serve": perf, "launches": launches,
+         "main_rows": main_rows, "more_rows": more_rows,
+         "serve": {a: v[2] for a, v in served.items()}, "launches": launches,
          "shapes": shapes}, indent=1))
     say(f"nvidia-smi: {smi_line}")
     say(json.dumps({"kernels": kernels}))

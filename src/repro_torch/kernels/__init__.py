@@ -13,9 +13,15 @@ from .dispatch_score.ops import (
     dispatch_scores_ref,
 )
 from .flash_attention.ops import attention_ref, flash_attention
+from .moe_gmm.ops import gmm_ref, moe_gmm
+from .rglru_scan.ops import rglru_ref, rglru_scan
+from .rwkv6_scan.ops import wkv6, wkv6_ref
 
 __all__ = [
     "dispatch_scores", "dispatch_scores_ref",
     "dispatch_score_update", "dispatch_score_update_ref",
     "flash_attention", "attention_ref",
+    "moe_gmm", "gmm_ref",
+    "rglru_scan", "rglru_ref",
+    "wkv6", "wkv6_ref",
 ]

@@ -17,14 +17,14 @@ _SIGNATURES = {
                             _build.I, _build.I, _build.I, _build.I, _build.P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Tiled online-softmax GQA attention with aligned ends.
 
     q: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D] with H % Hkv == 0.  On CUDA:
-    float32 or bfloat16, D in {16, 32, 64, 128}, contiguous inputs, and
+    float32 or bfloat16, D in {16, 32, 64, 128, 256}, contiguous inputs, and
     Skv >= Sq when a causal or window mask applies.
     """
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:

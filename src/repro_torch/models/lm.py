@@ -1,5 +1,6 @@
-"""Decoder-only LM on torch for 'A' (full) and 'L' (windowed) attention
-blocks with dense FFNs.
+"""Decoder-only LM on torch over heterogeneous layer patterns: 'A' (full)
+and 'L' (windowed) attention with dense or MoE FFNs, 'R' (RG-LRU) and 'W'
+(RWKV6) recurrent blocks.
 
 A port of the reference's ``models/lm.py``: the same parameter and cache
 trees (a stacked ``groups`` axis over the repeating layer pattern plus an
@@ -7,10 +8,13 @@ unrolled ``rem`` list), with ``lax.scan`` over groups become a Python loop
 over that axis.  Two entry points: ``lm_prefill`` (full sequence, builds the
 decode caches) and ``lm_decode`` (one token against the caches).
 
-Decode writes the new K/V slot into the cache it is given, in place (the
-reference returns fresh buffers): each session owns its cache, so the copy
-the functional version makes would only cost memory.  'R' (RG-LRU), 'W'
-(RWKV6), MoE FFNs and the vision frontend are not ported yet and raise.
+Decode writes its new state into the cache it is given, in place (the
+reference returns fresh buffers): the K/V slot of 'A' and 'L' blocks, and
+the whole state of 'R' and 'W' blocks (copied into the cache views).  Each
+session owns its cache, so the copy the functional version makes would only
+cost memory.  The MoE auxiliary loss is dropped for every block kind: it is
+a training term (ROADMAP B2).  The vision frontend is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Dict, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from . import rglru as rg
+from . import rwkv as rw
 from .layers import (
     BF16,
     attention_block,
@@ -34,13 +40,9 @@ from .layers import (
     rmsnorm_init,
     rope,
 )
+from .moe import moe_ffn, moe_init
 
-_NOT_PORTED = {
-    "moe": "MoE FFN (ROADMAP C1)",
-    "R": "RG-LRU block 'R' (ROADMAP C2)",
-    "W": "RWKV6 block 'W' (ROADMAP C3)",
-    "vision": "vision frontend (ROADMAP C5)",
-}
+_KINDS = ("A", "L", "R", "W")
 
 
 def group_pattern(cfg: ArchConfig) -> Tuple[str, ...]:
@@ -54,14 +56,9 @@ def group_counts(cfg: ArchConfig) -> Tuple[int, int]:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for the parts of the reference LM this port does not have yet;
-    past this check every block is 'A' or 'L' with a dense FFN."""
-    missing = []
-    if cfg.num_experts:
-        missing.append(_NOT_PORTED["moe"])
-    if cfg.frontend == "vision":
-        missing.append(_NOT_PORTED["vision"])
-    missing += [_NOT_PORTED.get(k, repr(k)) for k in sorted(set(group_pattern(cfg)))
-                if k not in ("A", "L")]
+    past this check every block is 'A', 'L', 'R' or 'W'."""
+    missing = ["vision frontend (ROADMAP C5)"] if cfg.frontend == "vision" else []
+    missing += [repr(k) for k in sorted(set(group_pattern(cfg))) if k not in _KINDS]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported")
 
@@ -69,13 +66,25 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------- init
 def block_init(gen, kind: str, cfg: ArchConfig, lead=()):
     dev = gen.device
-    return {
-        "norm1": rmsnorm_init(cfg.d_model, dev, lead),
-        "norm2": rmsnorm_init(cfg.d_model, dev, lead),
-        "attn": attn_init(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                          cfg.head_dim, lead),
-        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, lead),
-    }
+    p = {"norm1": rmsnorm_init(cfg.d_model, dev, lead),
+         "norm2": rmsnorm_init(cfg.d_model, dev, lead)}
+    if kind in ("A", "L"):
+        p["attn"] = attn_init(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim, lead)
+        if cfg.num_experts:
+            p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts, lead)
+        else:
+            p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, lead)
+    elif kind == "R":
+        p["rglru"] = rg.rglru_init(gen, cfg.d_model, cfg.rnn_width, cfg.conv_width,
+                                   lead)
+        p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, lead)
+    elif kind == "W":
+        p["tm"] = rw.timemix_init(gen, cfg.d_model, cfg.rwkv_head_dim, lead)
+        p["cm"] = rw.channelmix_init(gen, cfg.d_model, cfg.d_ff, lead)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    return p
 
 
 def lm_init(gen: torch.Generator, cfg: ArchConfig):
@@ -96,7 +105,14 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig):
 # ---------------------------------------------------------------- caches
 def block_cache_init(kind: str, cfg: ArchConfig, batch: int, cap: int,
                      device, lead=()):
-    """Decode-time cache for one 'A' (full) or 'L' (ring) block."""
+    """Decode-time cache for one block: K/V for 'A' (full) and 'L' (ring),
+    the recurrent state for 'R' and 'W'."""
+    if kind == "R":
+        return rg.rglru_state_init(batch, cfg.rnn_width, cfg.conv_width, device, lead)
+    if kind == "W":
+        return rw.rwkv_state_init(batch, cfg.d_model, cfg.rwkv_head_dim, device, lead)
+    if kind not in ("A", "L"):
+        raise ValueError(kind)
     w = cap if kind == "A" else min(cfg.window_size or cap, cap)
     shape = tuple(lead) + (batch, w, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=BF16, device=device),
@@ -115,6 +131,27 @@ def lm_cache_init(cfg: ArchConfig, batch: int, cap: int, device="cuda"):
 
 
 # ---------------------------------------------------------------- blocks
+def _ffn_apply(bp, cfg: ArchConfig, h2):
+    """Dense or MoE FFN on [B, S, D]."""
+    if cfg.num_experts:
+        B, S, D = h2.shape
+        out, _aux = moe_ffn(bp["moe"], h2.reshape(B * S, D),
+                            n_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                            capacity_factor=cfg.capacity_factor)
+        return out.reshape(B, S, D)
+    return mlp(bp["ffn"], h2)
+
+
+def _store(cache, new, mode: str):
+    """Prefill returns the fresh state; decode copies it into the cache
+    views it was given (the session's own buffers) and returns those."""
+    if mode != "decode":
+        return new
+    for k, v in new.items():
+        cache[k].copy_(v)
+    return cache
+
+
 def _ring_positions(pos: int, cap: int, device=None):
     """Absolute position stored in each ring slot after writing at
     slot = pos % cap:  kpos[s] = pos - ((pos - s) mod cap); negative => empty."""
@@ -124,7 +161,28 @@ def _ring_positions(pos: int, cap: int, device=None):
 
 def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
                 cache=None, pos=None, chunk: int = 1024):
-    """One 'A' or 'L' block.  Returns (h, new_cache)."""
+    """One block.  Returns (h, new_cache)."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    if kind == "R":
+        state = cache if cache is not None else rg.rglru_state_init(
+            h.shape[0], cfg.rnn_width, cfg.conv_width, h.device)
+        hn = rmsnorm(bp["norm1"], h, cfg.norm_eps)
+        out, new_state = rg.rglru_block_apply(bp["rglru"], hn, state)
+        h = h + out
+        h2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
+        return h + mlp(bp["ffn"], h2), _store(cache, new_state, mode)
+    if kind == "W":
+        st = cache if cache is not None else rw.rwkv_state_init(
+            h.shape[0], cfg.d_model, cfg.rwkv_head_dim, h.device)
+        hn = rmsnorm(bp["norm1"], h, cfg.norm_eps)
+        tm_out, shift_tm, S_new = rw.timemix_apply(bp["tm"], hn, st["shift_tm"],
+                                                   st["S"], cfg.rwkv_head_dim)
+        h = h + tm_out
+        hn2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
+        cm_out, shift_cm = rw.channelmix_apply(bp["cm"], hn2, st["shift_cm"])
+        new_state = {"S": S_new, "shift_tm": shift_tm, "shift_cm": shift_cm}
+        return h + cm_out, _store(cache, new_state, mode)
     window = cfg.window_size if kind == "L" else 0
     hn = rmsnorm(bp["norm1"], h, cfg.norm_eps)
     if mode == "decode":
@@ -144,7 +202,7 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
             bp["attn"], hn, cfg=cfg, positions=positions, causal=True,
             window=window, kv_override=(k_buf, v_buf, kpos), chunk=chunk)
         new_cache = cache
-    elif mode == "prefill":
+    else:
         attn_out, (k_full, v_full) = attention_block(
             bp["attn"], hn, cfg=cfg, positions=positions, causal=True,
             window=window, chunk=chunk)
@@ -159,11 +217,9 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
             new_cache = {"k": k_ring, "v": v_ring}
         else:
             new_cache = {"k": k_full, "v": v_full}
-    else:
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     h = h + attn_out
     h2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
-    h = h + mlp(bp["ffn"], h2)
+    h = h + _ffn_apply(bp, cfg, h2)
     return h, new_cache
 
 

@@ -1,0 +1,104 @@
+"""Mixture-of-Experts FFN on torch: capacity-based dispatch on one device.
+
+A port of ``moe_ffn`` in the reference's ``models/moe.py`` (the mesh-free
+path): the router's softmax with renormalised top-k, the stable rank of
+each assignment within its expert, the k-sliced scatter into an [E, C, D]
+capacity buffer, SwiGLU experts through the grouped-GEMM kernel
+(``kernels.moe_gmm``), and the gated gather back.  Assignments past an
+expert's capacity are dropped (their slot is clipped to C-1 and they add
+zero), so their tokens fall through the residual, as in GShard.
+
+The scatter accumulates (``index_add_``), as the reference's ``.at[].add``
+does: a dropped entry shares its clipped slot with a kept one, and a plain
+index assignment would let its zero overwrite the kept row.
+``moe_ffn_sharded`` (expert parallelism) is not ported (ROADMAP D2).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.moe_gmm.ops import moe_gmm
+from .layers import F32, dense_init
+
+
+def moe_init(gen, d_model: int, d_ff: int, n_experts: int, lead=()):
+    return {
+        "router": dense_init(gen, (d_model, n_experts), dtype=F32, lead=lead),
+        "experts": {
+            "w1": dense_init(gen, (n_experts, d_model, d_ff), lead=lead),   # gate
+            "w3": dense_init(gen, (n_experts, d_model, d_ff), lead=lead),   # up
+            "w2": dense_init(gen, (n_experts, d_ff, d_model), lead=lead),   # down
+        },
+    }
+
+
+def capacity(T: int, top_k: int, n_experts: int, factor: float,
+             multiple: int = 8) -> int:
+    c = int(math.ceil(T * top_k / n_experts * factor))
+    return max(multiple, ((c + multiple - 1) // multiple) * multiple)
+
+
+def _rank_positions(flat_e):
+    """Stable rank of each entry within its bucket (argsort + searchsorted)."""
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos = torch.empty_like(flat_e)
+    pos[order] = torch.arange(flat_e.numel(), device=flat_e.device) - first
+    return pos
+
+
+def _router(p, x2d, top_k: int):
+    logits = x2d.to(F32) @ p["router"].to(F32)                        # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)            # [T, K]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _aux_loss(probs, gate_idx, n_experts: int):
+    counts = torch.bincount(gate_idx.reshape(-1), minlength=n_experts).to(F32)
+    f_e = counts / gate_idx.numel()
+    return n_experts * torch.sum(f_e * probs.mean(dim=0))
+
+
+def _expert_mlp(w, buf):
+    """buf: [E, C, D] -> [E, C, D] through SwiGLU experts: three grouped
+    GEMMs, the gate and up products kept in fp32 and the down product
+    rounded to buf's dtype, where the reference's einsums round."""
+    g = moe_gmm(buf, w["w1"], out_dtype=F32)
+    u = moe_gmm(buf, w["w3"], out_dtype=F32)
+    h = (F.silu(g) * u).to(buf.dtype)
+    return moe_gmm(h, w["w2"])
+
+
+def moe_ffn(p, x2d, *, n_experts: int, top_k: int,
+            capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2d: [T, D] -> ([T, D], aux)."""
+    T, D = x2d.shape
+    E, K = n_experts, top_k
+    C = capacity(T, K, E, capacity_factor)
+    probs, gate_vals, gate_idx = _router(p, x2d, K)
+    aux = _aux_loss(probs, gate_idx, E)
+
+    flat_e = gate_idx.reshape(T * K)
+    pos = _rank_positions(flat_e)
+    keep = pos < C
+    slot = torch.clamp(pos, 0, C - 1)
+    row = flat_e * C + slot                                           # into [E*C]
+
+    buf = torch.zeros((E * C, D), dtype=x2d.dtype, device=x2d.device)
+    zero = torch.zeros((), dtype=x2d.dtype, device=x2d.device)
+    for k in range(K):      # k-sliced scatters cap the transient at [T, D]
+        buf.index_add_(0, row[k::K], torch.where(keep[k::K, None], x2d, zero))
+    y = _expert_mlp(p["experts"], buf.view(E, C, D)).view(E * C, D)
+    out = torch.zeros((T, D), dtype=F32, device=x2d.device)
+    for k in range(K):
+        w = (gate_vals[:, k] * keep[k::K]).to(F32)
+        out = out + y[row[k::K]].to(F32) * w[:, None]
+    return out.to(x2d.dtype), aux

@@ -1,0 +1,80 @@
+"""Griffin/RecurrentGemma recurrent block on torch: temporal conv + RG-LRU
+(arXiv:2402.19427).
+
+A port of the reference's ``models/rglru.py``.  Block: x -> (linear to
+rnn_width -> causal conv1d(4) -> RG-LRU) gated by a parallel GeLU branch ->
+output projection.  RG-LRU per channel:
+
+    r_t = sigmoid(W_a xi_t),  i_t = sigmoid(W_x xi_t)
+    log a_t = -c * softplus(Lambda) * r_t          (c = 8)
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * xi_t)
+
+The gate arithmetic runs as batched tensor operations; the time recurrence
+runs in the RG-LRU scan kernel (``kernels.rglru_scan``), for a prompt and
+for a single decode token alike.  The GeLU is the tanh approximation, which
+is what ``jax.nn.gelu`` computes by default.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.rglru_scan.ops import rglru_scan as rglru_kernel
+from .layers import BF16, F32, dense_init
+
+RGLRU_C = 8.0
+
+
+def rglru_init(gen, d_model: int, width: int, conv_width: int = 4, lead=()):
+    return {
+        "w_in": dense_init(gen, (d_model, width), lead=lead),
+        "w_gate_branch": dense_init(gen, (d_model, width), lead=lead),
+        "conv": dense_init(gen, (conv_width, width), lead=lead),
+        "w_a": dense_init(gen, (width, width), lead=lead),
+        "w_x": dense_init(gen, (width, width), lead=lead),
+        "lam": torch.full(tuple(lead) + (width,), 0.65, dtype=F32, device=gen.device),
+        "out_proj": dense_init(gen, (width, d_model), lead=lead),
+    }
+
+
+def causal_conv1d(x, kernel, prev):
+    """x: [B, T, W]; kernel: [Cw, W]; prev: [B, Cw-1, W] carry-in.  Depthwise,
+    summed in fp32.  Returns (out [B, T, W] in x's dtype, carry-out)."""
+    cw = kernel.shape[0]
+    T = x.shape[1]
+    xp = torch.cat([prev.to(x.dtype), x], dim=1)               # [B, T+Cw-1, W]
+    out = torch.zeros(x.shape, dtype=F32, device=x.device)
+    for i in range(cw):
+        out = out + xp[:, i:i + T].to(F32) * kernel[cw - 1 - i].to(F32)
+    return out.to(x.dtype), xp[:, xp.shape[1] - (cw - 1):]
+
+
+def rglru_scan(xi, r, i_gate, lam, h0):
+    """xi, r, i_gate: [B, T, W]; lam: [W]; h0: [B, W] -> (y [B, T, W], hT)."""
+    log_a = (-RGLRU_C * F.softplus(lam))[None, None, :] * r.to(F32)
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (i_gate.to(F32) * xi.to(F32))
+    return rglru_kernel(a, gated, h0)
+
+
+def rglru_block_apply(p, x, state):
+    """x: [B, T, D]; state: {h: [B, W], conv: [B, Cw-1, W]}.
+    Returns (out, new state) with fresh state tensors."""
+    xi = x @ p["w_in"]
+    xi, conv_state = causal_conv1d(xi, p["conv"], state["conv"])
+    r = torch.sigmoid((xi @ p["w_a"]).to(F32))
+    i_gate = torch.sigmoid((xi @ p["w_x"]).to(F32))
+    y, hT = rglru_scan(xi, r, i_gate, p["lam"], state["h"])
+    gate = F.gelu((x @ p["w_gate_branch"]).to(F32), approximate="tanh")
+    out = (y * gate).to(x.dtype) @ p["out_proj"]
+    return out, {"h": hT, "conv": conv_state}
+
+
+def rglru_state_init(batch: int, width: int, conv_width: int = 4, device=None,
+                     lead=()):
+    return {
+        "h": torch.zeros(tuple(lead) + (batch, width), dtype=F32, device=device),
+        "conv": torch.zeros(tuple(lead) + (batch, conv_width - 1, width), dtype=BF16,
+                            device=device),
+    }

@@ -1,0 +1,146 @@
+"""RWKV-6 "Finch" blocks on torch: data-dependent-decay WKV recurrence
+(arXiv:2404.05892).
+
+A port of the reference's ``models/rwkv.py``.  Time-mix: token shift with
+dynamic (LoRA) interpolation for r/k/v/w/g, the WKV linear-attention state
+S_t = diag(w_t) S_{t-1} + k_t^T v_t with bonus u, a per-head norm and a silu
+gate.  Channel-mix: token shift + squared-ReLU FFN with a receptance gate.
+
+``timemix_apply`` runs the recurrence in the WKV6 kernel (``kernels.wkv6``)
+for every T: the reference picks its chunked scan for a prompt and the plain
+scan for one token, and both are the exact recurrence, which is what the
+kernel computes.  ``wkv_scan`` and ``wkv_chunked`` are the plain versions of
+those two, kept for the tests.  Dtypes follow the reference: ``mu``,
+``mix_b`` and ``wo`` bf16; ``w0``, ``decay_b`` and ``u`` fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.rwkv6_scan.ops import wkv6
+from .layers import BF16, F32, dense_init, rmsnorm, rmsnorm_init
+
+LORA_MIX = 32
+LORA_DECAY = 64
+
+
+def timemix_init(gen, d_model: int, head_dim: int, lead=()):
+    A = d_model  # attention dim == d_model (as in the released models)
+    dev = gen.device
+    lead = tuple(lead)
+    return {
+        "mu": torch.full(lead + (5, d_model), 0.5, dtype=BF16, device=dev),  # r,k,v,w,g
+        "mix_a": dense_init(gen, (d_model, 5 * LORA_MIX), lead=lead),
+        "mix_b": dense_init(gen, (5, LORA_MIX, d_model), lead=lead),
+        "wr": dense_init(gen, (d_model, A), lead=lead),
+        "wk": dense_init(gen, (d_model, A), lead=lead),
+        "wv": dense_init(gen, (d_model, A), lead=lead),
+        "wg": dense_init(gen, (d_model, A), lead=lead),
+        "wo": dense_init(gen, (A, d_model), lead=lead),
+        "w0": torch.full(lead + (A,), -6.0, dtype=F32, device=dev),          # decay base
+        "decay_a": dense_init(gen, (d_model, LORA_DECAY), lead=lead),
+        "decay_b": dense_init(gen, (LORA_DECAY, A), dtype=F32, lead=lead),
+        "u": torch.full(lead + (A,), 0.5, dtype=F32, device=dev),            # bonus
+        "ln_out": rmsnorm_init(A, dev, lead),
+    }
+
+
+def channelmix_init(gen, d_model: int, d_ff: int, lead=()):
+    dev = gen.device
+    lead = tuple(lead)
+    return {
+        "mu_k": torch.full(lead + (d_model,), 0.5, dtype=BF16, device=dev),
+        "mu_r": torch.full(lead + (d_model,), 0.5, dtype=BF16, device=dev),
+        "wk": dense_init(gen, (d_model, d_ff), lead=lead),
+        "wv": dense_init(gen, (d_ff, d_model), lead=lead),
+        "wr": dense_init(gen, (d_model, d_model), lead=lead),
+    }
+
+
+def _token_shift(x, prev):
+    """[B, T, D] -> the previous token at each position; prev: [B, D] carry-in."""
+    return torch.cat([prev[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
+
+
+def wkv_scan(r, k, v, w, u, s0):
+    """Exact WKV6 recurrence, a Python loop over time (plain version).
+
+    r, k, v: [B, T, H, N]; w: [B, T, H, N] decay in (0, 1); u: [H, N];
+    s0: [B, H, N, N].  Returns (out [B, T, H, N] f32, sT).  S[i, j]: key dim
+    i, value dim j.
+    """
+    S = s0.to(F32)
+    r, k, v, w = (a.to(F32) for a in (r, k, v, w))
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]             # [B, H, N, N]
+        outs.append(torch.einsum("bhi,bhij->bhj", r[:, t],
+                                 S + u[None, :, :, None] * kv))
+        S = w[:, t, :, :, None] * S + kv
+    return torch.stack(outs, 1), S
+
+
+def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128):
+    """WKV6 as an outer loop over time chunks of the exact scan: the
+    reference's prompt path, numerically the same as ``wkv_scan``."""
+    B, T, H, N = r.shape
+    chunk = min(chunk, T)
+    assert T % chunk == 0, (T, chunk)
+    S = s0.to(F32)
+    outs = []
+    for start in range(0, T, chunk):
+        sl = slice(start, start + chunk)
+        out, S = wkv_scan(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, S)
+        outs.append(out)
+    return torch.cat(outs, 1), S
+
+
+def timemix_apply(p, x, shift_prev, s0, head_dim: int):
+    """x: [B, T, D].  Returns (out, new_shift [B, D], sT)."""
+    B, T, D = x.shape
+    H = D // head_dim
+    xx = _token_shift(x, shift_prev) - x
+    mixed = x + xx * p["mu"][0]  # base for the dynamic mix coefficients
+    dyn = torch.tanh(mixed @ p["mix_a"]).reshape(B, T, 5, LORA_MIX)
+    dyn = torch.einsum("btzl,zld->btzd", dyn, p["mix_b"])
+    x_r, x_k, x_v, x_w, x_g = (x + xx * (p["mu"][z] + dyn[:, :, z]) for z in range(5))
+
+    r = (x_r @ p["wr"]).reshape(B, T, H, head_dim)
+    k = (x_k @ p["wk"]).reshape(B, T, H, head_dim)
+    v = (x_v @ p["wv"]).reshape(B, T, H, head_dim)
+    g = F.silu((x_g @ p["wg"]).to(F32))
+    logw = p["w0"] + torch.tanh(x_w.to(F32) @ p["decay_a"].to(F32)) @ p["decay_b"]
+    w = torch.exp(-torch.exp(logw)).reshape(B, T, H, head_dim)   # decay in (0, 1)
+    u = p["u"].reshape(H, head_dim)
+
+    out, sT = wkv6(r, k, v, w, u, s0)
+    out = rmsnorm(p["ln_out"], out.reshape(B, T, D))
+    out = (out.to(F32) * g).to(x.dtype) @ p["wo"]
+    return out, x[:, -1, :], sT
+
+
+def timemix_step(p, x1, shift_prev, s0, head_dim: int):
+    """Single-token decode step.  x1: [B, D].  Returns (out, shift, S)."""
+    out, shift, sT = timemix_apply(p, x1[:, None, :], shift_prev, s0, head_dim)
+    return out[:, 0, :], shift, sT
+
+
+def channelmix_apply(p, x, shift_prev):
+    xx = _token_shift(x, shift_prev) - x
+    x_k = x + xx * p["mu_k"]
+    x_r = x + xx * p["mu_r"]
+    k = torch.square(torch.relu((x_k @ p["wk"]).to(F32))).to(x.dtype)
+    out = torch.sigmoid((x_r @ p["wr"]).to(F32)).to(x.dtype) * (k @ p["wv"])
+    return out, x[:, -1, :]
+
+
+def rwkv_state_init(batch: int, d_model: int, head_dim: int, device=None, lead=()):
+    H = d_model // head_dim
+    lead = tuple(lead)
+    return {
+        "S": torch.zeros(lead + (batch, H, head_dim, head_dim), dtype=F32, device=device),
+        "shift_tm": torch.zeros(lead + (batch, d_model), dtype=BF16, device=device),
+        "shift_cm": torch.zeros(lead + (batch, d_model), dtype=BF16, device=device),
+    }

@@ -1,0 +1,240 @@
+"""The port's MoE, RG-LRU and RWKV6 blocks against the reference's jnp
+functions on shared weights.
+
+Inputs and weights are made with numpy from a seed and rounded to the
+working type on each side (both round to nearest even).  Tolerances are
+relative to the largest reference value: 2e-5 in float32 (summation order),
+2e-2 in bfloat16 (where the two frameworks round intermediates).  Carried
+states are compared beside the outputs.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import moe as jmoe
+from repro.models import rglru as jrg
+from repro.models import rwkv as jrw
+from repro_torch.models import moe as tmoe
+from repro_torch.models import rglru as trg
+from repro_torch.models import rwkv as trw
+
+DTYPES = ["f32", "bf16"]
+TOL = {"f32": 2e-5, "bf16": 2e-2}
+
+
+def rel_err(a, b):
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return np.abs(a - b).max() / (np.abs(b).max() + 1e-9)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def both(a, dtype):
+    """(jax array, torch tensor) of one float32 numpy array in ``dtype``
+    ("f32" or "bf16")."""
+    bf = dtype == "bf16"
+    return (jnp.asarray(a).astype(jnp.bfloat16 if bf else jnp.float32),
+            torch.from_numpy(np.asarray(a, np.float32)).to(
+                torch.bfloat16 if bf else torch.float32))
+
+
+def tree_both(tree, dtype, f32_keys=()):
+    """``both`` over a nested weight dict; leaves named in ``f32_keys`` stay
+    float32 whatever ``dtype``, as the reference keeps them."""
+    j, t = {}, {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            j[k], t[k] = tree_both(v, dtype, f32_keys)
+        else:
+            j[k], t[k] = both(v, "f32" if k in f32_keys else dtype)
+    return j, t
+
+
+def check(out_t, out_j, dtype, what=""):
+    assert tuple(out_t.shape) == tuple(out_j.shape), what
+    assert rel_err(_np(out_t), _np(out_j)) < TOL[dtype], what
+
+
+# ------------------------------------------------------------------ MoE
+def moe_weights(rng, D, Fd, E):
+    return {
+        "router": rng.standard_normal((D, E)).astype(np.float32) / np.sqrt(D),
+        "experts": {
+            "w1": rng.standard_normal((E, D, Fd)).astype(np.float32) / np.sqrt(D),
+            "w3": rng.standard_normal((E, D, Fd)).astype(np.float32) / np.sqrt(D),
+            "w2": rng.standard_normal((E, Fd, D)).astype(np.float32) / np.sqrt(Fd),
+        },
+    }
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,E,K,factor", [
+    (12, 4, 2, 1.25),       # reduced olmoe
+    (40, 8, 2, 0.25),       # capacity drops: C = 8 slots for 10 per expert
+    (1, 8, 8, 1.25),        # one decode token, every expert chosen
+])
+def test_moe_ffn(T, E, K, factor, dtype):
+    rng = np.random.default_rng(0)
+    D, Fd = 32, 48
+    pj, pt = tree_both(moe_weights(rng, D, Fd, E), dtype, f32_keys=("router",))
+    xj, xt = both(rng.standard_normal((T, D)).astype(np.float32), dtype)
+    kw = dict(n_experts=E, top_k=K, capacity_factor=factor)
+    out_j, aux_j = jmoe.moe_ffn(pj, xj, **kw)
+    out_t, aux_t = tmoe.moe_ffn(pt, xt, **kw)
+    check(out_t, out_j, dtype)
+    assert abs(float(aux_t) - float(aux_j)) < 1e-5 * max(1.0, abs(float(aux_j)))
+
+
+def test_moe_rank_positions_drop_past_capacity():
+    """The stable rank of each assignment within its expert equals the
+    reference's, and at capacity factor 0.25 some ranks pass the capacity
+    (the (40, 8, 2, 0.25) case of ``test_moe_ffn`` holds the output of such
+    drops to the reference)."""
+    T, E, K = 40, 8, 2
+    rng = np.random.default_rng(3)
+    flat = rng.integers(0, E, T * K)
+    pos_j = np.asarray(jmoe._rank_positions(jnp.asarray(flat), E))
+    pos_t = tmoe._rank_positions(torch.from_numpy(flat)).numpy()
+    assert np.array_equal(pos_t, pos_j)
+    C = tmoe.capacity(T, K, E, 0.25)
+    assert C == jmoe.capacity(T, K, E, 0.25) and (pos_t >= C).any()
+
+
+# --------------------------------------------------------------- RG-LRU
+def rglru_weights(rng, D, W, cw=4):
+    return {
+        "w_in": rng.standard_normal((D, W)).astype(np.float32) / np.sqrt(D),
+        "w_gate_branch": rng.standard_normal((D, W)).astype(np.float32) / np.sqrt(D),
+        "conv": rng.standard_normal((cw, W)).astype(np.float32) / 2,
+        "w_a": rng.standard_normal((W, W)).astype(np.float32) / np.sqrt(W),
+        "w_x": rng.standard_normal((W, W)).astype(np.float32) / np.sqrt(W),
+        "lam": (0.65 + 0.1 * rng.standard_normal(W)).astype(np.float32),
+        "out_proj": rng.standard_normal((W, D)).astype(np.float32) / np.sqrt(W),
+    }
+
+
+def rglru_state(rng, B, W, cw=4):
+    return {"h": rng.standard_normal((B, W)).astype(np.float32),
+            "conv": rng.standard_normal((B, cw - 1, W)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T", [1, 2, 7])
+def test_causal_conv1d_with_carry(T, dtype):
+    rng = np.random.default_rng(1)
+    B, W = 2, 24
+    xj, xt = both(rng.standard_normal((B, T, W)).astype(np.float32), dtype)
+    kj, kt = both(rng.standard_normal((4, W)).astype(np.float32), dtype)
+    pj, pt = both(rng.standard_normal((B, 3, W)).astype(np.float32), dtype)
+    oj, cj = jrg.causal_conv1d(xj, kj, pj)
+    ot, ct = trg.causal_conv1d(xt, kt, pt)
+    check(ot, oj, dtype)
+    check(ct, cj, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T", [1, 9])
+def test_rglru_block_apply_with_state(T, dtype):
+    rng = np.random.default_rng(2)
+    B, D, W = 2, 32, 24
+    pj, pt = tree_both(rglru_weights(rng, D, W), dtype, f32_keys=("lam",))
+    st = rglru_state(rng, B, W)
+    sj = {"h": jnp.asarray(st["h"]), "conv": both(st["conv"], dtype)[0]}
+    s_t = {"h": torch.from_numpy(st["h"]), "conv": both(st["conv"], dtype)[1]}
+    xj, xt = both(rng.standard_normal((B, T, D)).astype(np.float32), dtype)
+    out_j, new_j = jrg.rglru_block_apply(pj, xj, sj)
+    out_t, new_t = trg.rglru_block_apply(pt, xt, s_t)
+    check(out_t, out_j, dtype, "out")
+    check(new_t["h"], new_j["h"], dtype, "h")
+    check(new_t["conv"], new_j["conv"], dtype, "conv")
+    assert new_t["h"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------- RWKV6
+def timemix_weights(rng, D):
+    L, LD = trw.LORA_MIX, trw.LORA_DECAY
+    return {
+        "mu": rng.uniform(0.2, 0.8, (5, D)).astype(np.float32),
+        "mix_a": rng.standard_normal((D, 5 * L)).astype(np.float32) / np.sqrt(D),
+        "mix_b": rng.standard_normal((5, L, D)).astype(np.float32) / np.sqrt(L),
+        "wr": rng.standard_normal((D, D)).astype(np.float32) / np.sqrt(D),
+        "wk": rng.standard_normal((D, D)).astype(np.float32) / np.sqrt(D),
+        "wv": rng.standard_normal((D, D)).astype(np.float32) / np.sqrt(D),
+        "wg": rng.standard_normal((D, D)).astype(np.float32) / np.sqrt(D),
+        "wo": rng.standard_normal((D, D)).astype(np.float32) / np.sqrt(D),
+        "w0": np.full((D,), -2.0, np.float32),
+        "decay_a": rng.standard_normal((D, LD)).astype(np.float32) / np.sqrt(D),
+        "decay_b": rng.standard_normal((LD, D)).astype(np.float32) / np.sqrt(LD),
+        "u": rng.uniform(0.0, 1.0, D).astype(np.float32),
+        "ln_out": {"scale": rng.uniform(0.5, 1.5, D).astype(np.float32)},
+    }
+
+
+TM_F32 = ("w0", "decay_b", "u")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T", [1, 8])
+def test_timemix_apply_with_state(T, dtype):
+    rng = np.random.default_rng(4)
+    B, D, N = 2, 64, 16
+    pj, pt = tree_both(timemix_weights(rng, D), dtype, f32_keys=TM_F32)
+    xj, xt = both(rng.standard_normal((B, T, D)).astype(np.float32), dtype)
+    shj, sht = both(rng.standard_normal((B, D)).astype(np.float32), dtype)
+    s0 = 0.3 * rng.standard_normal((B, D // N, N, N)).astype(np.float32)
+    out_j, shift_j, sT_j = jrw.timemix_apply(pj, xj, shj, jnp.asarray(s0), N)
+    out_t, shift_t, sT_t = trw.timemix_apply(pt, xt, sht, torch.from_numpy(s0), N)
+    check(out_t, out_j, dtype, "out")
+    check(shift_t, shift_j, dtype, "shift")
+    check(sT_t, sT_j, dtype, "state")
+    if T == 1:
+        o1, sh1, s1 = trw.timemix_step(pt, xt[:, 0], sht, torch.from_numpy(s0), N)
+        assert torch.equal(o1, out_t[:, 0]) and torch.equal(s1, sT_t)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_channelmix_apply(dtype):
+    rng = np.random.default_rng(5)
+    B, T, D, Fd = 2, 6, 32, 48
+    w = {"mu_k": rng.uniform(0.2, 0.8, D).astype(np.float32),
+         "mu_r": rng.uniform(0.2, 0.8, D).astype(np.float32),
+         "wk": rng.standard_normal((D, Fd)).astype(np.float32) / np.sqrt(D),
+         "wv": rng.standard_normal((Fd, D)).astype(np.float32) / np.sqrt(Fd),
+         "wr": rng.standard_normal((D, D)).astype(np.float32) / np.sqrt(D)}
+    pj, pt = tree_both(w, dtype)
+    xj, xt = both(rng.standard_normal((B, T, D)).astype(np.float32), dtype)
+    shj, sht = both(rng.standard_normal((B, D)).astype(np.float32), dtype)
+    out_j, sh_j = jrw.channelmix_apply(pj, xj, shj)
+    out_t, sh_t = trw.channelmix_apply(pt, xt, sht)
+    check(out_t, out_j, dtype)
+    check(sh_t, sh_j, dtype)
+
+
+def wkv_inputs(B, T, H, N, seed=6):
+    rng = np.random.default_rng(seed)
+    r, k, v = (0.5 * rng.standard_normal((B, T, H, N)).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(0.5 * rng.standard_normal((B, T, H, N)) - 2.0)).astype(np.float32)
+    u = 0.3 * rng.standard_normal((H, N)).astype(np.float32)
+    s0 = 0.2 * rng.standard_normal((B, H, N, N)).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("T,chunk", [(64, 16), (48, 48)])
+def test_wkv_chunked_matches_scan_and_reference(T, chunk):
+    arrs = wkv_inputs(2, T, 2, 16)
+    tt = [torch.from_numpy(a) for a in arrs]
+    out_s, s_s = trw.wkv_scan(*tt)
+    out_c, s_c = trw.wkv_chunked(*tt, chunk=chunk)
+    assert rel_err(out_c.numpy(), out_s.numpy()) < 2e-5
+    assert rel_err(s_c.numpy(), s_s.numpy()) < 2e-5
+    out_j, s_j = jrw.wkv_scan(*(jnp.asarray(a) for a in arrs))
+    assert rel_err(out_s.numpy(), out_j) < 2e-5
+    assert rel_err(s_s.numpy(), s_j) < 2e-5

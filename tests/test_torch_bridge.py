@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_arch
@@ -68,3 +69,23 @@ def test_float32_leaves_round_trip():
     back = bridge.params_to_numpy(port)
     assert np.array_equal(back["a"], ref["a"])
     assert back["b"][0].shape == () and int(back["b"][0]) == 7
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-3b"])
+def test_moe_and_recurrent_trees_round_trip(arch):
+    """The MoE (f32 router beside bf16 experts), RG-LRU (f32 ``lam``) and
+    RWKV6 (f32 decay and bonus) params, and the f32 recurrent states beside
+    bf16 shifts and conv carries, cross bit-exact with their dtypes kept."""
+    cfg = get_arch(arch).reduced()
+    params = init_params(cfg, jax.random.PRNGKey(2))
+    tokens = jnp.asarray(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 12)),
+                         jnp.int32)
+    _, caches = make_prefill_step(cfg, ShapeConfig("t", "prefill", 64, 1))(
+        params, {"tokens": tokens})
+    for ref in (params, caches):
+        ref = jax.tree_util.tree_map(np.asarray, ref)
+        port = bridge.params_from_numpy(ref, device="cpu")
+        for path, leaf in _leaves(port):
+            want = dict(_leaves(ref))[path].dtype
+            assert (leaf.dtype == torch.bfloat16) == (want == BF16), path
+        _assert_bit_exact(ref, bridge.params_to_numpy(port, bf16_dtype=BF16))

@@ -4,7 +4,12 @@ path, and (on a CUDA card only) each kernel against its plain version.
 Shapes and tolerances are those of ``tests/test_kernels.py``: 2e-5 relative
 in float32 and 2e-2 in bfloat16 for attention (bf16 rounding of the inputs
 and of the output dominates); exact (max |delta| == 0.0) for the dispatch
-scores, whose 0/1 and dyadic operands make every fp32 partial sum exact.
+scores, whose 0/1 and dyadic operands make every fp32 partial sum exact;
+1e-5 in float32 and 3e-2 in bfloat16 for the grouped expert GEMM; 1e-5 for
+the RG-LRU scan; 1e-4 for WKV6, and 1e-3 (and finite) under strong decay.
+The two scans are also checked with a non-zero carried-in state and on
+their final state, which the port's kernels return and the TPU kernels do
+not (those start from zero: the Pallas comparisons use a zero state).
 """
 
 import numpy as np
@@ -18,6 +23,9 @@ from repro_torch.kernels.dispatch_score.ops import (
     dispatch_scores_ref,
 )
 from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
+from repro_torch.kernels.moe_gmm.ops import gmm_ref, moe_gmm
+from repro_torch.kernels.rglru_scan.ops import rglru_ref, rglru_scan
+from repro_torch.kernels.rwkv6_scan.ops import wkv6, wkv6_ref
 
 ATTN_SHAPES = [
     (1, 128, 128, 2, 2, 64, True, 0),
@@ -179,6 +187,146 @@ def test_dispatch_score_update_empty_epoch_is_identity():
     assert dispatch_score_update.launches == before
 
 
+# ------------------------------------------------------------ moe gmm (K4)
+GMM_SHAPES = [(2, 128, 256, 128), (4, 256, 512, 256), (8, 128, 128, 512)]
+GMM_TOL = {"f32": 1e-5, "bf16": 3e-2}
+
+
+def gmm_inputs(E, C, D, F, seed=2):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((E, C, D)).astype(np.float32),
+            rng.standard_normal((E, D, F)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("E,C,D,F", GMM_SHAPES)
+def test_gmm_ref_matches_jax_ref(jref, E, C, D, F, dtype):
+    kernels, jnp = jref
+    arrs = gmm_inputs(E, C, D, F)
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    ref = kernels.gmm_ref(*(jnp.asarray(a).astype(jdt) for a in arrs))
+    x, w = _torch(arrs, dtype)
+    out = gmm_ref(x, w)
+    assert out.dtype == x.dtype
+    assert rel_err(_np(out), _np(ref)) < GMM_TOL[dtype]
+    # the fp32 output the MoE FFN asks for is the unrounded sum
+    exact = np.einsum("ecd,edf->ecf", *(_np(t).astype(np.float64) for t in (x, w)))
+    assert rel_err(_np(gmm_ref(x, w, torch.float32)), exact) < 1e-5
+
+
+def test_gmm_ref_matches_pallas_interpret(jref):
+    kernels, jnp = jref
+    x, w = gmm_inputs(2, 128, 256, 128, seed=3)
+    pallas = kernels.moe_gmm(jnp.asarray(x), jnp.asarray(w), block_c=128,
+                             block_f=128, block_d=128, interpret=True)
+    out = gmm_ref(torch.from_numpy(x), torch.from_numpy(w))
+    assert rel_err(out.numpy(), pallas) < 1e-5
+
+
+# ---------------------------------------------------------- rglru scan (K5)
+RGLRU_SHAPES = [(1, 128, 256), (2, 256, 512), (3, 512, 128)]
+
+
+def rglru_inputs(B, T, W, seed=3):
+    rng = np.random.default_rng(seed)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, W))))
+    return (a.astype(np.float32), rng.standard_normal((B, T, W)).astype(np.float32),
+            rng.standard_normal((B, W)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,T,W", RGLRU_SHAPES)
+def test_rglru_ref_matches_jax_ref_with_state(jref, B, T, W):
+    kernels, jnp = jref
+    a, b, h0 = rglru_inputs(B, T, W)
+    for init in (None, h0):
+        y_j, h_j = kernels.rglru_ref(jnp.asarray(a), jnp.asarray(b),
+                                     None if init is None else jnp.asarray(init))
+        y, h = rglru_ref(torch.from_numpy(a), torch.from_numpy(b),
+                         None if init is None else torch.from_numpy(init))
+        assert rel_err(y.numpy(), y_j) < 1e-5
+        assert rel_err(h.numpy(), h_j) < 1e-5
+
+
+def test_rglru_ref_matches_pallas_interpret(jref):
+    kernels, jnp = jref
+    a, b, _ = rglru_inputs(1, 128, 256, seed=4)
+    pallas = kernels.rglru_scan(jnp.asarray(a), jnp.asarray(b), block_w=128,
+                                chunk=64, interpret=True)
+    y, _ = rglru_ref(torch.from_numpy(a), torch.from_numpy(b))
+    assert rel_err(y.numpy(), pallas) < 1e-5
+
+
+# ----------------------------------------------------------------- wkv6 (K6)
+WKV_SHAPES = [(1, 128, 2, 64), (2, 256, 2, 64), (1, 256, 4, 64)]
+
+
+def wkv_inputs(B, T, H, N, seed=4, decay=None):
+    """The decay follows RWKV6's w = exp(-exp(x)), x ~ N(-2, 0.5), as the
+    reference's kernel test draws it, or is the constant ``decay``."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (0.5 * rng.standard_normal((B, T, H, N)) for _ in range(3))
+    w = (np.exp(-np.exp(0.5 * rng.standard_normal((B, T, H, N)) - 2.0))
+         if decay is None else np.full((B, T, H, N), decay))
+    u = 0.3 * np.ones((H, N))
+    s0 = 0.5 * rng.standard_normal((B, H, N, N))
+    return [x.astype(np.float32) for x in (r, k, v, w, u, s0)]
+
+
+@pytest.mark.parametrize("B,T,H,N", WKV_SHAPES)
+def test_wkv6_ref_matches_jax_ref_with_state(jref, B, T, H, N):
+    kernels, jnp = jref
+    *arrs, s0 = wkv_inputs(B, T, H, N)
+    for init in (None, s0):
+        o_j, s_j = kernels.wkv6_ref(*(jnp.asarray(a) for a in arrs),
+                                    None if init is None else jnp.asarray(init))
+        o, s = wkv6_ref(*(torch.from_numpy(a) for a in arrs),
+                        None if init is None else torch.from_numpy(init))
+        assert rel_err(o.numpy(), o_j) < 1e-4
+        assert rel_err(s.numpy(), s_j) < 1e-4
+
+
+def test_wkv6_ref_strong_decay_matches_jax_ref(jref):
+    kernels, jnp = jref
+    *arrs, s0 = wkv_inputs(1, 128, 1, 64, seed=5, decay=0.01)
+    o_j, s_j = kernels.wkv6_ref(*(jnp.asarray(a) for a in arrs), jnp.asarray(s0))
+    o, s = wkv6_ref(*(torch.from_numpy(a) for a in arrs), torch.from_numpy(s0))
+    assert np.isfinite(o.numpy()).all() and np.isfinite(s.numpy()).all()
+    assert rel_err(o.numpy(), o_j) < 1e-3
+    assert rel_err(s.numpy(), s_j) < 1e-3
+
+
+def test_wkv6_ref_matches_pallas_interpret(jref):
+    kernels, jnp = jref
+    r, k, v, w, u, _ = wkv_inputs(1, 128, 2, 64, seed=6)
+    pallas = kernels.wkv6(*(jnp.asarray(a) for a in (r, k, v, w, u)), chunk=32,
+                          interpret=True)
+    out, _ = wkv6_ref(*(torch.from_numpy(a) for a in (r, k, v, w, u)))
+    assert rel_err(out.numpy(), pallas) < 1e-4
+
+
+def test_recurrence_wrappers_on_cpu_are_the_plain_versions():
+    x, w = (torch.from_numpy(a) for a in gmm_inputs(2, 8, 16, 24))
+    a, b, h0 = (torch.from_numpy(t) for t in rglru_inputs(2, 5, 12))
+    *arrs, s0 = (torch.from_numpy(t) for t in wkv_inputs(1, 6, 2, 16))
+    counts = (moe_gmm.launches, rglru_scan.launches, wkv6.launches)
+    for dt in (None, torch.float32, torch.bfloat16):
+        assert torch.equal(moe_gmm(x, w, dt), gmm_ref(x, w, dt))
+    for got, want in ((rglru_scan(a, b, h0), rglru_ref(a, b, h0)),
+                      (wkv6(*arrs, s0), wkv6_ref(*arrs, s0))):
+        assert all(torch.equal(g, r) for g, r in zip(got, want))
+    assert (moe_gmm.launches, rglru_scan.launches, wkv6.launches) == counts
+
+
+def test_recurrence_wrappers_reject_bad_shapes():
+    with pytest.raises(ValueError):
+        moe_gmm(torch.zeros(2, 3, 4), torch.zeros(2, 5, 6))
+    with pytest.raises(ValueError):
+        rglru_scan(torch.zeros(1, 3, 4), torch.zeros(1, 3, 4), torch.zeros(1, 5))
+    z = torch.zeros(1, 3, 2, 16)
+    with pytest.raises(ValueError):
+        wkv6(z, z, z, z, torch.zeros(2, 8))
+
+
 # --------------------------------------------------------- on the card only
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -211,3 +359,70 @@ def test_dispatch_kernels_exact_on_card(cuda_device, W, O, E):
                                   for a in (scores, mult, delta)))
     exact = scores.astype(np.float64) + mult.astype(np.float64) @ delta
     assert np.abs(out.cpu().numpy() - exact).max() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_kernel_head_dim_256_on_card(cuda_device, D):
+    """recurrentgemma's local attention: MQA with head dim 256, window 2048."""
+    for S in (16, 512):
+        q, k, v = _torch(attn_inputs(1, S, S, 16, 1, D), "bf16", cuda_device)
+        out = flash_attention(q, k, v, causal=True, window=2048)
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, causal=True, window=2048)
+        assert rel_err(_np(out), _np(ref)) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("E,C,D,F", GMM_SHAPES + [(64, 8, 256, 128), (4, 13, 96, 72)])
+def test_gmm_kernel_matches_plain_on_card(cuda_device, E, C, D, F, dtype):
+    x, w = _torch(gmm_inputs(E, C, D, F), dtype, cuda_device)
+    for out_dtype in (None, torch.float32):
+        before = moe_gmm.launches
+        out = moe_gmm(x, w, out_dtype)
+        torch.cuda.synchronize()
+        assert moe_gmm.launches == before + 1
+        assert out.dtype == (out_dtype or x.dtype)
+        assert rel_err(_np(out), _np(gmm_ref(x, w, out_dtype))) < GMM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,W", RGLRU_SHAPES + [(1, 1, 4096), (2, 17, 300)])
+def test_rglru_kernel_matches_plain_on_card(cuda_device, B, T, W):
+    a, b, h0 = (torch.from_numpy(t).to(cuda_device) for t in rglru_inputs(B, T, W))
+    for init in (None, h0):
+        y, h = rglru_scan(a, b, init)
+        torch.cuda.synchronize()
+        y_r, h_r = rglru_ref(a, b, init)
+        assert rel_err(_np(y), _np(y_r)) < 1e-5
+        assert rel_err(_np(h), _np(h_r)) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,N", WKV_SHAPES + [(1, 1, 40, 64), (2, 7, 3, 16),
+                                                  (1, 5, 2, 32)])
+def test_wkv6_kernel_matches_plain_on_card(cuda_device, B, T, H, N):
+    *arrs, s0 = (torch.from_numpy(t).to(cuda_device) for t in wkv_inputs(B, T, H, N))
+    for init in (None, s0):
+        out, s = wkv6(*arrs, init)
+        torch.cuda.synchronize()
+        o_r, s_r = wkv6_ref(*arrs, init)
+        assert rel_err(_np(out), _np(o_r)) < 1e-4
+        assert rel_err(_np(s), _np(s_r)) < 1e-4
+    r, k, v, w, u = arrs          # bf16 r, k, v as the model passes them
+    bf = [t.to(torch.bfloat16) for t in (r, k, v)]
+    out, s = wkv6(*bf, w, u, s0)
+    o_r, s_r = wkv6_ref(*bf, w, u, s0)
+    assert rel_err(_np(out), _np(o_r)) < 1e-4 and rel_err(_np(s), _np(s_r)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_strong_decay_on_card(cuda_device):
+    *arrs, s0 = (torch.from_numpy(t).to(cuda_device)
+                 for t in wkv_inputs(1, 128, 1, 64, seed=5, decay=0.01))
+    out, s = wkv6(*arrs, s0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(s).all())
+    o_r, s_r = wkv6_ref(*arrs, s0)
+    assert rel_err(_np(out), _np(o_r)) < 1e-3 and rel_err(_np(s), _np(s_r)) < 1e-3

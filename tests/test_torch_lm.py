@@ -3,9 +3,21 @@ on the same (bridged) bf16 weights.
 
 internlm2 reduced is all 'A' blocks over a stacked ``groups`` axis; gemma3
 reduced is ``L x5 + A`` with a 16-token window, and its 24-token prompt
-wraps the 'L' ring.  Logits within 2e-2 of the largest reference logit (bf16
+wraps the 'L' ring.  olmoe reduced puts a 4-expert top-2 MoE FFN in every
+'A' block; recurrentgemma reduced is ``R, R, L`` plus a remainder 'R', with
+a 24-token prompt that wraps its 16-token window; rwkv6 reduced is four 'W'
+blocks.  The 8 decode steps catch a recurrent state that is not carried
+from step to step.  Logits within 2e-2 of the largest reference logit (bf16
 weights and activations, rounded at different places by the two
-frameworks), caches within the same tolerance, equal greedy tokens.
+frameworks), caches and states within the same tolerance, equal greedy
+tokens.
+
+The three families added with the MoE, RG-LRU and RWKV6 blocks are held
+against the reference evaluated op by op (``jax.disable_jit()``): under
+``jit`` XLA fuses elementwise chains on the CPU and drops bf16 roundings
+inside them, and the jitted reference then differs from its own op-by-op
+evaluation by up to 6.5e-2 on reduced rwkv6 and 3.0e-2 on reduced olmoe.
+Op by op, the port is exact on rwkv6 and within 1.6e-2 on the other two.
 """
 
 import jax
@@ -60,10 +72,15 @@ def assert_caches_close(t_tree, j_tree):
         assert rel_err(_np(t[k]), _np(j[k])) < 2e-2, k
 
 
-@pytest.fixture(scope="module", params=[("internlm2-1.8b", 12), ("gemma3-1b", 24)],
-                ids=["internlm2", "gemma3"])
+# (arch, prompt length, reference evaluated op by op)
+MODELS = [("internlm2-1.8b", 12, False), ("gemma3-1b", 24, False),
+          ("olmoe-1b-7b", 12, True), ("recurrentgemma-9b", 24, True),
+          ("rwkv6-3b", 12, True)]
+
+
+@pytest.fixture(scope="module", params=MODELS, ids=[m[0].split("-")[0] for m in MODELS])
 def model(request):
-    name, prompt_len = request.param
+    name, prompt_len, eager = request.param
     cfg_j, cfg_t = jax_get_arch(name).reduced(), get_arch(name).reduced()
     params_j = jax_init_params(cfg_j, jax.random.PRNGKey(0))
     params_t = bridge.params_from_numpy(jax.tree_util.tree_map(np.asarray, params_j),
@@ -71,11 +88,12 @@ def model(request):
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg_t.vocab_size, (1, prompt_len))
     shape = ShapeConfig("t", "prefill", CAP, 1)
-    lj, cj = jax.jit(jax_prefill_step(cfg_j, shape))(
-        params_j, {"tokens": jnp.asarray(tokens, jnp.int32)})
+    with jax.disable_jit(eager):
+        lj, cj = jax.jit(jax_prefill_step(cfg_j, shape))(
+            params_j, {"tokens": jnp.asarray(tokens, jnp.int32)})
     lt, ct = make_prefill_step(cfg_t, shape)(params_t, {"tokens": torch.from_numpy(tokens)})
     return dict(cfg_j=cfg_j, cfg_t=cfg_t, params_j=params_j, params_t=params_t,
-                tokens=tokens, prefill=(lj, cj, lt, ct))
+                tokens=tokens, eager=eager, prefill=(lj, cj, lt, ct))
 
 
 def test_prefill_logits_and_caches(model):
@@ -99,9 +117,11 @@ def test_teacher_forced_decode(model):
     pos = model["tokens"].shape[1]
     forced = np.random.default_rng(1).integers(0, V, 8)
     for step, tok in enumerate(forced):
-        lj, caches_j = dec_j(model["params_j"], {"token": jnp.asarray([tok], jnp.int32),
-                                                 "pos": jnp.asarray(pos + step, jnp.int32),
-                                                 "caches": caches_j})
+        with jax.disable_jit(model["eager"]):
+            lj, caches_j = dec_j(model["params_j"],
+                                 {"token": jnp.asarray([tok], jnp.int32),
+                                  "pos": jnp.asarray(pos + step, jnp.int32),
+                                  "caches": caches_j})
         lt, caches_t = dec_t(model["params_t"], {"token": torch.tensor([int(tok)]),
                                                  "pos": pos + step, "caches": caches_t})
         assert rel_err(_np(lt)[:, :V], _np(lj)[:, :V]) < 2e-2, step
@@ -111,7 +131,6 @@ def test_teacher_forced_decode(model):
 
 def test_unported_blocks_raise():
     from repro_torch.models import init_params
-    for name in ("olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-3b", "whisper-medium",
-                 "llava-next-34b"):
+    for name in ("whisper-medium", "llava-next-34b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(get_arch(name).reduced(), device="cpu")

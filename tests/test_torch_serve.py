@@ -86,12 +86,12 @@ def test_score_mirror_stays_exact_over_a_served_stream(backend):
     assert disp.check_consistency()
 
 
-def _bursts(srv, n=32, burst=8):
+def _bursts(srv, n=32, burst=8, sessions=8):
     """The launcher's stream: repeated sessions within a burst make presence
     deltas reach demanded rows, so the mirror's rank-K path runs."""
     srv.router.assignment_log = []
     rng = np.random.default_rng(0)
-    prompts = {f"s{i}": rng.integers(0, 256, size=(16,)) for i in range(8)}
+    prompts = {f"s{i}": rng.integers(0, 256, size=(16,)) for i in range(sessions)}
     sids = list(prompts)
     for i in range(n):
         sid = sids[int(rng.integers(0, len(sids)))]
@@ -113,6 +113,21 @@ def test_device_scores_keep_reference_decisions():
     sc = srv.score_stats
     assert sc.epochs == 4 and sc.max_rows == 8 and sc.rank_k_keys > 0
     assert srv.score_mirror.verify() == 0.0
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-3b"])
+def test_server_matches_reference_on_moe_and_recurrent_families(arch):
+    """Reduced MoE, RG-LRU and RWKV6 decoders behind the same router: an
+    8-request stream over 4 sessions, in bursts of 4, with the vectorized
+    dispatcher."""
+    kw = dict(dispatcher_impl="vectorized", batch_drain=True, cache_cap=48, seed=0)
+    stream = dict(n=8, burst=4, sessions=4)
+    ref_log, ref_stats = _bursts(JaxServer(jax_get_arch(arch).reduced(), **kw),
+                                 **stream)
+    log, stats = _bursts(DiffusionServer(get_arch(arch).reduced(), device="cpu", **kw),
+                         **stream)
+    assert log == ref_log and len(log) == 8
+    assert stats == ref_stats and stats["prefix_hits"] > 0
 
 
 def test_device_scores_raise_on_a_difference():
