@@ -7,11 +7,17 @@ Phases (any failure exits non-zero before the result line):
   1. device  - the card's name and power limit (nvidia-smi);
   2. build   - nvcc builds every kernel in src/repro_torch/csrc, in parallel;
   3. parity  - each kernel against its plain PyTorch version on the card:
-               flash attention (bf16, rel. err < 2e-2, head dims up to 256),
-               the two dispatch scoring kernels (max |out - float64| ==
-               0.0), the grouped expert GEMM (1e-5 f32, 3e-2 bf16), the
-               RG-LRU scan (1e-5) and WKV6 (1e-4; 1e-3 under strong decay),
-               the two scans with a carried-in state and on their final state;
+               flash attention (bf16, rel. err < 2e-2, head dims up to 256,
+               prompts up to 2,048; f32 < 2e-5), the two dispatch scoring
+               kernels (max |out - float64| == 0.0), the grouped expert GEMM
+               (1e-5 f32, 3e-2 bf16; at olmoe's shapes also with fill counts
+               from a routed decode token and routed prompts at C = 8, 13
+               and 320, and with poisoned weights: NaN in every expert whose
+               count is 0 and in every dead row, which must leave the output
+               finite, 0 on dead rows and equal to the plain version on live
+               rows), the RG-LRU scan (1e-5) and WKV6 (1e-4; 1e-3 under strong
+               decay), the two scans with a carried-in state and on their
+               final state;
   4. model   - the reduced internlm2, gemma3, olmoe, recurrentgemma and
                rwkv6 decoders, prefill and eight decode steps on the card
                against the same weights on the CPU (plain versions): logits
@@ -30,7 +36,13 @@ Phases (any failure exits non-zero before the result line):
                the kernel, its plain version and one library call where one
                computes the same function, beside the card's bound (bytes
                over 3.35 TB/s or operations over the type's peak, whichever
-               is larger).
+               is larger).  The grouped expert GEMM's row is olmoe's down
+               product at one decode token's routing, its bound counted from
+               the live experts' bytes (the all-experts bound beside it),
+               its times taken over four copies of the weights in turn so
+               that no launch finds them in L2.  More rows: the gate/up
+               shape, full capacity at C = 8 and C = 320, flash attention at
+               2,048 tokens (D = 128) and at 512 (D = 256).
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is the device record.  Exits non-zero without CUDA, and when the
 repository's ``src/repro_torch`` is not next to this file.
@@ -39,6 +51,7 @@ repository's ``src/repro_torch`` is not next to this file.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -85,12 +98,20 @@ def say(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device ms of ``fn`` over ``iters`` back-to-back calls.  The card
+    is held busy (``torch.cuda._sleep``) while the host enqueues them, so the
+    events time the device and not the host's launch rate."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t        # one call, host and device
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * iters * host_s, 1.0) * 2e9))   # cycles, < 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -264,7 +285,38 @@ def update_case(W, K, E, seed=7, timed=False):
 
 
 # --------------------------------------------------------- grouped expert GEMM
-def gmm_case(E, C, D, F, dtype_name="bf16", out_dtype=None, seed=2, timed=False):
+def routed_counts(T, E, K, C, D, seed=0):
+    """Fill counts (int32 [E], on the card) of one top-K routing of T tokens
+    through the port's router, on a random router and random hidden states
+    from a seed: min(assignments per expert, C)."""
+    import torch
+    from repro_torch.models import moe
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    router = {"router": torch.randn((D, E), generator=g, device="cuda") / D ** 0.5}
+    x = torch.randn((T, D), generator=g, device="cuda")
+    _, _, idx = moe._router(router, x, K)
+    flat = idx.reshape(-1)
+    n = torch.zeros(E, dtype=torch.int32, device="cuda")
+    n.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return torch.clamp(n, max=C)
+
+
+def cycling(fns):
+    """One callable that calls ``fns`` in turn: timing over several copies of
+    the weights keeps each launch's reads out of the 50 MB L2, as the served
+    path finds them (every layer has its own experts)."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def gmm_case(E, C, D, F, dtype_name="bf16", out_dtype=None, counts=None,
+             poison=False, seed=2, timed=False, copies=4):
+    """K4 against its plain version.  ``counts``: fill counts (int32 [E]) or
+    None for every row live.  ``poison``: x's dead rows and the weights of
+    every expert with count 0 are NaN, so any read of them shows in the
+    output; the output must be finite, zero on dead rows and equal to the
+    plain version on live rows."""
     import torch
     from repro_torch.kernels.moe_gmm.ops import gmm_ref, moe_gmm
     dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
@@ -272,24 +324,41 @@ def gmm_case(E, C, D, F, dtype_name="bf16", out_dtype=None, seed=2, timed=False)
     g.manual_seed(seed)
     x = torch.randn((E, C, D), generator=g, device="cuda").to(dtype)
     w = (torch.randn((E, D, F), generator=g, device="cuda") / D ** 0.5).to(dtype)
-    out = moe_gmm(x, w, out_dtype)
+    kw = {} if counts is None else {"counts": counts}
+    live = (torch.arange(C, device="cuda")[None, :]
+            < (counts if counts is not None else torch.full((E,), C, device="cuda"))[:, None])
+    if poison:
+        x[~live] = float("nan")
+        w[counts == 0] = float("nan")
+    out = moe_gmm(x, w, out_dtype, **kw)
     torch.cuda.synchronize()
-    ref = gmm_ref(x, w, out_dtype)
+    ref = gmm_ref(x, w, out_dtype, **kw)
     tol = 3e-2 if dtype_name == "bf16" else 1e-5
     row = {"shape": [E, C, D, F], "dtype": dtype_name,
            "out_dtype": str(out.dtype).replace("torch.", ""),
-           "rel_err": rel_err(out, ref),
-           "max_abs_err": float((out.float() - ref.float()).abs().max())}
-    if not (row["rel_err"] < tol and out.dtype == ref.dtype):
-        fail(f"moe_gmm {row} exceeds {tol}")
+           "live_experts": int((live.any(1)).sum()), "live_rows": int(live.sum()),
+           "poison": poison, "rel_err": rel_err(out[live], ref[live]),
+           "max_abs_err": float((out.float() - ref.float()).abs().max()),
+           "finite": bool(torch.isfinite(out).all()),
+           "dead_rows_zero": bool((out[~live] == 0).all())}
+    if not (row["rel_err"] < tol and out.dtype == ref.dtype and row["finite"]
+            and row["dead_rows_zero"]):
+        fail(f"moe_gmm {row} exceeds {tol}, or is not finite, or not 0 on dead rows")
     if timed:
-        row["ms"] = cuda_ms(lambda: moe_gmm(x, w, out_dtype))
-        row["plain_ms"] = cuda_ms(lambda: gmm_ref(x, w, out_dtype))
-        row["library_ms"] = cuda_ms(lambda: torch.bmm(x, w))
-        elem = x.element_size()
-        nbytes = elem * (E * C * D + E * D * F) + out.element_size() * E * C * F
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * E * C * D * F,
-                                                    dtype_name)
+        ws = [w] + [torch.randn_like(w, dtype=torch.float32).to(dtype)
+                    for _ in range(copies - 1)]
+        row["ms"] = cuda_ms(cycling([lambda w=w: moe_gmm(x, w, out_dtype, **kw)
+                                     for w in ws]))
+        row["plain_ms"] = cuda_ms(cycling([lambda w=w: gmm_ref(x, w, out_dtype, **kw)
+                                           for w in ws]))
+        row["library_ms"] = cuda_ms(cycling([lambda w=w: torch.bmm(x, w) for w in ws]))
+        elem, out_bytes = x.element_size(), out.element_size() * E * C * F
+        live_bytes = elem * (row["live_rows"] * D + row["live_experts"] * D * F) + out_bytes
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            live_bytes, 2.0 * row["live_rows"] * D * F, dtype_name)
+        row["bound_all_experts_ms"], _ = bound_ms(
+            elem * (E * C * D + E * D * F) + out_bytes, 2.0 * E * C * D * F, dtype_name)
+        del ws
     return row
 
 
@@ -649,7 +718,8 @@ def main() -> None:
             ((1, 100, 100, 4, 1, 32), True, 0),
             ((1, 70, 70, 2, 2, 16), True, 16),
             ((1, 16, 16, 16, 1, 256), True, 2048),     # recurrentgemma prefill
-            ((1, 512, 512, 16, 1, 256), True, 2048)):
+            ((1, 512, 512, 16, 1, 256), True, 2048),
+            ((1, 2048, 2048, 16, 1, 256), True, 2048)):
         flash_rows.append(flash_case(shape, causal, window, "bf16",
                                      timed=shape[1] >= 512))
     for shape in ((1, 16, 16, 16, 8, 128), (2, 256, 256, 4, 2, 64),
@@ -677,6 +747,21 @@ def main() -> None:
     for shape in ((E, C, D, F), (E, C, F, D), (E, 13, D, F)):
         for out_dtype in (torch.float32, None):
             say("parity moe_gmm: " + json.dumps(gmm_case(*shape, out_dtype=out_dtype)))
+    # fill counts at olmoe's shapes: one decode token (8 live experts, one row
+    # each), a routed prompt (16 tokens at C = 8, 2,048 at C = 320) and full
+    decode_fill = routed_counts(1, E, K, C, D)
+    for c, tokens in ((C, 16), (13, 64), (320, 2048)):
+        fills = (routed_counts(1, E, K, c, D), routed_counts(tokens, E, K, c, D, seed=1))
+        for fill in fills:
+            for shape, out_dtype in (((E, c, D, F), torch.float32), ((E, c, F, D), None)):
+                say("parity moe_gmm counts: " + json.dumps(gmm_case(
+                    *shape, out_dtype=out_dtype, counts=fill)))
+        say("parity moe_gmm counts: " + json.dumps(gmm_case(
+            E, c, D, F, "f32", counts=fills[1])))
+        # poisoned weights: NaN in every expert with count 0 and in dead rows
+        for fill, dt in ((fills[0], "bf16"), (fills[1], "bf16"), (fills[0], "f32")):
+            say("parity moe_gmm poisoned: " + json.dumps(gmm_case(
+                E, c, D, F, dt, counts=fill, poison=True)))
     rg = get_arch("recurrentgemma-9b")
     for shape in ((1, 128, 256), (2, 256, 512), (3, 512, 128)):
         for with_h0 in (False, True):
@@ -728,16 +813,27 @@ def main() -> None:
                                        timed=True),
         "dispatch_score_update": update_case(*shapes["dispatch_score_update"],
                                              timed=True),
-        "moe_gmm": gmm_case(E, C, F, D, timed=True),                    # w2
+        "moe_gmm": gmm_case(E, C, F, D, counts=decode_fill, timed=True),   # w2
         "rglru_scan": rglru_case(1, 1, rg.rnn_width, timed=True),
         "wkv6": wkv6_case(1, 1, H, N, rkv="bf16", timed=True),
     }
+    long_prompt = {(1, 2048, 2048, 16, 8, 128): "flash_attention S=2048 D=128 (causal)",
+                   (1, 512, 512, 16, 1, 256): "flash_attention S=512 D=256 (window 2048)"}
     more_rows = {
         "flash_attention D=256 (recurrentgemma prefill)": flash_case(
             (1, 16, 16, rg.num_heads, rg.num_kv_heads, rg.head_dim), True,
             rg.window_size, "bf16", timed=True),
-        "moe_gmm w1/w3 (f32 out)": gmm_case(E, C, D, F, out_dtype=torch.float32,
-                                             timed=True),
+        **{name: next(r for r in flash_rows if tuple(r["shape"]) == shape
+                      and r["dtype"] == "bf16")
+           for shape, name in long_prompt.items()},
+        "moe_gmm w1/w3 (f32 out), decode routing": gmm_case(
+            E, C, D, F, out_dtype=torch.float32, counts=decode_fill, timed=True),
+        "moe_gmm w2, C=8 all experts live": gmm_case(E, C, F, D, timed=True),
+        "moe_gmm w1/w3 (f32 out), C=8 all experts live": gmm_case(
+            E, C, D, F, out_dtype=torch.float32, timed=True),
+        "moe_gmm w1/w3 (f32 out), C=320 all rows live": gmm_case(
+            E, 320, D, F, out_dtype=torch.float32, timed=True),
+        "moe_gmm w2, C=320 all rows live": gmm_case(E, 320, F, D, timed=True),
         "rglru_scan T=16 (prefill)": rglru_case(1, 16, rg.rnn_width, timed=True),
         "wkv6 T=16 (prefill)": wkv6_case(1, 16, H, N, rkv="bf16", timed=True),
     }
@@ -746,9 +842,12 @@ def main() -> None:
         return "none" if x is None else f"{x:.4f}"
 
     for k, row in list(main_rows.items()) + list(more_rows.items()):
-        say(f"timing {k} (main path shape): kernel_ms={row['ms']:.4f} "
+        extra = ""
+        if "bound_all_experts_ms" in row:
+            extra = f" bound_all_experts_us={row['bound_all_experts_ms'] * 1e3:.3f}"
+        say(f"timing {k}: kernel_ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} library_ms={ms(row['library_ms'])} "
-            f"bound_us={row['bound_ms'] * 1e3:.3f} ({row['bound_by']})")
+            f"bound_us={row['bound_ms'] * 1e3:.3f} ({row['bound_by']}){extra}")
     kernels = []
     for k, row in main_rows.items():
         kernels.append({

@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Time the port's flash-attention (K3) and grouped expert GEMM (K4) kernels
+of one checkout, for comparing two versions on one card.
+
+    python3 kernel_ab.py --src path/to/checkout/src --label parent
+    python3 kernel_ab.py --label change          # this checkout's src/
+
+Builds that checkout's kernels into its own ``build/kernels`` and prints one
+JSON line: CUDA-event ms (means over back-to-back launches, as in
+``chip_smoke.py``) at the shapes of the main path and of long prompts, with
+the card's name and power limit.  K4 runs without fill counts (every row
+live) so that a version without them computes the same function, and, where
+the checkout's ``moe_gmm`` takes counts, also at one decode token's routing.
+Run it for each version in turns (parent, change, change, parent) in one
+call and compare only within the call.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke as cs
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parent / "src"))
+    ap.add_argument("--label", required=True)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab.py needs a CUDA card")
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    _build.build(["flash_attention", "moe_gmm"])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    res = {"label": args.label, "src": args.src, "nvidia_smi": smi.stdout.strip()}
+
+    for shape, window in (((1, 16, 16, 16, 8, 128), 0), ((1, 2048, 2048, 16, 8, 128), 0),
+                          ((1, 16, 16, 16, 1, 256), 2048), ((1, 512, 512, 16, 1, 256), 2048)):
+        q, k, v = cs.attn_inputs(*shape, torch.bfloat16, 0)
+        res[f"flash {shape} w={window}"] = cs.cuda_ms(
+            lambda: flash_attention(q, k, v, causal=True, window=window))
+
+    E, K, D, F = 64, 8, 2048, 1024          # olmoe-1b-7b
+    fill = cs.routed_counts(1, E, K, 8, D) if "counts" in inspect.signature(
+        moe_gmm).parameters else None
+    for C, d_in, d_out, out_dtype in ((8, F, D, None), (8, D, F, torch.float32),
+                                      (320, D, F, torch.float32), (320, F, D, None)):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(2)
+        x = torch.randn((E, C, d_in), generator=g, device="cuda").to(torch.bfloat16)
+        ws = [(torch.randn((E, d_in, d_out), generator=g, device="cuda")
+               / d_in ** 0.5).to(torch.bfloat16) for _ in range(4)]
+        key = f"gmm C={C} {d_in}x{d_out} out={out_dtype or 'bf16'}"
+        res[key] = cs.cuda_ms(cs.cycling([lambda w=w: moe_gmm(x, w, out_dtype)
+                                          for w in ws]))
+        if fill is not None and C == 8:
+            res[key + " decode routing"] = cs.cuda_ms(cs.cycling(
+                [lambda w=w: moe_gmm(x, w, out_dtype, counts=fill) for w in ws]))
+        del ws
+    print(json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()

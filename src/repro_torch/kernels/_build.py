@@ -2,11 +2,11 @@
 
 Every ``csrc/<name>.cu`` compiles on its own into
 ``build/kernels/lib<name>-<hash>.so`` at the repository root, where the hash
-covers the source and the flags: a changed source rebuilds, an unchanged one
-is loaded as built.  All missing libraries build at once, one ``nvcc`` per
-source started together.  The C entry points take ``void*`` for pointers and
-the stream and ``int`` for sizes, and return ``cudaGetLastError()``;
-``check`` raises on anything but 0.
+covers the source, the shared headers (``csrc/*.cuh``) and the flags: a
+changed source rebuilds, an unchanged one is loaded as built.  All missing
+libraries build at once, one ``nvcc`` per source started together.  The C
+entry points take ``void*`` for pointers and the stream and ``int`` for
+sizes, and return ``cudaGetLastError()``; ``check`` raises on anything but 0.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -46,6 +46,8 @@ def nvcc() -> str:
 
 def target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared by several sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

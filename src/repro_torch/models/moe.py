@@ -11,6 +11,14 @@ zero), so their tokens fall through the residual, as in GShard.
 The scatter accumulates (``index_add_``), as the reference's ``.at[].add``
 does: a dropped entry shares its clipped slot with a kept one, and a plain
 index assignment would let its zero overwrite the kept row.
+
+Each expert's fill, ``min(assignments, C)``, goes to the three GEMMs as
+``counts``: rows at and past it are empty, so the kernel skips them and
+reads no weights of an expert that holds no token.  A dropped assignment
+is clipped to slot C-1 only in an expert whose fill is C, so every row the
+gather reads lies below its expert's fill.  The counts are summed on the
+device by ``scatter_add_`` (``torch.bincount`` reads its input's maximum
+back to the host on CUDA), so the FFN makes no host sync for them.
 ``moe_ffn_sharded`` (expert parallelism) is not ported (ROADMAP D2).
 """
 
@@ -61,20 +69,27 @@ def _router(p, x2d, top_k: int):
     return probs, gate_vals, gate_idx
 
 
-def _aux_loss(probs, gate_idx, n_experts: int):
-    counts = torch.bincount(gate_idx.reshape(-1), minlength=n_experts).to(F32)
-    f_e = counts / gate_idx.numel()
-    return n_experts * torch.sum(f_e * probs.mean(dim=0))
+def _expert_counts(flat_e, n_experts: int):
+    """Assignments per expert, int32 [E], summed on the device."""
+    ones = torch.ones_like(flat_e, dtype=torch.int32)
+    return torch.zeros(n_experts, dtype=torch.int32,
+                       device=flat_e.device).scatter_add_(0, flat_e, ones)
 
 
-def _expert_mlp(w, buf):
+def _aux_loss(probs, counts, n_assignments: int):
+    f_e = counts.to(F32) / n_assignments
+    return counts.numel() * torch.sum(f_e * probs.mean(dim=0))
+
+
+def _expert_mlp(w, buf, counts=None):
     """buf: [E, C, D] -> [E, C, D] through SwiGLU experts: three grouped
     GEMMs, the gate and up products kept in fp32 and the down product
-    rounded to buf's dtype, where the reference's einsums round."""
-    g = moe_gmm(buf, w["w1"], out_dtype=F32)
-    u = moe_gmm(buf, w["w3"], out_dtype=F32)
+    rounded to buf's dtype, where the reference's einsums round.  Rows at
+    and past ``counts[e]`` come out 0."""
+    g = moe_gmm(buf, w["w1"], out_dtype=F32, counts=counts)
+    u = moe_gmm(buf, w["w3"], out_dtype=F32, counts=counts)
     h = (F.silu(g) * u).to(buf.dtype)
-    return moe_gmm(h, w["w2"])
+    return moe_gmm(h, w["w2"], counts=counts)
 
 
 def moe_ffn(p, x2d, *, n_experts: int, top_k: int,
@@ -84,9 +99,11 @@ def moe_ffn(p, x2d, *, n_experts: int, top_k: int,
     E, K = n_experts, top_k
     C = capacity(T, K, E, capacity_factor)
     probs, gate_vals, gate_idx = _router(p, x2d, K)
-    aux = _aux_loss(probs, gate_idx, E)
-
     flat_e = gate_idx.reshape(T * K)
+    assigned = _expert_counts(flat_e, E)
+    aux = _aux_loss(probs, assigned, T * K)
+    fill = torch.clamp(assigned, max=C)
+
     pos = _rank_positions(flat_e)
     keep = pos < C
     slot = torch.clamp(pos, 0, C - 1)
@@ -96,7 +113,7 @@ def moe_ffn(p, x2d, *, n_experts: int, top_k: int,
     zero = torch.zeros((), dtype=x2d.dtype, device=x2d.device)
     for k in range(K):      # k-sliced scatters cap the transient at [T, D]
         buf.index_add_(0, row[k::K], torch.where(keep[k::K, None], x2d, zero))
-    y = _expert_mlp(p["experts"], buf.view(E, C, D)).view(E * C, D)
+    y = _expert_mlp(p["experts"], buf.view(E, C, D), fill).view(E * C, D)
     out = torch.zeros((T, D), dtype=F32, device=x2d.device)
     for k in range(K):
         w = (gate_vals[:, k] * keep[k::K]).to(F32)

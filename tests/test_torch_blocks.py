@@ -107,6 +107,51 @@ def test_moe_rank_positions_drop_past_capacity():
     assert C == jmoe.capacity(T, K, E, 0.25) and (pos_t >= C).any()
 
 
+@pytest.mark.parametrize("T,E,K,factor", [
+    (12, 4, 2, 1.25), (40, 8, 2, 0.25), (1, 64, 8, 1.25), (16, 64, 8, 1.25)])
+def test_moe_ffn_passes_fill_counts_to_every_gemm(monkeypatch, T, E, K, factor):
+    """All three grouped GEMMs of an FFN get the same counts, int32 [E],
+    equal to min(assignments per expert, C)."""
+    rng = np.random.default_rng(1)
+    D, Fd = 16, 24
+    _, pt = tree_both(moe_weights(rng, D, Fd, E), "f32", f32_keys=("router",))
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32))
+    seen, real = [], tmoe.moe_gmm
+
+    def spy(x, w, out_dtype=None, counts=None):
+        seen.append(counts)
+        return real(x, w, out_dtype, counts)
+
+    monkeypatch.setattr(tmoe, "moe_gmm", spy)
+    tmoe.moe_ffn(pt, x, n_experts=E, top_k=K, capacity_factor=factor)
+    _, _, idx = tmoe._router(pt, x, K)
+    C = tmoe.capacity(T, K, E, factor)
+    want = np.minimum(np.bincount(idx.reshape(-1).numpy(), minlength=E), C)
+    assert len(seen) == 3
+    for counts in seen:
+        assert counts.dtype == torch.int32 and counts.shape == (E,)
+        assert np.array_equal(counts.numpy(), want)
+
+
+@pytest.mark.parametrize("T,E,K,factor,seed", [
+    (40, 8, 2, 0.25, 3), (64, 8, 4, 0.5, 4), (12, 4, 2, 1.25, 5), (1, 64, 8, 1.25, 6),
+    (300, 16, 2, 0.25, 7)])
+def test_moe_gather_reads_only_rows_below_fill(T, E, K, factor, seed):
+    """Every row the gather reads lies below its expert's fill count: a
+    dropped assignment is clipped to slot C-1 only in an expert whose fill is
+    C, so the rows the kernel leaves at zero are never read back."""
+    flat = torch.from_numpy(np.random.default_rng(seed).integers(0, E, T * K))
+    C = tmoe.capacity(T, K, E, factor)
+    pos = tmoe._rank_positions(flat)
+    fill = torch.clamp(tmoe._expert_counts(flat, E), max=C)
+    slot = torch.clamp(pos, 0, C - 1)
+    assert bool((slot < fill[flat]).all())
+    dropped = pos >= C
+    assert bool((fill[flat[dropped]] == C).all())
+    if factor < 1:
+        assert bool(dropped.any())          # the drop case is exercised
+
+
 # --------------------------------------------------------------- RG-LRU
 def rglru_weights(rng, D, W, cw=4):
     return {

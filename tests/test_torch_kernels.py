@@ -223,6 +223,65 @@ def test_gmm_ref_matches_pallas_interpret(jref):
     assert rel_err(out.numpy(), pallas) < 1e-5
 
 
+def gmm_counts(E, C, kind, seed=5):
+    """int32 [E] fill counts: every expert empty, every expert full, or
+    ragged (0, C and values between, drawn from a seed)."""
+    if kind == "empty":
+        return np.zeros(E, np.int32)
+    if kind == "full":
+        return np.full(E, C, np.int32)
+    c = np.random.default_rng(seed).integers(0, C + 1, E).astype(np.int32)
+    c[0], c[-1] = 0, C
+    return c
+
+
+def dead_rows(E, C, counts):
+    return np.arange(C)[None, :] >= counts[:, None]        # [E, C]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["empty", "full", "ragged"])
+@pytest.mark.parametrize("E,C,D,F", [(8, 16, 64, 48), (4, 13, 32, 24)])
+def test_gmm_ref_with_counts_matches_jax_ref(jref, E, C, D, F, kind, dtype):
+    """With counts, the plain version equals the JAX gmm_ref on inputs whose
+    rows at and past each count are zero."""
+    kernels, jnp = jref
+    x, w = gmm_inputs(E, C, D, F)
+    counts = gmm_counts(E, C, kind)
+    x[dead_rows(E, C, counts)] = 0.0
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    ref = kernels.gmm_ref(jnp.asarray(x).astype(jdt), jnp.asarray(w).astype(jdt))
+    xt, wt = _torch((x, w), dtype)
+    out = gmm_ref(xt, wt, counts=torch.from_numpy(counts))
+    assert out.dtype == xt.dtype
+    assert rel_err(_np(out), _np(ref)) < GMM_TOL[dtype]
+    assert not _np(out)[dead_rows(E, C, counts)].any()
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_gmm_ref_counts_mask_nan_in_dead_rows(out_dtype):
+    """NaN planted in x's dead rows, and in the weights of experts with no
+    live row, gives exact zeros there and the unmasked product elsewhere."""
+    E, C, D, F = 6, 8, 32, 40
+    x, w = gmm_inputs(E, C, D, F, seed=4)
+    counts = gmm_counts(E, C, "ragged", seed=6)
+    dead = dead_rows(E, C, counts)
+    clean = x.copy()
+    clean[dead] = 0.0
+    x[dead] = np.nan
+    w[counts == 0] = np.nan
+    for dtype in ("f32", "bf16"):
+        xt, wt = _torch((x, w), dtype)
+        ct = torch.from_numpy(counts)
+        out = _np(gmm_ref(xt, wt, out_dtype, ct))
+        assert np.isfinite(out).all()
+        assert (out[dead] == 0.0).all()
+        wc = w.copy()
+        wc[counts == 0] = 0.0
+        want = _np(gmm_ref(*_torch((clean, wc), dtype), out_dtype))
+        assert np.array_equal(out[~dead], want[~dead])
+
+
 # ---------------------------------------------------------- rglru scan (K5)
 RGLRU_SHAPES = [(1, 128, 256), (2, 256, 512), (3, 512, 128)]
 
@@ -311,6 +370,8 @@ def test_recurrence_wrappers_on_cpu_are_the_plain_versions():
     counts = (moe_gmm.launches, rglru_scan.launches, wkv6.launches)
     for dt in (None, torch.float32, torch.bfloat16):
         assert torch.equal(moe_gmm(x, w, dt), gmm_ref(x, w, dt))
+        fill = torch.tensor([5, 0], dtype=torch.int32)
+        assert torch.equal(moe_gmm(x, w, dt, fill), gmm_ref(x, w, dt, fill))
     for got, want in ((rglru_scan(a, b, h0), rglru_ref(a, b, h0)),
                       (wkv6(*arrs, s0), wkv6_ref(*arrs, s0))):
         assert all(torch.equal(g, r) for g, r in zip(got, want))
@@ -320,6 +381,10 @@ def test_recurrence_wrappers_on_cpu_are_the_plain_versions():
 def test_recurrence_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         moe_gmm(torch.zeros(2, 3, 4), torch.zeros(2, 5, 6))
+    x, w = torch.zeros(2, 3, 4), torch.zeros(2, 4, 6)
+    for counts in (torch.zeros(3, dtype=torch.int32), torch.zeros(2)):
+        with pytest.raises(ValueError):
+            moe_gmm(x, w, counts=counts)      # counts must be int32 [E]
     with pytest.raises(ValueError):
         rglru_scan(torch.zeros(1, 3, 4), torch.zeros(1, 3, 4), torch.zeros(1, 5))
     z = torch.zeros(1, 3, 2, 16)
@@ -333,6 +398,9 @@ def test_recurrence_wrappers_reject_bad_shapes():
 @pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,causal,window", ATTN_SHAPES + [
     (1, 16, 16, 16, 8, 128, True, 0),      # the serving prefill
     (1, 70, 70, 2, 2, 16, True, 16),       # ragged tiles, window
+    (1, 2048, 2048, 16, 8, 128, True, 0),  # a 2,048-token internlm2 prompt
+    (1, 512, 512, 16, 1, 256, True, 2048),   # recurrentgemma local attention
+    (1, 2048, 2048, 16, 1, 256, True, 2048),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda_device, B, Sq, Skv, H, Hkv, D,
                                             causal, window, dtype):
@@ -385,6 +453,56 @@ def test_gmm_kernel_matches_plain_on_card(cuda_device, E, C, D, F, dtype):
         assert moe_gmm.launches == before + 1
         assert out.dtype == (out_dtype or x.dtype)
         assert rel_err(_np(out), _np(gmm_ref(x, w, out_dtype))) < GMM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["decode", "ragged", "full"])
+@pytest.mark.parametrize("C", [8, 13, 320])
+def test_gmm_kernel_with_counts_at_olmoe_shapes_on_card(cuda_device, C, kind, dtype):
+    """olmoe's gate/up and down shapes (E = 64, D x F = 2048 x 1024 and back)
+    with fill counts: one decode token on 8 experts, ragged, or full."""
+    E, D, F = 64, 2048, 1024
+    if kind == "decode":
+        counts = np.zeros(E, np.int32)
+        counts[np.random.default_rng(C).choice(E, 8, replace=False)] = 1
+    else:
+        counts = gmm_counts(E, C, kind)
+    ct = torch.from_numpy(counts).to(cuda_device)
+    for d_in, d_out in ((D, F), (F, D)):
+        x, w = _torch(gmm_inputs(E, C, d_in, d_out), dtype, cuda_device)
+        for out_dtype in (None, torch.float32):
+            before = moe_gmm.launches
+            out = moe_gmm(x, w, out_dtype, ct)
+            torch.cuda.synchronize()
+            assert moe_gmm.launches == before + 1
+            ref = gmm_ref(x, w, out_dtype, ct)
+            assert rel_err(_np(out), _np(ref)) < GMM_TOL[dtype]
+            assert not _np(out)[dead_rows(E, C, counts)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("C", [8, 320])
+def test_gmm_kernel_never_reads_dead_experts_on_card(cuda_device, C, dtype):
+    """Poisoned weights: w[e] is NaN for every expert whose count is 0, and
+    x is NaN in every dead row.  The kernel's output must be finite, zero on
+    dead rows and equal to the plain version on live rows."""
+    E, D, F = 64, 2048, 1024
+    counts = gmm_counts(E, C, "ragged", seed=C)
+    counts[np.random.default_rng(1).choice(E, 24, replace=False)] = 0
+    x, w = gmm_inputs(E, C, D, F)
+    dead = dead_rows(E, C, counts)
+    x[dead] = np.nan
+    w[counts == 0] = np.nan
+    xt, wt = _torch((x, w), dtype, cuda_device)
+    ct = torch.from_numpy(counts).to(cuda_device)
+    out = moe_gmm(xt, wt, None, ct)
+    torch.cuda.synchronize()
+    got, want = _np(out), _np(gmm_ref(xt, wt, None, ct))
+    assert np.isfinite(got).all()
+    assert (got[dead] == 0.0).all()
+    assert rel_err(got[~dead], want[~dead]) < GMM_TOL[dtype]
 
 
 @pytest.mark.cuda
