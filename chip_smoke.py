@@ -9,15 +9,17 @@ Phases (any failure exits non-zero before the result line):
   3. parity  - each kernel against its plain PyTorch version on the card:
                flash attention (bf16, rel. err < 2e-2, head dims up to 256,
                prompts up to 2,048; f32 < 2e-5), the two dispatch scoring
-               kernels (max |out - float64| == 0.0), the grouped expert GEMM
+               kernels (max |out - float64| == 0.0; K1 also at the serving
+               window, at W = 1 and at ragged O), the grouped expert GEMM
                (1e-5 f32, 3e-2 bf16; at olmoe's shapes also with fill counts
                from a routed decode token and routed prompts at C = 8, 13
                and 320, and with poisoned weights: NaN in every expert whose
                count is 0 and in every dead row, which must leave the output
                finite, 0 on dead rows and equal to the plain version on live
-               rows), the RG-LRU scan (1e-5) and WKV6 (1e-4; 1e-3 under strong
-               decay), the two scans with a carried-in state and on their
-               final state;
+               rows), the RG-LRU scan (1e-5) and WKV6 (1e-4 at rwkv6's heads
+               from T = 1 to 2,048, short and windowed; finite and 1e-3 under
+               strong decay, w down to 1e-5), the two scans with a
+               carried-in state and on their final state;
   4. model   - the reduced internlm2, gemma3, olmoe, recurrentgemma and
                rwkv6 decoders, prefill and eight decode steps on the card
                against the same weights on the CPU (plain versions): logits
@@ -42,7 +44,8 @@ Phases (any failure exits non-zero before the result line):
                its times taken over four copies of the weights in turn so
                that no launch finds them in L2.  More rows: the gate/up
                shape, full capacity at C = 8 and C = 320, flash attention at
-               2,048 tokens (D = 128) and at 512 (D = 256).
+               2,048 tokens (D = 128) and at 512 (D = 256), window scoring at
+               (W, O, E) = (256, 512, 64), WKV6 at T = 16 and 2,048.
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is the device record.  Exits non-zero without CUDA, and when the
 repository's ``src/repro_torch`` is not next to this file.
@@ -383,7 +386,11 @@ def rglru_case(B, T, W, with_h0=True, seed=3, timed=False):
     if timed:
         row["ms"] = cuda_ms(lambda: rglru_scan(a, b, h0))
         row["plain_ms"] = cuda_ms(lambda: rglru_ref(a, b, h0))
-        row["library_ms"] = None        # no single PyTorch call computes it
+        # one step is one PyTorch call; no single call computes a longer scan
+        row["library_ms"] = None
+        if T == 1 and h0 is not None:
+            a1, b1 = a[:, 0], b[:, 0]
+            row["library_ms"] = cuda_ms(lambda: torch.addcmul(b1, a1, h0))
         row["bound_ms"], row["bound_by"] = bound_ms(
             4.0 * (3 * B * T * W + 2 * B * W), 2.0 * B * T * W, "f32")
     return row
@@ -419,7 +426,9 @@ def wkv6_case(B, T, H, N, rkv="f32", decay=None, seed=4, timed=False):
         fail(f"wkv6 {row} exceeds {tol}")
     if timed:
         row["ms"] = cuda_ms(lambda: wkv6(r, k, v, w, u, s0))
-        row["plain_ms"] = cuda_ms(lambda: wkv6_ref(r, k, v, w, u, s0))
+        # the plain version is a Python loop over T: few runs at long T
+        row["plain_ms"] = cuda_ms(lambda: wkv6_ref(r, k, v, w, u, s0),
+                                  iters=20 if T <= 64 else 2, warmup=1)
         row["library_ms"] = None        # no single PyTorch call computes it
         nbytes = (3 * r.element_size() * B * T * H * N + 4 * B * T * H * N * 2
                   + 4 * H * N + 2 * 4 * B * H * N * N)
@@ -728,7 +737,10 @@ def main() -> None:
     for row in flash_rows:
         say("parity flash_attention: " + json.dumps(row))
     for W, O, E, dens in ((16, 64, 4, 0.2), (256, 512, 64, 0.05),
-                          (300, 1200, 96, 0.02), (64, 256, 4, 0.2)):
+                          (300, 1200, 96, 0.02), (64, 256, 4, 0.2),
+                          (8, 256, 16, 0.2), (1, 256, 16, 0.2),     # serving window
+                          (8, 1, 16, 0.5), (8, 3, 16, 0.5),         # ragged O
+                          (8, 255, 16, 0.2), (8, 1201, 16, 0.05)):
         say("parity dispatch_scores: " + json.dumps(scores_case(W, O, E, dens)))
     for W, K, E in ((16, 3, 4), (256, 128, 64), (300, 200, 96), (64, 8, 4)):
         say("parity dispatch_score_update: " + json.dumps(update_case(W, K, E)))
@@ -773,8 +785,13 @@ def main() -> None:
     for shape in ((1, 128, 2, 64), (2, 256, 2, 64), (1, 256, 4, 64)):
         say("parity wkv6: " + json.dumps(wkv6_case(*shape)))
     say("parity wkv6: " + json.dumps(wkv6_case(1, 128, 1, 64, decay=0.01)))
-    for shape in ((1, 1, H, N), (1, 16, H, N), (2, 7, 3, 16), (1, 5, 2, 32)):
+    for shape in ((1, 1, H, N), (1, 15, H, N), (1, 16, H, N), (1, 17, H, N),
+                  (1, 64, H, N), (1, 2048, H, N), (2, 7, 3, 16), (1, 5, 2, 32),
+                  (2, 33, 3, 16), (1, 40, 2, 32)):
         say("parity wkv6: " + json.dumps(wkv6_case(*shape, rkv="bf16")))
+    for decay in (1e-3, 1e-5):       # past where the Pallas form's e^{-L} overflows
+        say("parity wkv6: " + json.dumps(wkv6_case(1, 128, H, N, rkv="bf16",
+                                                   decay=decay)))
     say(f"parity: ok in {time.perf_counter() - t0:.1f}s")
 
     # 4. model on the card vs the CPU
@@ -836,6 +853,9 @@ def main() -> None:
         "moe_gmm w2, C=320 all rows live": gmm_case(E, 320, F, D, timed=True),
         "rglru_scan T=16 (prefill)": rglru_case(1, 16, rg.rnn_width, timed=True),
         "wkv6 T=16 (prefill)": wkv6_case(1, 16, H, N, rkv="bf16", timed=True),
+        "wkv6 T=2048": wkv6_case(1, 2048, H, N, rkv="bf16", timed=True),
+        "dispatch_scores (256, 512, 64)": scores_case(256, 512, 64, density=0.05,
+                                                      timed=True),
     }
 
     def ms(x):

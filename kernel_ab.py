@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Time the port's flash-attention (K3) and grouped expert GEMM (K4) kernels
-of one checkout, for comparing two versions on one card.
+"""Time the port's window-scoring (K1), flash-attention (K3), grouped
+expert GEMM (K4) and WKV6 (K6) kernels of one checkout, for comparing two
+versions on one card.
 
     python3 kernel_ab.py --src path/to/checkout/src --label parent
     python3 kernel_ab.py --label change          # this checkout's src/
 
-Builds that checkout's kernels into its own ``build/kernels`` and prints one
-JSON line: CUDA-event ms (means over back-to-back launches, as in
-``chip_smoke.py``) at the shapes of the main path and of long prompts, with
-the card's name and power limit.  K4 runs without fill counts (every row
+Builds that checkout's four kernel sources (and only those) into its own
+``build/kernels`` and prints one JSON line: CUDA-event ms (means over
+back-to-back launches, as in ``chip_smoke.py``) at the shapes of the main
+path and of long prompts, with the card's name and power limit.  K1 runs at
+the serving window (W, O, E) = (8, 256, 16) and at (256, 512, 64); K6 at
+rwkv6-3b's heads (H = 40, N = 64, bf16 r/k/v) for T = 1, 16, 64 and 2,048.
+K4 runs without fill counts (every row
 live) so that a version without them computes the same function, and, where
 the checkout's ``moe_gmm`` takes counts, also at one decode token's routing.
 Run it for each version in turns (parent, change, change, parent) in one
@@ -37,9 +41,11 @@ def main() -> None:
         raise SystemExit("kernel_ab.py needs a CUDA card")
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels import _build
+    from repro_torch.kernels.dispatch_score.ops import dispatch_scores
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
-    _build.build(["flash_attention", "moe_gmm"])
+    from repro_torch.kernels.rwkv6_scan.ops import wkv6
+    _build.build(["dispatch_score", "flash_attention", "moe_gmm", "wkv6"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     res = {"label": args.label, "src": args.src, "nvidia_smi": smi.stdout.strip()}
@@ -67,6 +73,22 @@ def main() -> None:
             res[key + " decode routing"] = cs.cuda_ms(cs.cycling(
                 [lambda w=w: moe_gmm(x, w, out_dtype, counts=fill) for w in ws]))
         del ws
+
+    for W, O, E, dens in ((8, 256, 16, 0.2), (256, 512, 64, 0.05)):
+        d, p = (torch.from_numpy(a).cuda() for a in cs.score_inputs(W, O, E, dens, 42))
+        res[f"scores W={W} O={O} E={E}"] = cs.cuda_ms(lambda: dispatch_scores(d, p))
+
+    H, N = 40, 64                           # rwkv6-3b
+    for T in (1, 16, 64, 2048):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(4)
+        r, k, v = (0.5 * torch.randn((1, T, H, N), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        w = torch.exp(-torch.exp(0.5 * torch.randn((1, T, H, N), generator=g,
+                                                   device="cuda") - 2.0))
+        u = 0.3 * torch.ones((H, N), device="cuda")
+        s0 = 0.5 * torch.randn((1, H, N, N), generator=g, device="cuda")
+        res[f"wkv6 T={T}"] = cs.cuda_ms(lambda: wkv6(r, k, v, w, u, s0))
     print(json.dumps(res), flush=True)
 
 

@@ -3,7 +3,9 @@
 CPU tensors take the plain version (``ref.wkv6_ref``); CUDA tensors launch
 the kernel or raise.  r, k and v go to the kernel as they are, float32 or
 bfloat16 (the model's projections are bf16); w, u and s0 are cast to
-contiguous float32 (the model's decay and bonus are fp32 already).
+contiguous float32 (the model's decay and bonus are fp32 already).  The
+kernel moves its inputs and states in 8- and 16-byte pieces: an operand
+whose storage does not start on 16 bytes is copied to one that does.
 ``wkv6.launches`` counts launches.
 """
 
@@ -21,6 +23,10 @@ _SIGNATURES = {
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (16, 32, 64)
+
+
+def _aligned(x):
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def wkv6(r, k, v, w, u, s0=None):
@@ -50,9 +56,10 @@ def wkv6(r, k, v, w, u, s0=None):
         raise ValueError(f"wkv6 kernel takes N in {HEAD_SIZES}, got {N}")
     if not (r.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("wkv6 kernel takes contiguous r, k, v")
-    w = w.to(torch.float32).contiguous()
+    r, k, v = _aligned(r), _aligned(k), _aligned(v)
+    w = _aligned(w.to(torch.float32).contiguous())
     u = u.to(torch.float32).contiguous()
-    s0 = None if s0 is None else s0.to(torch.float32).contiguous()
+    s0 = None if s0 is None else _aligned(s0.to(torch.float32).contiguous())
     out = torch.empty((B, T, H, N), dtype=torch.float32, device=dev)
     sT = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
     if B == 0 or H == 0:

@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attenti
 from repro_torch.kernels.moe_gmm.ops import gmm_ref, moe_gmm
 from repro_torch.kernels.rglru_scan.ops import rglru_ref, rglru_scan
 from repro_torch.kernels.rwkv6_scan.ops import wkv6, wkv6_ref
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_subchunk_ref
 
 ATTN_SHAPES = [
     (1, 128, 128, 2, 2, 64, True, 0),
@@ -363,6 +364,60 @@ def test_wkv6_ref_matches_pallas_interpret(jref):
     assert rel_err(out.numpy(), pallas) < 1e-4
 
 
+# The Pallas kernel's 16-step sub-chunk form, redesigned so that every decay
+# factor is <= 1 (pairwise exponents), in plain PyTorch: its algebra held to
+# the exact scan, the form a chunked (tensor-core) WKV6 kernel would compute.
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 48, 130])
+def test_wkv6_subchunk_ref_matches_exact_scan(jref, T):
+    kernels, jnp = jref
+    *arrs, s0 = wkv_inputs(2, T, 2, 32, seed=T)
+    o, s = wkv6_subchunk_ref(*(torch.from_numpy(a) for a in arrs), torch.from_numpy(s0))
+    o_p, s_p = wkv6_ref(*(torch.from_numpy(a) for a in arrs), torch.from_numpy(s0))
+    o_j, s_j = kernels.wkv6_ref(*(jnp.asarray(a) for a in arrs), jnp.asarray(s0))
+    for want_o, want_s in ((o_p.numpy(), s_p.numpy()), (o_j, s_j)):
+        assert rel_err(o.numpy(), want_o) < 1e-4
+        assert rel_err(s.numpy(), want_s) < 1e-4
+
+
+@pytest.mark.parametrize("decay", [0.01, 1e-3, 1e-5])
+def test_wkv6_subchunk_ref_strong_decay_is_finite(jref, decay):
+    """Constant decays at and past where the Pallas form's e^{-L} overflows
+    fp32 (w < ~0.004 over 16 steps): every factor of the mirror is <= 1."""
+    kernels, jnp = jref
+    *arrs, s0 = wkv_inputs(1, 128, 2, 64, seed=5, decay=decay)
+    o, s = wkv6_subchunk_ref(*(torch.from_numpy(a) for a in arrs), torch.from_numpy(s0))
+    assert np.isfinite(o.numpy()).all() and np.isfinite(s.numpy()).all()
+    o_p, s_p = wkv6_ref(*(torch.from_numpy(a) for a in arrs), torch.from_numpy(s0))
+    o_j, s_j = kernels.wkv6_ref(*(jnp.asarray(a) for a in arrs), jnp.asarray(s0))
+    for want_o, want_s in ((o_p.numpy(), s_p.numpy()), (o_j, s_j)):
+        assert rel_err(o.numpy(), want_o) < 1e-3
+        assert rel_err(s.numpy(), want_s) < 1e-3
+
+
+@pytest.mark.parametrize("decay,tol", [(None, 1e-4), (0.01, 1e-3)])
+def test_wkv6_subchunk_ref_matches_pallas_interpret(jref, decay, tol):
+    """Where the Pallas form is finite (the reference's decay mix, w = 0.01),
+    the mirror agrees with it (both start from a zero state)."""
+    kernels, jnp = jref
+    r, k, v, w, u, _ = wkv_inputs(1, 64, 2, 64, seed=8, decay=decay)
+    pallas = kernels.wkv6(*(jnp.asarray(a) for a in (r, k, v, w, u)), chunk=32,
+                          interpret=True)
+    assert np.isfinite(np.asarray(pallas)).all()
+    out, _ = wkv6_subchunk_ref(*(torch.from_numpy(a) for a in (r, k, v, w, u)))
+    assert rel_err(out.numpy(), pallas) < tol
+
+
+@pytest.mark.parametrize("N", [16, 64])
+def test_wkv6_subchunk_ref_from_zero_state(N):
+    """Every head size the kernel takes, starting from no state, over a
+    ragged last sub-chunk (T = 33)."""
+    *arrs, _ = (torch.from_numpy(a) for a in wkv_inputs(1, 33, 3, N, seed=N))
+    o, s = wkv6_subchunk_ref(*arrs)
+    o_p, s_p = wkv6_ref(*arrs)
+    assert rel_err(o.numpy(), o_p.numpy()) < 1e-4
+    assert rel_err(s.numpy(), s_p.numpy()) < 1e-4
+
+
 def test_recurrence_wrappers_on_cpu_are_the_plain_versions():
     x, w = (torch.from_numpy(a) for a in gmm_inputs(2, 8, 16, 24))
     a, b, h0 = (torch.from_numpy(t) for t in rglru_inputs(2, 5, 12))
@@ -415,7 +470,11 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, B, Sq, Skv, H, Hkv, D,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,O,E", [(16, 64, 4), (300, 1200, 96), (64, 256, 4)])
+@pytest.mark.parametrize("W,O,E", [(16, 64, 4), (300, 1200, 96), (64, 256, 4),
+                                   (8, 256, 16),     # the serving window
+                                   (1, 256, 16),     # one queued item
+                                   (8, 1, 16), (8, 3, 16), (8, 255, 16),
+                                   (8, 1201, 16)])   # ragged O: the scalar path
 def test_dispatch_kernels_exact_on_card(cuda_device, W, O, E):
     demand, presence = score_inputs(W, O, E, 0.1)
     out = dispatch_scores(torch.from_numpy(demand).to(cuda_device),
@@ -426,6 +485,19 @@ def test_dispatch_kernels_exact_on_card(cuda_device, W, O, E):
     out = dispatch_score_update(*(torch.from_numpy(a).to(cuda_device)
                                   for a in (scores, mult, delta)))
     exact = scores.astype(np.float64) + mult.astype(np.float64) @ delta
+    assert np.abs(out.cpu().numpy() - exact).max() == 0.0
+
+
+@pytest.mark.cuda
+def test_dispatch_scores_unaligned_view_on_card(cuda_device):
+    """Operands whose storage starts off 16 bytes take the scalar loads."""
+    demand, presence = score_inputs(8, 256, 16, 0.2)
+    d = torch.zeros(8 * 256 + 1, device=cuda_device)
+    d[1:] = torch.from_numpy(demand.reshape(-1)).to(cuda_device)
+    d = d[1:].view(8, 256)
+    assert d.is_contiguous() and d.data_ptr() % 16 != 0
+    out = dispatch_scores(d, torch.from_numpy(presence).to(cuda_device))
+    exact = demand.astype(np.float64) @ presence.astype(np.float64).T
     assert np.abs(out.cpu().numpy() - exact).max() == 0.0
 
 
@@ -519,7 +591,11 @@ def test_rglru_kernel_matches_plain_on_card(cuda_device, B, T, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,N", WKV_SHAPES + [(1, 1, 40, 64), (2, 7, 3, 16),
-                                                  (1, 5, 2, 32)])
+                                                  (1, 5, 2, 32),
+                                                  # rwkv6-3b's heads, short and
+                                                  # windowed (T >= 16) paths
+                                                  (1, 15, 40, 64), (1, 17, 40, 64),
+                                                  (1, 64, 40, 64), (1, 2048, 40, 64)])
 def test_wkv6_kernel_matches_plain_on_card(cuda_device, B, T, H, N):
     *arrs, s0 = (torch.from_numpy(t).to(cuda_device) for t in wkv_inputs(B, T, H, N))
     for init in (None, s0):
@@ -536,11 +612,33 @@ def test_wkv6_kernel_matches_plain_on_card(cuda_device, B, T, H, N):
 
 
 @pytest.mark.cuda
-def test_wkv6_kernel_strong_decay_on_card(cuda_device):
+@pytest.mark.parametrize("decay", [0.01, 1e-3, 1e-5])
+def test_wkv6_kernel_strong_decay_on_card(cuda_device, decay):
+    """Past w ~ 0.004 the Pallas form's e^{-L} would overflow; the kernel
+    applies each step's decay as it comes, so it has no such limit."""
     *arrs, s0 = (torch.from_numpy(t).to(cuda_device)
-                 for t in wkv_inputs(1, 128, 1, 64, seed=5, decay=0.01))
+                 for t in wkv_inputs(1, 128, 1, 64, seed=5, decay=decay))
     out, s = wkv6(*arrs, s0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(s).all())
     o_r, s_r = wkv6_ref(*arrs, s0)
     assert rel_err(_np(out), _np(o_r)) < 1e-3 and rel_err(_np(s), _np(s_r)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 16])
+def test_wkv6_kernel_unaligned_operands_on_card(cuda_device, T):
+    """Views whose storage starts off 16 bytes are copied before the
+    kernel's 16-byte loads; the result is the plain version's."""
+    *arrs, s0 = (torch.from_numpy(t).to(cuda_device) for t in wkv_inputs(1, T, 2, 64))
+
+    def shifted(x):
+        buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(x.shape)
+
+    r, k, v, w, u = (shifted(x) for x in arrs)
+    assert r.data_ptr() % 16 != 0
+    out, s = wkv6(r, k, v, w, u, shifted(s0))
+    o_r, s_r = wkv6_ref(*arrs, s0)
+    assert rel_err(_np(out), _np(o_r)) < 1e-4 and rel_err(_np(s), _np(s_r)) < 1e-4
