@@ -397,11 +397,10 @@ def rglru_case(B, T, W, with_h0=True, seed=3, timed=False):
 
 
 # --------------------------------------------------------------------- WKV6
-def wkv6_case(B, T, H, N, rkv="f32", decay=None, seed=4, timed=False):
+def wkv6_inputs(B, T, H, N, rkv="f32", decay=None, seed=4):
     """r, k, v ~ 0.5 N(0,1) in ``rkv``; w = exp(-exp(x)), x ~ N(-2, 0.5) (the
-    reference's kernel test) or the constant ``decay``; s0 != 0."""
+    reference's kernel test) or the constant ``decay``; u = 0.3; s0 != 0."""
     import torch
-    from repro_torch.kernels.rwkv6_scan.ops import wkv6, wkv6_ref
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     dt = torch.bfloat16 if rkv == "bf16" else torch.float32
@@ -413,6 +412,13 @@ def wkv6_case(B, T, H, N, rkv="f32", decay=None, seed=4, timed=False):
          else torch.full_like(x, decay))
     u = 0.3 * torch.ones((H, N), device="cuda")
     s0 = 0.5 * torch.randn((B, H, N, N), generator=g, device="cuda")
+    return r, k, v, w, u, s0
+
+
+def wkv6_case(B, T, H, N, rkv="f32", decay=None, seed=4, timed=False):
+    import torch
+    from repro_torch.kernels.rwkv6_scan.ops import wkv6, wkv6_ref
+    r, k, v, w, u, s0 = wkv6_inputs(B, T, H, N, rkv, decay, seed)
     out, sT = wkv6(r, k, v, w, u, s0)
     torch.cuda.synchronize()
     o_r, s_r = wkv6_ref(r, k, v, w, u, s0)
@@ -432,8 +438,10 @@ def wkv6_case(B, T, H, N, rkv="f32", decay=None, seed=4, timed=False):
         row["library_ms"] = None        # no single PyTorch call computes it
         nbytes = (3 * r.element_size() * B * T * H * N + 4 * B * T * H * N * 2
                   + 4 * H * N + 2 * 4 * B * H * N * N)
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 6.0 * B * T * H * N * N,
-                                                    "f32")
+        # a step's fp32 operations: r.S (2 N^2), w*S + k*v (3 N^2), and the
+        # bonus v_j * sum_i r_i u_i k_i (3 N for the sum, 2 N to add it in)
+        ops = B * T * H * (5.0 * N * N + 5.0 * N)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, "f32")
     return row
 
 

@@ -80,14 +80,7 @@ def main() -> None:
 
     H, N = 40, 64                           # rwkv6-3b
     for T in (1, 16, 64, 2048):
-        g = torch.Generator(device="cuda")
-        g.manual_seed(4)
-        r, k, v = (0.5 * torch.randn((1, T, H, N), generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
-        w = torch.exp(-torch.exp(0.5 * torch.randn((1, T, H, N), generator=g,
-                                                   device="cuda") - 2.0))
-        u = 0.3 * torch.ones((H, N), device="cuda")
-        s0 = 0.5 * torch.randn((1, H, N, N), generator=g, device="cuda")
+        r, k, v, w, u, s0 = cs.wkv6_inputs(1, T, H, N, rkv="bf16")
         res[f"wkv6 T={T}"] = cs.cuda_ms(lambda: wkv6(r, k, v, w, u, s0))
     print(json.dumps(res), flush=True)
 

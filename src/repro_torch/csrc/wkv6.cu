@@ -19,10 +19,10 @@
 // Pallas form's e^{-L} overflows fp32 once -sum(log w) over its 16-step
 // sub-chunk passes about 88).  The Pallas kernel's sub-chunk matrix form was
 // built here too, with every decay factor the exponent of a difference <= 0,
-// and timed by kernel_ab.py at 1.7-2.9x this form's time at T = 16 and 2,048
+// and timed by kernel_ab.py at 1.7-3.2x this form's time at T = 16 and 2,048
 // on the H100 (700 W; fp32 SIMT: its pairwise exponents and five barriers a
-// sub-chunk cost more than the per-step reduction they replace);
-// kernels/rwkv6_scan/ref.py keeps that algebra as a plain mirror.
+// sub-chunk cost more than the per-step reduction they replace); the tests
+// keep that algebra as a plain mirror (test_torch_kernels.py).
 //
 // Spreading the state.  Column j of S, and out[:, j], depend only on v[:, j]
 // and on the key-side vectors r, k, w and u, so a head's value columns split
@@ -47,11 +47,13 @@
 // What bounds it on the H100.  At T = 1 (decode, B=1, H=40, N=64) bytes: the
 // state in and out, 1.3 MB, 0.00041 ms at 3.35 TB/s; the launch and one
 // memory round trip are several times that.  At long T the fp32 operations
-// (six per state element and step, 0.030 ms at T = 2,048 against 67
-// TFLOP/s) and the bytes (0.022 ms) are both far under the time: the
-// kernel is bound by instruction issue on the SMs that hold its blocks
-// (about four instructions per state element and step, plus the loads and
-// the per-step reduction).
+// the function needs (five per state element and step: two for r.S, three
+// for w*S + k*v; the bonus term v_j * sum_i r_i u_i k_i is O(N) a step;
+// 0.025 ms at T = 2,048 against 67 TFLOP/s) and the bytes (0.022 ms) are both
+// far under the time.  The kernel issues seven flops per element (four
+// instructions: it forms u*k*v per element rather than the O(N) bonus sum)
+// and is bound by instruction issue on the SMs that hold its blocks, plus
+// the loads and the per-step reduction.
 //
 // C entry point: wkv6_fwd(...) returns cudaGetLastError().
 

@@ -9,8 +9,6 @@ from __future__ import annotations
 
 import torch
 
-SUB = 16  # steps a sub-chunk, as the Pallas kernel's
-
 
 def wkv6_ref(r, k, v, w, u, s0=None):
     """r, k, v, w: [B, T, H, N]; u: [H, N]; s0: [B, H, N, N] or None (zeros).
@@ -28,46 +26,5 @@ def wkv6_ref(r, k, v, w, u, s0=None):
         outs.append(torch.einsum("bhi,bhij->bhj", r[:, t], S + u[None, :, :, None] * kv))
         S = w[:, t, :, :, None] * S + kv
     out = (torch.stack(outs, 1) if outs
-           else torch.zeros((B, 0, H, N), dtype=torch.float32, device=r.device))
-    return out, S
-
-
-def wkv6_subchunk_ref(r, k, v, w, u, s0=None):
-    """The Pallas kernel's 16-step sub-chunk form in plain PyTorch, for the
-    tests: the same function as ``wkv6_ref``, evaluated SUB steps at a time
-    with the local cumulative log decay L and every decay factor the
-    exponent of a difference that is <= 0 (pairwise for the intra-chunk
-    matrix A), so no factor exceeds 1 and strong decay cannot overflow (the
-    Pallas form's e^{-L} can).  ``csrc/wkv6.cu`` runs the per-step form,
-    which was faster on the card in fp32; this keeps the algebra that a
-    chunked tensor-core kernel would compute.  Per sub-chunk:
-
-        A_ts  = sum_i r_t[i] k_s[i] exp(L_{t-1}[i] - L_s[i])  (s < t)
-        A_tt  = sum_i r_t[i] u[i] k_t[i]
-        out_t = sum_{s<=t} A_ts v_s + (r_t o exp(L_{t-1})) S
-        S'    = exp(L_last) o S + (k o exp(L_last - L))^T v
-    """
-    B, T, H, N = r.shape
-    S = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
-         if s0 is None else s0.float())
-    r, k, v, w = (x.float().transpose(1, 2) for x in (r, k, v, w))    # [B,H,T,N]
-    u = u.float()
-    outs = []
-    for t0 in range(0, T, SUB):
-        rc, kc, vc, wc = (x[:, :, t0:t0 + SUB] for x in (r, k, v, w))
-        tc = rc.shape[2]
-        L = torch.cumsum(torch.log(torch.clamp(wc, min=1e-38)), dim=2)
-        Lprev = torch.cat([torch.zeros_like(L[:, :, :1]), L[:, :, :-1]], dim=2)
-        d = Lprev[:, :, :, None, :] - L[:, :, None, :, :]           # [B,H,t,s,N]
-        lower = torch.tril(torch.ones((tc, tc), dtype=torch.bool, device=r.device), -1)
-        dec = torch.where(lower[:, :, None], torch.exp(torch.clamp(d, max=0.0)), 0.0)
-        A = torch.einsum("bhti,bhsi,bhtsi->bhts", rc, kc, dec)
-        A = A + torch.diag_embed(torch.einsum("bhti,hi,bhti->bht", rc, u, kc))
-        out = A @ vc + torch.einsum("bhti,bhij->bhtj", rc * torch.exp(Lprev), S)
-        last = L[:, :, -1]                                            # [B,H,N]
-        kd = kc * torch.exp(torch.clamp(last[:, :, None] - L, max=0.0))
-        S = torch.exp(last)[..., None] * S + torch.einsum("bhsi,bhsj->bhij", kd, vc)
-        outs.append(out)
-    out = (torch.cat(outs, 2).transpose(1, 2) if outs
            else torch.zeros((B, 0, H, N), dtype=torch.float32, device=r.device))
     return out, S

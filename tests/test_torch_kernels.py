@@ -26,7 +26,6 @@ from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attenti
 from repro_torch.kernels.moe_gmm.ops import gmm_ref, moe_gmm
 from repro_torch.kernels.rglru_scan.ops import rglru_ref, rglru_scan
 from repro_torch.kernels.rwkv6_scan.ops import wkv6, wkv6_ref
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_subchunk_ref
 
 ATTN_SHAPES = [
     (1, 128, 128, 2, 2, 64, True, 0),
@@ -364,9 +363,50 @@ def test_wkv6_ref_matches_pallas_interpret(jref):
     assert rel_err(out.numpy(), pallas) < 1e-4
 
 
-# The Pallas kernel's 16-step sub-chunk form, redesigned so that every decay
-# factor is <= 1 (pairwise exponents), in plain PyTorch: its algebra held to
-# the exact scan, the form a chunked (tensor-core) WKV6 kernel would compute.
+SUB = 16  # steps a sub-chunk, as the Pallas kernel's
+
+
+def wkv6_subchunk_ref(r, k, v, w, u, s0=None):
+    """The Pallas kernel's 16-step sub-chunk form in plain PyTorch: the same
+    function as ``wkv6_ref``, evaluated SUB steps at a time with the local
+    cumulative log decay L and every decay factor the exponent of a
+    difference that is <= 0 (pairwise for the intra-chunk matrix A), so no
+    factor exceeds 1 and strong decay cannot overflow (the Pallas form's
+    e^{-L} can).  No port code runs this form (``csrc/wkv6.cu`` runs the
+    per-step recurrence); the tests below hold its algebra, the one a chunked
+    tensor-core WKV6 kernel would compute.  Per sub-chunk:
+
+        A_ts  = sum_i r_t[i] k_s[i] exp(L_{t-1}[i] - L_s[i])  (s < t)
+        A_tt  = sum_i r_t[i] u[i] k_t[i]
+        out_t = sum_{s<=t} A_ts v_s + (r_t o exp(L_{t-1})) S
+        S'    = exp(L_last) o S + (k o exp(L_last - L))^T v
+    """
+    B, T, H, N = r.shape
+    S = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    r, k, v, w = (x.float().transpose(1, 2) for x in (r, k, v, w))    # [B,H,T,N]
+    u = u.float()
+    outs = []
+    for t0 in range(0, T, SUB):
+        rc, kc, vc, wc = (x[:, :, t0:t0 + SUB] for x in (r, k, v, w))
+        tc = rc.shape[2]
+        L = torch.cumsum(torch.log(torch.clamp(wc, min=1e-38)), dim=2)
+        Lprev = torch.cat([torch.zeros_like(L[:, :, :1]), L[:, :, :-1]], dim=2)
+        d = Lprev[:, :, :, None, :] - L[:, :, None, :, :]           # [B,H,t,s,N]
+        lower = torch.tril(torch.ones((tc, tc), dtype=torch.bool, device=r.device), -1)
+        dec = torch.where(lower[:, :, None], torch.exp(torch.clamp(d, max=0.0)), 0.0)
+        A = torch.einsum("bhti,bhsi,bhtsi->bhts", rc, kc, dec)
+        A = A + torch.diag_embed(torch.einsum("bhti,hi,bhti->bht", rc, u, kc))
+        out = A @ vc + torch.einsum("bhti,bhij->bhtj", rc * torch.exp(Lprev), S)
+        last = L[:, :, -1]                                            # [B,H,N]
+        kd = kc * torch.exp(torch.clamp(last[:, :, None] - L, max=0.0))
+        S = torch.exp(last)[..., None] * S + torch.einsum("bhsi,bhsj->bhij", kd, vc)
+        outs.append(out)
+    out = (torch.cat(outs, 2).transpose(1, 2) if outs
+           else torch.zeros((B, 0, H, N), dtype=torch.float32, device=r.device))
+    return out, S
+
+
 @pytest.mark.parametrize("T", [1, 15, 16, 17, 48, 130])
 def test_wkv6_subchunk_ref_matches_exact_scan(jref, T):
     kernels, jnp = jref
