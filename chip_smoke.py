@@ -16,7 +16,10 @@ Phases (any failure exits non-zero before the result line):
                and 320, and with poisoned weights: NaN in every expert whose
                count is 0 and in every dead row, which must leave the output
                finite, 0 on dead rows and equal to the plain version on live
-               rows), the RG-LRU scan (1e-5) and WKV6 (1e-4 at rwkv6's heads
+               rows), the RG-LRU scan (1e-5; the plain entry and the gated
+               one, whose gate chain runs inside the kernel, from T = 1 to
+               2,048 and on both sides of the split of long prompts) and
+               WKV6 (1e-4 at rwkv6's heads
                from T = 1 to 2,048, short and windowed; finite and 1e-3 under
                strong decay, w down to 1e-5), the two scans with a
                carried-in state and on their final state;
@@ -33,7 +36,8 @@ Phases (any failure exits non-zero before the result line):
                then olmoe-1b-7b, recurrentgemma-9b and rwkv6-3b on 4
                sessions and 16 requests, one model on the card at a time.
                Kernel launch counters are zeroed just before each and read
-               just after;
+               just after, and every RG-LRU launch of recurrentgemma's run
+               must come from the gated entry;
   6. timing  - each kernel at the main path's shapes: CUDA-event times of
                the kernel, its plain version and one library call where one
                computes the same function, beside the card's bound (bytes
@@ -45,7 +49,11 @@ Phases (any failure exits non-zero before the result line):
                that no launch finds them in L2.  More rows: the gate/up
                shape, full capacity at C = 8 and C = 320, flash attention at
                2,048 tokens (D = 128) and at 512 (D = 256), window scoring at
-               (W, O, E) = (256, 512, 64), WKV6 at T = 16 and 2,048.
+               (W, O, E) = (256, 512, 64), the rank-K update at (256, 64,
+               64), WKV6 at T = 16 and 2,048.  The RG-LRU's row is the gated
+               entry at one decode token; rows for the plain entry at T = 1
+               (beside one ``addcmul``) and for both entries at T = 16 and
+               2,048 follow.
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is the device record.  Exits non-zero without CUDA, and when the
 repository's ``src/repro_torch`` is not next to this file.
@@ -87,7 +95,8 @@ SOURCES = {
 # launch besides the two scoring kernels every vectorized drain runs).
 FAMILIES = (("internlm2-1.8b", 8, 32, ("flash_attention",)),
             ("olmoe-1b-7b", 4, 16, ("flash_attention", "moe_gmm")),
-            ("recurrentgemma-9b", 4, 16, ("flash_attention", "rglru_scan")),
+            ("recurrentgemma-9b", 4, 16, ("flash_attention", "rglru_scan",
+                                          "rglru_gated_scan")),
             ("rwkv6-3b", 4, 16, ("wkv6",)))
 
 
@@ -385,7 +394,8 @@ def rglru_case(B, T, W, with_h0=True, seed=3, timed=False):
         fail(f"rglru_scan {row} exceeds 1e-5")
     if timed:
         row["ms"] = cuda_ms(lambda: rglru_scan(a, b, h0))
-        row["plain_ms"] = cuda_ms(lambda: rglru_ref(a, b, h0))
+        row["plain_ms"] = cuda_ms(lambda: rglru_ref(a, b, h0),
+                                  iters=20 if T <= 64 else 2, warmup=1)
         # one step is one PyTorch call; no single call computes a longer scan
         row["library_ms"] = None
         if T == 1 and h0 is not None:
@@ -393,6 +403,44 @@ def rglru_case(B, T, W, with_h0=True, seed=3, timed=False):
             row["library_ms"] = cuda_ms(lambda: torch.addcmul(b1, a1, h0))
         row["bound_ms"], row["bound_by"] = bound_ms(
             4.0 * (3 * B * T * W + 2 * B * W), 2.0 * B * T * W, "f32")
+    return row
+
+
+# fp32 operations an element of the gated scan needs: two sigmoids (exp,
+# add, divide), -8 softplus(lam) r and its exp, 1 - a^2 (two), the clamp
+# (two), sqrt, i xi, the product, and the step's multiply and add
+GATED_OPS = 6 + 2 + 2 + 2 + 1 + 2 + 2
+
+
+def rglru_gated_case(B, T, W, with_h0=True, dtype_name="bf16", seed=5, timed=False):
+    import torch
+    from repro_torch.kernels.rglru_scan.ops import rglru_gated_ref, rglru_gated_scan
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dt = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    xi, r_logit, i_logit = (torch.randn((B, T, W), generator=g, device="cuda").to(dt)
+                            for _ in range(3))
+    lam = 0.65 + 0.5 * torch.randn((W,), generator=g, device="cuda")
+    h0 = torch.randn((B, W), generator=g, device="cuda") if with_h0 else None
+    y, hT = rglru_gated_scan(xi, r_logit, i_logit, lam, h0)
+    torch.cuda.synchronize()
+    y_r, h_r = rglru_gated_ref(xi, r_logit, i_logit, lam, h0)
+    row = {"shape": [B, T, W], "gated": True, "dtype": dtype_name, "h0": with_h0,
+           "rel_err_y": rel_err(y, y_r), "rel_err_hT": rel_err(hT, h_r),
+           "max_abs_err": max(float((y - y_r).abs().max()),
+                              float((hT - h_r).abs().max())),
+           "finite": bool(torch.isfinite(y).all() and torch.isfinite(hT).all())}
+    if not (row["finite"] and row["rel_err_y"] < 1e-5 and row["rel_err_hT"] < 1e-5):
+        fail(f"rglru_gated_scan {row} exceeds 1e-5")
+    if timed:
+        row["ms"] = cuda_ms(lambda: rglru_gated_scan(xi, r_logit, i_logit, lam, h0))
+        # the plain version is a Python loop over T: few runs at long T
+        row["plain_ms"] = cuda_ms(lambda: rglru_gated_ref(xi, r_logit, i_logit, lam, h0),
+                                  iters=20 if T <= 64 else 2, warmup=1)
+        row["library_ms"] = None        # no single PyTorch call computes it
+        nbytes = (3 * xi.element_size() * B * T * W + 4 * W + 4 * B * T * W
+                  + 2 * 4 * B * W)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, GATED_OPS * B * T * W, "f32")
     return row
 
 
@@ -556,12 +604,13 @@ def kernel_ops():
     from repro_torch.kernels.dispatch_score import ops as ops_ds
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
-    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ops import rglru_gated_scan, rglru_scan
     from repro_torch.kernels.rwkv6_scan.ops import wkv6
     return {"flash_attention": flash_attention,
             "dispatch_scores": ops_ds.dispatch_scores,
             "dispatch_score_update": ops_ds.dispatch_score_update,
-            "moe_gmm": moe_gmm, "rglru_scan": rglru_scan, "wkv6": wkv6}
+            "moe_gmm": moe_gmm, "rglru_scan": rglru_scan,
+            "rglru_gated_scan": rglru_gated_scan, "wkv6": wkv6}
 
 
 def serve_full_width(arch, n_sessions, n_req, needs, ops):
@@ -645,6 +694,9 @@ def serve_full_width(arch, n_sessions, n_req, needs, ops):
         **{f"{k} launched": launches[k] > 0
            for k in ("dispatch_scores", "dispatch_score_update", *needs)},
     }
+    if "rglru_gated_scan" in needs:     # the R layers' gates run in the kernel
+        checks["every rglru_scan launch gated"] = (
+            launches["rglru_gated_scan"] == launches["rglru_scan"])
     r = srv.router.stats
     say(f"served={s.served} prefix_hit={s.hit_rate:.0%} prefills={s.prefills} "
         f"swap_ins={s.swap_ins} decode_steps={s.decode_steps} "
@@ -750,7 +802,10 @@ def main() -> None:
                           (8, 1, 16, 0.5), (8, 3, 16, 0.5),         # ragged O
                           (8, 255, 16, 0.2), (8, 1201, 16, 0.05)):
         say("parity dispatch_scores: " + json.dumps(scores_case(W, O, E, dens)))
-    for W, K, E in ((16, 3, 4), (256, 128, 64), (300, 200, 96), (64, 8, 4)):
+    for W, K, E in ((16, 3, 4), (256, 128, 64), (300, 200, 96), (64, 8, 4),
+                    (256, 2, 16), (256, 2, 5), (256, 2, 17),     # serving, ragged E
+                    (256, 1, 16), (256, 33, 16), (256, 128, 16), (256, 64, 64),
+                    (1, 2, 16)):
         say("parity dispatch_score_update: " + json.dumps(update_case(W, K, E)))
     z = torch.arange(12.0, device="cuda").reshape(3, 4)
     before = ops["dispatch_score_update"].launches
@@ -788,6 +843,17 @@ def main() -> None:
             say("parity rglru_scan: " + json.dumps(rglru_case(*shape, with_h0)))
     for shape in ((2, 17, 300), (1, 1, rg.rnn_width), (1, 16, rg.rnn_width)):
         say("parity rglru_scan: " + json.dumps(rglru_case(*shape)))
+    # a 2,048-token prompt (recurrentgemma's window) and both sides of the split
+    from repro_torch.kernels.rglru_scan.ops import SPLIT_T
+    split = [(1, T, rg.rnn_width) for T in (2048, SPLIT_T - 1, SPLIT_T, SPLIT_T + 1)]
+    for shape in split:
+        say("parity rglru_scan: " + json.dumps(rglru_case(*shape)))
+    for shape in [(1, 1, rg.rnn_width), (1, 16, rg.rnn_width), (2, 17, 300)] + split:
+        for dt in ("bf16", "f32"):
+            say("parity rglru_gated_scan: " + json.dumps(rglru_gated_case(
+                *shape, dtype_name=dt)))
+    say("parity rglru_gated_scan: " + json.dumps(rglru_gated_case(
+        1, 2048, rg.rnn_width, with_h0=False)))
     rw = get_arch("rwkv6-3b")
     H, N = rw.d_model // rw.rwkv_head_dim, rw.rwkv_head_dim
     for shape in ((1, 128, 2, 64), (2, 256, 2, 64), (1, 256, 4, 64)):
@@ -839,7 +905,7 @@ def main() -> None:
         "dispatch_score_update": update_case(*shapes["dispatch_score_update"],
                                              timed=True),
         "moe_gmm": gmm_case(E, C, F, D, counts=decode_fill, timed=True),   # w2
-        "rglru_scan": rglru_case(1, 1, rg.rnn_width, timed=True),
+        "rglru_scan": rglru_gated_case(1, 1, rg.rnn_width, timed=True),
         "wkv6": wkv6_case(1, 1, H, N, rkv="bf16", timed=True),
     }
     long_prompt = {(1, 2048, 2048, 16, 8, 128): "flash_attention S=2048 D=128 (causal)",
@@ -859,7 +925,14 @@ def main() -> None:
         "moe_gmm w1/w3 (f32 out), C=320 all rows live": gmm_case(
             E, 320, D, F, out_dtype=torch.float32, timed=True),
         "moe_gmm w2, C=320 all rows live": gmm_case(E, 320, F, D, timed=True),
-        "rglru_scan T=16 (prefill)": rglru_case(1, 16, rg.rnn_width, timed=True),
+        "rglru_scan plain entry T=1": rglru_case(1, 1, rg.rnn_width, timed=True),
+        "rglru_scan plain entry T=16 (prefill)": rglru_case(1, 16, rg.rnn_width,
+                                                            timed=True),
+        "rglru_scan gated T=16 (prefill)": rglru_gated_case(1, 16, rg.rnn_width,
+                                                            timed=True),
+        "rglru_scan plain entry T=2048": rglru_case(1, 2048, rg.rnn_width, timed=True),
+        "rglru_scan gated T=2048": rglru_gated_case(1, 2048, rg.rnn_width, timed=True),
+        "dispatch_score_update (256, 64, 64)": update_case(256, 64, 64, timed=True),
         "wkv6 T=16 (prefill)": wkv6_case(1, 16, H, N, rkv="bf16", timed=True),
         "wkv6 T=2048": wkv6_case(1, 2048, H, N, rkv="bf16", timed=True),
         "dispatch_scores (256, 512, 64)": scores_case(256, 512, 64, density=0.05,

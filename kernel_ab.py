@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
-"""Time the port's window-scoring (K1), flash-attention (K3), grouped
-expert GEMM (K4) and WKV6 (K6) kernels of one checkout, for comparing two
-versions on one card.
+"""Time the port's scoring (K1, K2), flash-attention (K3), grouped expert
+GEMM (K4), RG-LRU (K5) and WKV6 (K6) kernels of one checkout, for comparing
+two versions on one card.
 
     python3 kernel_ab.py --src path/to/checkout/src --label parent
     python3 kernel_ab.py --label change          # this checkout's src/
+    python3 kernel_ab.py --label change --sweep  # and K5's split sweep
 
-Builds that checkout's four kernel sources (and only those) into its own
-``build/kernels`` and prints one JSON line: CUDA-event ms (means over
-back-to-back launches, as in ``chip_smoke.py``) at the shapes of the main
-path and of long prompts, with the card's name and power limit.  K1 runs at
-the serving window (W, O, E) = (8, 256, 16) and at (256, 512, 64); K6 at
-rwkv6-3b's heads (H = 40, N = 64, bf16 r/k/v) for T = 1, 16, 64 and 2,048.
+Builds that checkout's kernel sources into its own ``build/kernels`` and
+prints one JSON line: CUDA-event ms (means over back-to-back launches, as in
+``chip_smoke.py``) at the shapes of the main path and of long prompts, with
+the card's name and power limit.  K1 runs at the serving window (W, O, E) =
+(8, 256, 16) and at (256, 512, 64); K2 at the serving update (W, K, E) =
+(256, 2, 16) and at (256, 64, 64); K5 at recurrentgemma-9b's width (W =
+4,096) for T = 1, 16 and 2,048, through the plain entry and, where the
+checkout has it, the gated one (bf16 logits); K6 at rwkv6-3b's heads (H =
+40, N = 64, bf16 r/k/v) for T = 1, 16, 64 and 2,048.  ``--sweep`` times K5's
+two paths against each other where the checkout splits long prompts: each
+entry with the split forced off and forced on at several chunk lengths, for
+T from 16 to 2,048 (the numbers behind ``SPLIT_T`` in
+``kernels/rglru_scan/ops.py``).
 K4 runs without fill counts (every row
 live) so that a version without them computes the same function, and, where
 the checkout's ``moe_gmm`` takes counts, also at one decode token's routing.
@@ -35,17 +43,19 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(Path(__file__).resolve().parent / "src"))
     ap.add_argument("--label", required=True)
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab.py needs a CUDA card")
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels import _build
-    from repro_torch.kernels.dispatch_score.ops import dispatch_scores
+    from repro_torch.kernels.dispatch_score.ops import dispatch_score_update, dispatch_scores
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rwkv6_scan.ops import wkv6
-    _build.build(["dispatch_score", "flash_attention", "moe_gmm", "wkv6"])
+    _build.build(["dispatch_score", "flash_attention", "moe_gmm", "rglru_scan", "wkv6"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     res = {"label": args.label, "src": args.src, "nvidia_smi": smi.stdout.strip()}
@@ -77,12 +87,60 @@ def main() -> None:
     for W, O, E, dens in ((8, 256, 16, 0.2), (256, 512, 64, 0.05)):
         d, p = (torch.from_numpy(a).cuda() for a in cs.score_inputs(W, O, E, dens, 42))
         res[f"scores W={W} O={O} E={E}"] = cs.cuda_ms(lambda: dispatch_scores(d, p))
+    for W, K, E in ((256, 2, 16), (256, 64, 64)):
+        s, m, dl = (torch.from_numpy(a).cuda() for a in cs.update_inputs(W, K, E, 7))
+        res[f"update W={W} K={K} E={E}"] = cs.cuda_ms(lambda: dispatch_score_update(s, m, dl))
+
+    gated = getattr(rg_ops, "rglru_gated_scan", None)
+    for T in (1, 16, 2048):
+        for key, fn in k5_calls(rg_ops, gated, T).items():
+            res[key] = cs.cuda_ms(fn)
+    if args.sweep and hasattr(rg_ops, "SPLIT_T"):
+        res["k5 sweep"] = k5_sweep(rg_ops, gated)
 
     H, N = 40, 64                           # rwkv6-3b
     for T in (1, 16, 64, 2048):
         r, k, v, w, u, s0 = cs.wkv6_inputs(1, T, H, N, rkv="bf16")
         res[f"wkv6 T={T}"] = cs.cuda_ms(lambda: wkv6(r, k, v, w, u, s0))
     print(json.dumps(res), flush=True)
+
+
+def k5_calls(rg_ops, gated, T, W=4096):
+    """{label: call} for K5 at (1, T, W) from a seed: the plain entry, and
+    the gated one (bf16 logits) where the checkout has it."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    a = torch.sigmoid(torch.randn((1, T, W), generator=g, device="cuda"))
+    b, x, r, i = (torch.randn((1, T, W), generator=g, device="cuda") for _ in range(4))
+    h0 = torch.randn((1, W), generator=g, device="cuda")
+    calls = {f"rglru T={T}": lambda: rg_ops.rglru_scan(a, b, h0)}
+    if gated is not None:
+        lam = torch.full((W,), 0.65, device="cuda")
+        xb, rb, ib = (t.to(torch.bfloat16) for t in (x, r, i))
+        calls[f"rglru gated T={T}"] = lambda: gated(xb, rb, ib, lam, h0)
+    return calls
+
+
+def k5_sweep(rg_ops, gated):
+    """K5's one-launch path against the split path at chunk lengths 16 to
+    128, each entry, T = 16 to 2,048; the module's own settings are restored
+    afterwards."""
+    saved = rg_ops.SPLIT_T, rg_ops.MIN_CHUNK, rg_ops.MAX_CHUNKS
+    out = {}
+    try:
+        for T in (16, 32, 64, 96, 128, 192, 256, 512, 2048):
+            for key, fn in k5_calls(rg_ops, gated, T).items():
+                rg_ops.SPLIT_T = 1 << 30
+                row = {"one launch": cs.cuda_ms(fn)}
+                for chunk in (16, 32, 64, 128):
+                    if chunk < T:
+                        rg_ops.SPLIT_T, rg_ops.MIN_CHUNK, rg_ops.MAX_CHUNKS = 1, chunk, T
+                        row[f"split chunk={chunk}"] = cs.cuda_ms(fn)
+                out[key] = row
+    finally:
+        rg_ops.SPLIT_T, rg_ops.MIN_CHUNK, rg_ops.MAX_CHUNKS = saved
+    return out
 
 
 if __name__ == "__main__":

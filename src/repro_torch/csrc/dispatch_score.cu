@@ -29,18 +29,29 @@
 // fp32.  The lanes' order and the shuffle tree change nothing.  TF32 would
 // round general operands to 10 mantissa bits, so the arithmetic is fp32 FMA.
 //
-// K2 (update_kernel) is a tiled kernel: one block of 256 threads per
-// 64x64 output tile, the contraction in 16-deep slices staged in shared
-// memory, a 4x4 register micro-tile a thread.  At the serving rank (K = 2)
-// it is one slice, one round trip.
+// K2, the rank-K update sized to the output (update_kernel).  Each thread
+// owns V outputs of one row, out[w, e .. e+V-1]: V = 4 (one float4) when
+// E % 4 == 0 and the bases of scores, delta and out are 16-byte aligned,
+// else V = 1.  It reads its scores, then walks K with mult[w, k] (one
+// address for all threads of the row: a broadcast) and delta[k, e ..]
+// (neighbouring threads on neighbouring addresses) straight from global
+// memory through __ldg, four steps' loads issued together.  No shared
+// memory, no barrier; the grid is ceil(W E / V / 128) blocks of 128, so at
+// the serving shape (W = 256, K = 2, E = 16) every thread computes live
+// outputs and waits on device memory once.  The same exactness argument as
+// K1's holds, max|out - float64| == 0.0 in any summation order: scores are
+// dyadic multiples, mult small integers and delta dyadic (+-0.5**tier), so
+// every product and partial sum is an integer multiple of the smallest
+// weight below 2**24 of them, exact in fp32.
 //
 // What bounds them on the H100.  The serving shapes are tiny (W <= 256 rows
 // of the window, E <= 16 executors, O = 256 object columns, K = 2): 24 KB of
 // operands for K1, far below both the bytes floor (3.35 TB/s) and the fp32
 // floor (67 TFLOP/s).  The launch and one device-memory round trip bound
-// them; K1's design leaves that one round trip a warp.  At large extents K1
-// is bound by L2 reads (each demand row is read by E / EW blocks, each
-// presence row by W / RW blocks) and then by the fp32 rate.
+// them; each design leaves that one round trip a warp (K1) or a thread
+// (K2).  At large extents K1 is bound by L2 reads (each demand row is read
+// by E / EW blocks, each presence row by W / RW blocks) and then by the
+// fp32 rate.
 //
 // C entry points return cudaGetLastError().
 
@@ -49,10 +60,7 @@
 
 namespace {
 
-constexpr int TW = 64;   // K2: output rows per block
-constexpr int TE = 64;   // K2: output columns per block
-constexpr int TK = 16;   // K2: contraction slice
-constexpr int NT = 256;
+constexpr int UT = 128;  // K2: threads a block
 
 constexpr int RW = 2;    // K1: window rows per block
 constexpr int EW = 8;    // K1: executors per block, one a warp
@@ -130,59 +138,43 @@ score_rows_kernel(const float* __restrict__ A, const float* __restrict__ B,
 }
 
 // out[W,E] = S[W,E] + M[W,K] @ Dl[K,E]; out may alias S (each element is
-// read and written by the same thread).
-__global__ void __launch_bounds__(NT)
+// read and then written by the same thread, so S is read without __ldg).
+template <int V>
+__global__ void __launch_bounds__(UT)
 update_kernel(const float* S, const float* __restrict__ M,
               const float* __restrict__ Dl, float* out, int W, int E, int K) {
-  __shared__ float As[TK][TW + 1];
-  __shared__ float Bs[TK][TE + 1];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int w0 = blockIdx.y * TW, e0 = blockIdx.x * TE;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int w = w0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e = e0 + tx + 16 * j;
-      acc[i][j] = (w < W && e < E) ? S[(long)w * E + e] : 0.f;
+  const int per_row = E / V;
+  const long i = (long)blockIdx.x * UT + threadIdx.x;
+  if (i >= (long)W * per_row) return;
+  const int w = (int)(i / per_row);
+  const int e = (int)(i % per_row) * V;
+  const long o = (long)w * E + e;
+  float acc[V];
+  if constexpr (V == 4) {
+    const float4 s = *reinterpret_cast<const float4*>(S + o);
+    acc[0] = s.x; acc[1] = s.y; acc[2] = s.z; acc[3] = s.w;
+  } else {
+    acc[0] = S[o];
+  }
+  const float* m = M + (long)w * K;
+  const float* d = Dl + e;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float mk = __ldg(m + k);
+    if constexpr (V == 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(d + (long)k * E));
+      acc[0] = fmaf(mk, q.x, acc[0]);
+      acc[1] = fmaf(mk, q.y, acc[1]);
+      acc[2] = fmaf(mk, q.z, acc[2]);
+      acc[3] = fmaf(mk, q.w, acc[3]);
+    } else {
+      acc[0] = fmaf(mk, __ldg(d + (long)k * E), acc[0]);
     }
   }
-
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    for (int i = tid; i < TW * TK; i += NT) {
-      const int r = i / TK, kk = i % TK;
-      const int w = w0 + r, kidx = k0 + kk;
-      As[kk][r] = (w < W && kidx < K) ? M[(long)w * K + kidx] : 0.f;
-      const int kb = i / TE, c = i % TE;     // delta rows are E-contiguous
-      const int e = e0 + c, kidx2 = k0 + kb;
-      Bs[kb][c] = (e < E && kidx2 < K) ? Dl[(long)kidx2 * E + e] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int w = w0 + ty + 16 * i;
-    if (w >= W) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e = e0 + tx + 16 * j;
-      if (e < E) out[(long)w * E + e] = acc[i][j];
-    }
-  }
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(out + o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  else
+    out[o] = acc[0];
 }
 
 }  // namespace
@@ -209,9 +201,18 @@ extern "C" int dispatch_score_update_f32(const void* scores, const void* mult,
                                          int E, int K, void* stream) {
   cudaGetLastError();
   if (W <= 0 || E <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((E + TE - 1) / TE, (W + TW - 1) / TW);
-  update_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scores), static_cast<const float*>(mult),
-      static_cast<const float*>(delta), static_cast<float*>(out), W, E, K);
+  const bool vec = E % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(scores) | reinterpret_cast<uintptr_t>(delta) |
+        reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const long threads = (long)W * (vec ? E / 4 : E);
+  const unsigned grid = (unsigned)((threads + UT - 1) / UT);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scores);
+  const float* m = static_cast<const float*>(mult);
+  const float* d = static_cast<const float*>(delta);
+  if (vec)
+    update_kernel<4><<<grid, UT, 0, s>>>(sc, m, d, static_cast<float*>(out), W, E, K);
+  else
+    update_kernel<1><<<grid, UT, 0, s>>>(sc, m, d, static_cast<float*>(out), W, E, K);
   return (int)cudaGetLastError();
 }

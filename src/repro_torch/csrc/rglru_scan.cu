@@ -1,68 +1,264 @@
-// RG-LRU diagonal recurrence for Hopper (sm_90a).
+// RG-LRU diagonal recurrence for Hopper (sm_90a), plain and with the gates
+// fused in.
 //
 // Replaces the TPU kernel `rglru_pallas` / `_rglru_kernel` in
 // src/repro/kernels/rglru_scan/rglru_scan.py.  Same recurrence,
-// h_t = a_t * h_{t-1} + b_t per channel over a, b [B,T,W] in fp32, with the
-// state carried in and out: the Pallas kernel starts from h = 0 and returns
-// only y, but the model's prefill and decode steps continue a session's
-// state, so this kernel reads h0 [B,W] (or zeros when it is null) and writes
-// hT [B,W] beside y [B,T,W].
+// h_t = a_t * h_{t-1} + b_t per channel over [B,T,W] in fp32, with the state
+// carried in and out: the Pallas kernel starts from h = 0 and returns only y,
+// but the model's prefill and decode steps continue a session's state, so
+// this kernel reads h0 [B,W] (or zeros when it is null) and writes hT [B,W]
+// beside y [B,T,W].
+//
+// Two entries share one kernel template, whose operand type says where a_t
+// and b_t come from:
+//   * rglru_scan_fwd (the Pallas kernel's counterpart): a and b, fp32;
+//   * rglru_gated_scan_fwd: the RG-LRU's gate chain of models/rglru.py,
+//     computed per element inside the scan from xi, r_logit and i_logit
+//     (bf16 or fp32) and lam (fp32 [W]):
+//       r = sigmoid(r_logit), i = sigmoid(i_logit)
+//       a = exp(-8 softplus(lam) r),  b = sqrt(clamp(1 - a^2, 0, 1)) (i xi)
+//     with accurate expf / log1pf / sqrtf, IEEE division and every product
+//     and sum rounded on its own (__fmul_rn, __fadd_rn: no contraction into
+//     fused multiply-adds), in the order of the plain version's tensor
+//     operations; softplus is torch's (x > 20 ? x : log1p(exp(x))).  The
+//     decode step then launches this one kernel where it launched fifteen
+//     elementwise kernels and the scan, and a prompt's gates never go
+//     through device memory.
 //
 // Design.  The Pallas grid walks time as a sequential axis with h in VMEM
-// scratch.  The recurrence has no work across channels, so here one thread
-// owns one (batch row, channel) and walks the whole time axis with h in a
-// register; neighbouring threads own neighbouring channels, so every load
-// and store of a time step is one coalesced row.  The product and the sum
-// round separately (no fused multiply-add), as the plain version's two
-// elementwise operations do.  Ragged T and W are handled by the loop bound
-// and a channel mask (the Pallas kernel asserts divisibility).
+// scratch.  Here one thread owns one (batch row, channel) and walks time
+// with h in a register; neighbouring threads own neighbouring channels, so
+// every load and store of a time step is one coalesced row.  A thread walks
+// time in groups of U = 8 steps: it issues the next group's loads (clamped
+// to the chunk, so they are unconditional and all in flight together), then
+// runs the current group's gate arithmetic and the dependent chain of h, so
+// memory latency is paid once for the first group and then hidden behind
+// the arithmetic of the one before.
 //
-// What bounds it on the H100.  Bytes: a and b read once, y written once
-// (12 bytes per element, plus the two states): 0.82 MB, 0.00024 ms at B=1,
-// T=16, W=4096 against 3.35 TB/s.  At those serving shapes (and T = 1 in decode)
-// the launch dominates, and only W/256 = 16 blocks run: the card is mostly
-// idle.  Later work: fuse the gate arithmetic that builds a and b (sigmoid,
-// softplus, exp, sqrt) into this kernel, and split T across blocks with a
-// second pass for long prompts.
+// Long prompts are split over the card.  One launch walks the whole time
+// axis below SPLIT_T = 64 steps (decode, T = 1, and the 16-token serving
+// prefill); from SPLIT_T on, T is cut into nc chunks of `chunk` steps (the
+// wrapper, kernels/rglru_scan/ops.py, picks chunk = max(16, ceil(T / 64)))
+// and the third grid axis runs the chunks side by side in two launches:
+//   1. each chunk's summary per channel: the product of its a_t and its end
+//      state from h = 0 (scratch [2, B, nc, W]);
+//   2. each chunk's carry-in, h0 folded through the earlier chunks'
+//      summaries (carry = P_j carry + H_j), then the chunk rerun from it,
+//      writing y and, in the last chunk, hT.
+// The carry-in is summed in another order than the sequential scan, so the
+// result moves by rounding only (1e-5 relative, K5's tolerance).  Blocks of
+// later chunks read h0 while the last chunk writes hT, so hT must not alias
+// h0 on this path (the wrapper allocates it).  SPLIT_T and the chunk length
+// come from kernel_ab.py's sweep of both paths on the H100 (PERF.md): at
+// W = 4,096 the gated entry takes 0.0130 ms split against 0.0167 in one
+// launch at T = 64 (0.0122 against 0.0096 at T = 32), the plain entry gains
+// from T = 96 on; chunks of 16 steps are fastest up to T = 256, and the
+// gated entry's chunks of 32 at T = 2,048.
 //
-// C entry point: rglru_scan_fwd(...) returns cudaGetLastError().
+// What bounds it on the H100.  Bytes.  Plain: a and b read once, y written
+// once (12 bytes per element, plus the two states): 100.7 MB, 0.030 ms, at
+// B = 1, T = 2,048, W = 4,096 against 3.35 TB/s.  Gated, bf16 logits: 10
+// bytes per element, 84 MB, 0.025 ms.  The split path reads its inputs
+// twice (once per launch).  At T = 1 (decode) the launch dominates.
+//
+// C entry points return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;
+constexpr int NT = 128;  // channels a block
+constexpr int U = 8;     // steps whose loads are issued together
 
+// Each operand type loads a group of U steps' raw values (load: loads only,
+// so that all of them are in flight before anything waits on one) and turns
+// them into a_t and b_t (compute).  Indices past the chunk's end are clamped
+// to its last step by the caller; those steps are masked in the recurrence.
+struct PlainAB {
+  const float* __restrict__ a;
+  const float* __restrict__ b;
+  struct Raw { float a[U], b[U]; };
+  __device__ __forceinline__ float channel_raw(int) const { return 0.f; }
+  __device__ __forceinline__ float channel(float) const { return 0.f; }
+  __device__ __forceinline__ void load(Raw& q, const long (&o)[U]) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) { q.a[u] = __ldg(a + o[u]); q.b[u] = __ldg(b + o[u]); }
+  }
+  __device__ __forceinline__ void compute(const Raw& q, float, float (&av)[U],
+                                          float (&bv)[U]) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) { av[u] = q.a[u]; bv[u] = q.b[u]; }
+  }
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(uint16_t v) {     // bf16 bits -> fp32, exact
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+__device__ __forceinline__ float sigmoid_rn(float v) {
+  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v)));
+}
+
+__device__ __forceinline__ float clamp01(float v) {   // NaN passes, as torch.clamp
+  return v < 0.f ? 0.f : (v > 1.f ? 1.f : v);
+}
+
+// a_t and b_t from the gate logits; E is float or uint16_t (bf16 bits).
+template <typename E>
+struct GatedAB {
+  const E* __restrict__ x;
+  const E* __restrict__ r;
+  const E* __restrict__ i;
+  const float* __restrict__ lam;
+  struct Raw { E x[U], r[U], i[U]; };
+  __device__ __forceinline__ float channel_raw(int c) const { return __ldg(lam + c); }
+  // -8 softplus(lam[c]), rounded as the plain version's [W] tensor is
+  __device__ __forceinline__ float channel(float l) const {
+    return __fmul_rn(-8.f, l > 20.f ? l : log1pf(expf(l)));
+  }
+  __device__ __forceinline__ void load(Raw& q, const long (&o)[U]) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      q.x[u] = __ldg(x + o[u]); q.r[u] = __ldg(r + o[u]); q.i[u] = __ldg(i + o[u]);
+    }
+  }
+  __device__ __forceinline__ void compute(const Raw& q, float neg_c, float (&av)[U],
+                                          float (&bv)[U]) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float rg = sigmoid_rn(to_f(q.r[u]));
+      const float ig = sigmoid_rn(to_f(q.i[u]));
+      av[u] = expf(__fmul_rn(neg_c, rg));
+      const float keep = sqrtf(clamp01(__fsub_rn(1.f, __fmul_rn(av[u], av[u]))));
+      bv[u] = __fmul_rn(keep, __fmul_rn(ig, to_f(q.x[u])));
+    }
+  }
+};
+
+enum Mode { WHOLE = 0, SUMMARY = 1, CARRY = 2 };
+
+// Element offsets of the U steps from t (clamped to t1 - 1).
+__device__ __forceinline__ void step_offsets(long (&o)[U], long base, int t, int t1, int W) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) o[u] = base + (long)min(t + u, t1 - 1) * W;
+}
+
+// WHOLE: one chunk, the whole time axis.  SUMMARY: chunk blockIdx.z from
+// h = 0, writing its product of a and end state.  CARRY: chunk blockIdx.z
+// from its carry-in, writing y (and hT in the last chunk).  The next group's
+// loads are issued before the current group's arithmetic.
+template <class AB, int MODE>
 __global__ void __launch_bounds__(NT)
-rglru_kernel(const float* __restrict__ a, const float* __restrict__ b,
-             const float* __restrict__ h0, float* __restrict__ y,
-             float* __restrict__ hT, int T, int W) {
+rglru_kernel(AB ab, const float* __restrict__ h0, float* __restrict__ y,
+             float* __restrict__ hT, float* __restrict__ sum_p,
+             float* __restrict__ sum_h, int T, int W, int chunk) {
   const int c = blockIdx.x * NT + threadIdx.x;
   const int bi = blockIdx.y;
   if (c >= W) return;
-  float h = h0 != nullptr ? h0[(long)bi * W + c] : 0.f;
+  const int k = blockIdx.z, nc = gridDim.z;
+  const int t0 = MODE == WHOLE ? 0 : k * chunk;
+  const int t1 = MODE == WHOLE ? T : min(T, t0 + chunk);
   const long base = (long)bi * T * W + c;
-  for (int t = 0; t < T; ++t) {
-    const long o = base + (long)t * W;
-    h = __fadd_rn(__fmul_rn(a[o], h), b[o]);
-    y[o] = h;
+  const long sbase = (long)bi * nc * W + c;    // summaries of (bi, chunk 0, c)
+
+  const float lam_raw = ab.channel_raw(c);
+  typename AB::Raw cur;
+  long o[U];
+  if (t0 < t1) {
+    step_offsets(o, base, t0, t1, W);
+    ab.load(cur, o);
   }
-  hT[(long)bi * W + c] = h;
+  float h = 0.f, prod = 1.f;
+  if (MODE != SUMMARY) {
+    h = h0 != nullptr ? h0[(long)bi * W + c] : 0.f;
+    if (MODE == CARRY) {
+#pragma unroll 8
+      for (int j = 0; j < k; ++j)
+        h = __fadd_rn(__fmul_rn(sum_p[sbase + (long)j * W], h), sum_h[sbase + (long)j * W]);
+    }
+  }
+  const float neg_c = ab.channel(lam_raw);
+  for (int t = t0; t < t1; t += U) {
+    typename AB::Raw nxt;
+    const bool more = t + U < t1;
+    if (more) {
+      step_offsets(o, base, t + U, t1, W);
+      ab.load(nxt, o);
+    }
+    float av[U], bv[U];
+    ab.compute(cur, neg_c, av, bv);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (t + u < t1) {
+        h = __fadd_rn(__fmul_rn(av[u], h), bv[u]);
+        if (MODE == SUMMARY) prod = __fmul_rn(prod, av[u]);
+        else y[base + (long)(t + u) * W] = h;
+      }
+    }
+    if (more) cur = nxt;
+  }
+  if (MODE == SUMMARY) {
+    sum_p[sbase + (long)k * W] = prod;
+    sum_h[sbase + (long)k * W] = h;
+  } else if (k == nc - 1) {
+    hT[(long)bi * W + c] = h;
+  }
+}
+
+template <class AB>
+int launch(const AB& ab, const void* h0, void* y, void* hT, void* scratch,
+           int B, int T, int W, int chunk, void* stream) {
+  cudaGetLastError();  // clear a stale error so the return value is this call's
+  if (B <= 0 || B > 65535 || T < 0 || W <= 0 || chunk < 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* h = static_cast<const float*>(h0);
+  float* yo = static_cast<float*>(y);
+  float* ho = static_cast<float*>(hT);
+  const int gx = (W + NT - 1) / NT;
+  if (chunk == 0 || chunk >= T) {
+    rglru_kernel<AB, WHOLE><<<dim3(gx, B, 1), NT, 0, s>>>(ab, h, yo, ho, nullptr,
+                                                         nullptr, T, W, T);
+    return (int)cudaGetLastError();
+  }
+  const int nc = (T + chunk - 1) / chunk;
+  if (nc > 65535 || scratch == nullptr || h0 == hT) return (int)cudaErrorInvalidValue;
+  float* sum_p = static_cast<float*>(scratch);          // [B, nc, W]
+  float* sum_h = sum_p + (long)B * nc * W;              // [B, nc, W]
+  const dim3 grid(gx, B, nc);
+  rglru_kernel<AB, SUMMARY><<<grid, NT, 0, s>>>(ab, h, yo, ho, sum_p, sum_h, T, W, chunk);
+  rglru_kernel<AB, CARRY><<<grid, NT, 0, s>>>(ab, h, yo, ho, sum_p, sum_h, T, W, chunk);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// a, b, y: contiguous float32 [B,T,W]; h0 (may be null), hT: float32 [B,W].
+// a, b, y: contiguous float32 [B,T,W]; h0 (may be null), hT: float32 [B,W];
+// chunk: 0 for one launch, else the split path's chunk length, with scratch
+// float32 [2, B, ceil(T / chunk), W].
 extern "C" int rglru_scan_fwd(const void* a, const void* b, const void* h0,
-                              void* y, void* hT, int B, int T, int W,
-                              void* stream) {
-  cudaGetLastError();  // clear a stale error so the return value is this call's
-  if (B <= 0 || B > 65535 || T < 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + NT - 1) / NT, B);
-  rglru_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(h0), static_cast<float*>(y),
-      static_cast<float*>(hT), T, W);
-  return (int)cudaGetLastError();
+                              void* y, void* hT, void* scratch, int B, int T,
+                              int W, int chunk, void* stream) {
+  const PlainAB ab{static_cast<const float*>(a), static_cast<const float*>(b)};
+  return launch(ab, h0, y, hT, scratch, B, T, W, chunk, stream);
+}
+
+// x, r_logit, i_logit: contiguous [B,T,W], bf16 when bf16 != 0, else
+// float32; lam: float32 [W]; the rest as rglru_scan_fwd.
+extern "C" int rglru_gated_scan_fwd(const void* x, const void* r_logit,
+                                    const void* i_logit, const void* lam,
+                                    const void* h0, void* y, void* hT,
+                                    void* scratch, int B, int T, int W,
+                                    int chunk, int bf16, void* stream) {
+  const float* l = static_cast<const float*>(lam);
+  if (bf16) {
+    const GatedAB<uint16_t> ab{static_cast<const uint16_t*>(x),
+                               static_cast<const uint16_t*>(r_logit),
+                               static_cast<const uint16_t*>(i_logit), l};
+    return launch(ab, h0, y, hT, scratch, B, T, W, chunk, stream);
+  }
+  const GatedAB<float> ab{static_cast<const float*>(x), static_cast<const float*>(r_logit),
+                          static_cast<const float*>(i_logit), l};
+  return launch(ab, h0, y, hT, scratch, B, T, W, chunk, stream);
 }

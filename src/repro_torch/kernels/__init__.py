@@ -14,7 +14,7 @@ from .dispatch_score.ops import (
 )
 from .flash_attention.ops import attention_ref, flash_attention
 from .moe_gmm.ops import gmm_ref, moe_gmm
-from .rglru_scan.ops import rglru_ref, rglru_scan
+from .rglru_scan.ops import rglru_gated_ref, rglru_gated_scan, rglru_ref, rglru_scan
 from .rwkv6_scan.ops import wkv6, wkv6_ref
 
 __all__ = [
@@ -22,6 +22,6 @@ __all__ = [
     "dispatch_score_update", "dispatch_score_update_ref",
     "flash_attention", "attention_ref",
     "moe_gmm", "gmm_ref",
-    "rglru_scan", "rglru_ref",
+    "rglru_scan", "rglru_ref", "rglru_gated_scan", "rglru_gated_ref",
     "wkv6", "wkv6_ref",
 ]

@@ -1,9 +1,20 @@
-"""Wrapper for the RG-LRU scan kernel (``csrc/rglru_scan.cu``).
+"""Wrappers for the RG-LRU scan kernel (``csrc/rglru_scan.cu``).
 
-CPU tensors take the plain version (``ref.rglru_ref``); CUDA tensors launch
-the kernel or raise.  a, b and h0 are cast to contiguous float32 (as the
-reference's scan casts them); the kernel computes in fp32 throughout.
-``rglru_scan.launches`` counts launches.
+CPU tensors take the plain versions (``ref.py``); CUDA tensors launch the
+kernel or raise.  Two entries share the kernel:
+
+* ``rglru_scan(a, b, h0)``, the counterpart of the TPU kernel: a, b and h0
+  are cast to contiguous float32 (as the reference's scan casts them);
+* ``rglru_gated_scan(xi, r_logit, i_logit, lam, h0)``, the RG-LRU block's
+  gate chain and scan in one launch: xi and the two logits go to the kernel
+  in their own type when all three are bfloat16 or all float32 (no copy for
+  contiguous operands, as the model passes them), else as float32.
+
+From ``SPLIT_T`` steps on, a call splits the time axis into chunks of
+``chunk_len(T)`` steps and runs two launches (chunk summaries, then every
+chunk from its carry-in); below it, one.  ``rglru_scan.launches`` counts the
+launches of both entries, ``rglru_gated_scan.launches`` those of the gated
+one.
 """
 
 from __future__ import annotations
@@ -11,12 +22,62 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .ref import rglru_ref
+from .ref import rglru_gated_ref, rglru_ref
+
+# The split path's settings, from ``kernel_ab.py --sweep`` on the H100 (both
+# entries, W = 4,096; PERF.md): the gated entry gains from the split at T = 64
+# (0.0130 against 0.0167 ms in one launch), the plain one from T = 96; chunks
+# of 16 steps are fastest up to T = 256, and the gated entry's of 32 at 2,048.
+SPLIT_T = 64       # from this many steps on, the time axis is split
+MIN_CHUNK = 16     # steps a chunk at least
+MAX_CHUNKS = 64    # chunks a row at most (the carry-in walk is this long)
 
 _SIGNATURES = {
-    "rglru_scan_fwd": [_build.P, _build.P, _build.P, _build.P, _build.P,
-                       _build.I, _build.I, _build.I, _build.P],
+    "rglru_scan_fwd": [_build.P] * 6 + [_build.I] * 4 + [_build.P],
+    "rglru_gated_scan_fwd": [_build.P] * 8 + [_build.I] * 5 + [_build.P],
 }
+
+
+def chunk_len(T: int) -> int:
+    """Steps a chunk of the split path at T steps, or 0 below ``SPLIT_T``."""
+    return 0 if T < SPLIT_T else max(MIN_CHUNK, -(-T // MAX_CHUNKS))
+
+
+def _check_state(h0, B, W):
+    if h0 is not None and tuple(h0.shape) != (B, W):
+        raise ValueError(f"h0 {tuple(h0.shape)} must be [B, W] = {(B, W)}")
+
+
+def _cuda_only(first, *rest):
+    if first.device.type != "cuda" or any(
+            x is not None and x.device != first.device for x in rest):
+        raise ValueError("the rglru_scan kernel takes its operands on one CUDA device")
+
+
+def _f32(x):
+    return None if x is None else x.to(torch.float32).contiguous()
+
+
+def _launch(entry, operands, h0, B, T, W, *flags):
+    """Allocate y, hT and the split path's scratch on the operands' device,
+    launch ``entry``.  Returns (y, hT, kernel launches)."""
+    dev = operands[0].device
+    y = torch.empty((B, T, W), dtype=torch.float32, device=dev)
+    hT = torch.empty((B, W), dtype=torch.float32, device=dev)
+    if B == 0 or W == 0:
+        return y, hT, 0
+    chunk = chunk_len(T)
+    scratch = (torch.empty((2, B, -(-T // chunk), W), dtype=torch.float32, device=dev)
+               if chunk else None)
+    lib = _build.library("rglru_scan", _SIGNATURES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(
+            *(x.data_ptr() for x in operands), None if h0 is None else h0.data_ptr(),
+            y.data_ptr(), hT.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, T, W, chunk, *flags, stream)
+    _build.check(err, entry)
+    return y, hT, 2 if chunk else 1
 
 
 def rglru_scan(a, b, h0=None):
@@ -26,31 +87,42 @@ def rglru_scan(a, b, h0=None):
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must be one "
                          "[B, T, W] shape")
     B, T, W = a.shape
-    if h0 is not None and tuple(h0.shape) != (B, W):
-        raise ValueError(f"h0 {tuple(h0.shape)} must be [B, W] = {(B, W)}")
+    _check_state(h0, B, W)
     if a.device.type == "cpu":
         return rglru_ref(a, b, h0)
-    if a.device.type != "cuda" or b.device != a.device \
-            or (h0 is not None and h0.device != a.device):
-        raise ValueError("rglru_scan kernel takes a, b, h0 on one CUDA device")
-    a = a.to(torch.float32).contiguous()
-    b = b.to(torch.float32).contiguous()
-    h0 = None if h0 is None else h0.to(torch.float32).contiguous()
-    y = torch.empty_like(a)
-    hT = torch.empty((B, W), dtype=torch.float32, device=a.device)
-    if B == 0 or W == 0:
-        return y, hT
-    lib = _build.library("rglru_scan", _SIGNATURES)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.rglru_scan_fwd(a.data_ptr(), b.data_ptr(),
-                                 None if h0 is None else h0.data_ptr(),
-                                 y.data_ptr(), hT.data_ptr(), B, T, W, stream)
-    _build.check(err, "rglru_scan_fwd")
-    rglru_scan.launches += 1
+    _cuda_only(a, b, h0)
+    y, hT, n = _launch("rglru_scan_fwd", (_f32(a), _f32(b)), _f32(h0), B, T, W)
+    rglru_scan.launches += n
+    return y, hT
+
+
+def rglru_gated_scan(xi, r_logit, i_logit, lam, h0=None):
+    """The RG-LRU of ``models/rglru.py``: r = sigmoid(r_logit), i =
+    sigmoid(i_logit), a = exp(-8 softplus(lam) r), b = sqrt(clamp(1 - a^2,
+    0, 1)) (i xi), then the scan from h0.  xi, r_logit, i_logit: [B, T, W];
+    lam: [W]; h0: [B, W] or None.  Returns (y [B, T, W] f32, hT [B, W] f32)."""
+    if xi.ndim != 3 or r_logit.shape != xi.shape or i_logit.shape != xi.shape:
+        raise ValueError(f"xi {tuple(xi.shape)}, r_logit {tuple(r_logit.shape)} and "
+                         f"i_logit {tuple(i_logit.shape)} must be one [B, T, W] shape")
+    B, T, W = xi.shape
+    if tuple(lam.shape) != (W,):
+        raise ValueError(f"lam {tuple(lam.shape)} must be [W] = {(W,)}")
+    _check_state(h0, B, W)
+    if xi.device.type == "cpu":
+        return rglru_gated_ref(xi, r_logit, i_logit, lam, h0)
+    _cuda_only(xi, r_logit, i_logit, lam, h0)
+    gates = (xi, r_logit, i_logit)
+    bf16 = all(x.dtype == torch.bfloat16 for x in gates)
+    gates = tuple(x.contiguous() if bf16 else _f32(x) for x in gates)
+    y, hT, n = _launch("rglru_gated_scan_fwd", (*gates, _f32(lam)), _f32(h0),
+                       B, T, W, int(bf16))
+    rglru_scan.launches += n
+    rglru_gated_scan.launches += n
     return y, hT
 
 
 rglru_scan.launches = 0
+rglru_gated_scan.launches = 0
 
-__all__ = ["rglru_scan", "rglru_ref"]
+__all__ = ["rglru_scan", "rglru_gated_scan", "rglru_ref", "rglru_gated_ref",
+           "chunk_len", "SPLIT_T", "MIN_CHUNK", "MAX_CHUNKS"]

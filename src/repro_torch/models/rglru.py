@@ -9,10 +9,11 @@ output projection.  RG-LRU per channel:
     log a_t = -c * softplus(Lambda) * r_t          (c = 8)
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * xi_t)
 
-The gate arithmetic runs as batched tensor operations; the time recurrence
-runs in the RG-LRU scan kernel (``kernels.rglru_scan``), for a prompt and
-for a single decode token alike.  The GeLU is the tanh approximation, which
-is what ``jax.nn.gelu`` computes by default.
+The gate matmuls run as batched products; the two sigmoids, a, b and the
+time recurrence run in one launch of the RG-LRU scan kernel's gated entry
+(``kernels.rglru_scan.ops.rglru_gated_scan``), for a prompt and for a
+single decode token alike.  The GeLU is the tanh approximation, which is
+what ``jax.nn.gelu`` computes by default.
 """
 
 from __future__ import annotations
@@ -20,10 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.rglru_scan.ops import rglru_scan as rglru_kernel
+from ..kernels.rglru_scan.ops import rglru_gated_scan
 from .layers import BF16, F32, dense_init
-
-RGLRU_C = 8.0
 
 
 def rglru_init(gen, d_model: int, width: int, conv_width: int = 4, lead=()):
@@ -50,22 +49,12 @@ def causal_conv1d(x, kernel, prev):
     return out.to(x.dtype), xp[:, xp.shape[1] - (cw - 1):]
 
 
-def rglru_scan(xi, r, i_gate, lam, h0):
-    """xi, r, i_gate: [B, T, W]; lam: [W]; h0: [B, W] -> (y [B, T, W], hT)."""
-    log_a = (-RGLRU_C * F.softplus(lam))[None, None, :] * r.to(F32)
-    a = torch.exp(log_a)
-    gated = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (i_gate.to(F32) * xi.to(F32))
-    return rglru_kernel(a, gated, h0)
-
-
 def rglru_block_apply(p, x, state):
     """x: [B, T, D]; state: {h: [B, W], conv: [B, Cw-1, W]}.
     Returns (out, new state) with fresh state tensors."""
     xi = x @ p["w_in"]
     xi, conv_state = causal_conv1d(xi, p["conv"], state["conv"])
-    r = torch.sigmoid((xi @ p["w_a"]).to(F32))
-    i_gate = torch.sigmoid((xi @ p["w_x"]).to(F32))
-    y, hT = rglru_scan(xi, r, i_gate, p["lam"], state["h"])
+    y, hT = rglru_gated_scan(xi, xi @ p["w_a"], xi @ p["w_x"], p["lam"], state["h"])
     gate = F.gelu((x @ p["w_gate_branch"]).to(F32), approximate="tanh")
     out = (y * gate).to(x.dtype) @ p["out_proj"]
     return out, {"h": hT, "conv": conv_state}

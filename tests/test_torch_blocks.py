@@ -16,6 +16,7 @@ import torch
 from repro.models import moe as jmoe
 from repro.models import rglru as jrg
 from repro.models import rwkv as jrw
+from repro_torch.kernels.rglru_scan.ops import SPLIT_T
 from repro_torch.models import moe as tmoe
 from repro_torch.models import rglru as trg
 from repro_torch.models import rwkv as trw
@@ -200,6 +201,51 @@ def test_rglru_block_apply_with_state(T, dtype):
     check(new_t["h"], new_j["h"], dtype, "h")
     check(new_t["conv"], new_j["conv"], dtype, "conv")
     assert new_t["h"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_block_apply_long_prompt(dtype):
+    """A prompt of SPLIT_T + 1 steps, past where the kernel splits the time
+    axis (its CPU path is the plain scan)."""
+    rng = np.random.default_rng(3)
+    B, D, W, T = 1, 16, 32, SPLIT_T + 1
+    pj, pt = tree_both(rglru_weights(rng, D, W), dtype, f32_keys=("lam",))
+    st = rglru_state(rng, B, W)
+    sj = {"h": jnp.asarray(st["h"]), "conv": both(st["conv"], dtype)[0]}
+    s_t = {"h": torch.from_numpy(st["h"]), "conv": both(st["conv"], dtype)[1]}
+    xj, xt = both(rng.standard_normal((B, T, D)).astype(np.float32), dtype)
+    out_j, new_j = jrg.rglru_block_apply(pj, xj, sj)
+    out_t, new_t = trg.rglru_block_apply(pt, xt, s_t)
+    check(out_t, out_j, dtype, "out")
+    check(new_t["h"], new_j["h"], dtype, "h")
+
+
+@pytest.mark.parametrize("T", [1, 9])
+def test_rglru_block_gates_as_separate_tensor_ops_bit_for_bit(T):
+    """On the CPU the block's fused gate entry computes exactly the chain of
+    separate tensor operations (two sigmoids, softplus, exp, clamp, sqrt,
+    products) that it replaced: the results are equal bit for bit."""
+    rng = np.random.default_rng(4)
+    B, D, W = 2, 32, 24
+    _, p = tree_both(rglru_weights(rng, D, W), "bf16", f32_keys=("lam",))
+    st = rglru_state(rng, B, W)
+    state = {"h": torch.from_numpy(st["h"]), "conv": both(st["conv"], "bf16")[1]}
+    x = both(rng.standard_normal((B, T, D)).astype(np.float32), "bf16")[1]
+    xi, _ = trg.causal_conv1d(x @ p["w_in"], p["conv"], state["conv"])
+    r = torch.sigmoid((xi @ p["w_a"]).to(torch.float32))
+    i_gate = torch.sigmoid((xi @ p["w_x"]).to(torch.float32))
+    a = torch.exp((-8.0 * torch.nn.functional.softplus(p["lam"]))[None, None, :] * r)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (i_gate * xi.to(torch.float32))
+    h, ys = state["h"], []
+    for t in range(T):
+        h = a[:, t] * h + b[:, t]
+        ys.append(h)
+    y = torch.stack(ys, 1)
+    gate = torch.nn.functional.gelu((x @ p["w_gate_branch"]).to(torch.float32),
+                                    approximate="tanh")
+    out, new = trg.rglru_block_apply(p, x, state)
+    assert torch.equal(new["h"], h)
+    assert torch.equal(out, (y * gate).to(x.dtype) @ p["out_proj"])
 
 
 # ---------------------------------------------------------------- RWKV6

@@ -24,7 +24,16 @@ from repro_torch.kernels.dispatch_score.ops import (
 )
 from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
 from repro_torch.kernels.moe_gmm.ops import gmm_ref, moe_gmm
-from repro_torch.kernels.rglru_scan.ops import rglru_ref, rglru_scan
+from repro_torch.kernels.rglru_scan.ops import (
+    MAX_CHUNKS,
+    MIN_CHUNK,
+    SPLIT_T,
+    chunk_len,
+    rglru_gated_ref,
+    rglru_gated_scan,
+    rglru_ref,
+    rglru_scan,
+)
 from repro_torch.kernels.rwkv6_scan.ops import wkv6, wkv6_ref
 
 ATTN_SHAPES = [
@@ -315,6 +324,129 @@ def test_rglru_ref_matches_pallas_interpret(jref):
     assert rel_err(y.numpy(), pallas) < 1e-5
 
 
+def gated_inputs(B, T, W, seed=6):
+    """xi, r_logit, i_logit ~ N(0, 1) and lam ~ 0.65 + 0.5 N(0, 1) (a spread
+    of decays around the model's initial value), float32 numpy."""
+    rng = np.random.default_rng(seed)
+    xi, r_logit, i_logit = (rng.standard_normal((B, T, W)).astype(np.float32)
+                            for _ in range(3))
+    lam = (0.65 + 0.5 * rng.standard_normal(W)).astype(np.float32)
+    return xi, r_logit, i_logit, lam, rng.standard_normal((B, W)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,T,W", [(2, 9, 24), (1, 130, 64)])
+def test_rglru_gated_ref_matches_jax(jref, B, T, W, with_h0, dtype):
+    """The gated plain version against the reference's gate chain:
+    ``jax.nn.sigmoid`` of the logits into ``repro.models.rglru.rglru_scan``
+    (which takes a state, so "no state" is zeros there)."""
+    import jax
+    from repro.models import rglru as jrg
+    _, jnp = jref
+    xi, r_logit, i_logit, lam, h0 = gated_inputs(B, T, W)
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    xj, rj, ij = (jnp.asarray(t).astype(jdt) for t in (xi, r_logit, i_logit))
+    y_j, h_j = jrg.rglru_scan(xj, jax.nn.sigmoid(rj.astype(jnp.float32)),
+                              jax.nn.sigmoid(ij.astype(jnp.float32)), jnp.asarray(lam),
+                              jnp.asarray(h0 if with_h0 else np.zeros_like(h0)))
+    xt, rt, it = _torch((xi, r_logit, i_logit), dtype)
+    y, h = rglru_gated_ref(xt, rt, it, torch.from_numpy(lam),
+                           torch.from_numpy(h0) if with_h0 else None)
+    tol = 2e-2 if dtype == "bf16" else 2e-5
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+    assert rel_err(y.numpy(), y_j) < tol
+    assert rel_err(h.numpy(), h_j) < tol
+
+
+def rglru_chunked_ref(a, b, h0=None, chunk=32):
+    """The split path of ``csrc/rglru_scan.cu`` in plain PyTorch: the same
+    function as ``rglru_ref``, computed as the kernel's two launches do.
+
+    1. per chunk of ``chunk`` steps (the last one ragged): P = prod a_t and
+       H = the chunk's end state from h = 0;
+    2. per chunk: carry = h0 folded through the earlier chunks' summaries
+       (carry = P_j carry + H_j), then the chunk rerun from it.
+    """
+    B, T, W = a.shape
+    a, b = a.float(), b.float()
+    h0 = torch.zeros((B, W)) if h0 is None else h0.float()
+    bounds = [(t0, min(T, t0 + chunk)) for t0 in range(0, T, chunk)]
+    summaries = []
+    for t0, t1 in bounds:
+        p, h = torch.ones((B, W)), torch.zeros((B, W))
+        for t in range(t0, t1):
+            p, h = p * a[:, t], a[:, t] * h + b[:, t]
+        summaries.append((p, h))
+    ys, hT = [], h0
+    for j, (t0, t1) in enumerate(bounds):
+        h = h0
+        for p, hj in summaries[:j]:
+            h = p * h + hj
+        for t in range(t0, t1):
+            h = a[:, t] * h + b[:, t]
+            ys.append(h)
+        hT = h
+    return (torch.stack(ys, 1) if ys else torch.zeros((B, 0, W))), hT
+
+
+def split_cases():
+    """(T, chunk): the wrapper's own chunk on both sides of SPLIT_T (its
+    least where it takes one launch), at a 2,048-step prompt, and chunks
+    that leave ragged tails."""
+    return [(T, chunk_len(T) or MIN_CHUNK) for T in (SPLIT_T - 1, SPLIT_T, SPLIT_T + 1)] + [
+        (SPLIT_T + 1, 7), (SPLIT_T - 1, 13), (200, 64), (2048, chunk_len(2048)), (5, 8)]
+
+
+@pytest.mark.parametrize("T,chunk", split_cases())
+def test_rglru_chunked_ref_matches_exact_scan(jref, T, chunk):
+    kernels, jnp = jref
+    a, b, h0 = rglru_inputs(2, T, 48, seed=T)
+    for init in (None, h0):
+        ti = None if init is None else torch.from_numpy(init)
+        y, h = rglru_chunked_ref(torch.from_numpy(a), torch.from_numpy(b), ti, chunk)
+        y_p, h_p = rglru_ref(torch.from_numpy(a), torch.from_numpy(b), ti)
+        y_j, h_j = kernels.rglru_ref(jnp.asarray(a), jnp.asarray(b),
+                                     None if init is None else jnp.asarray(init))
+        for want_y, want_h in ((y_p.numpy(), h_p.numpy()), (y_j, h_j)):
+            assert rel_err(y.numpy(), want_y) < 1e-5
+            assert rel_err(h.numpy(), want_h) < 1e-5
+
+
+@pytest.mark.parametrize("T,chunk", split_cases()[:3])
+def test_rglru_chunked_ref_matches_pallas_interpret(jref, T, chunk):
+    """The Pallas kernel (from a zero state, one chunk of its own a row so
+    that any T divides) against the split form at the wrapper's chunk, on
+    both sides of SPLIT_T."""
+    kernels, jnp = jref
+    a, b, _ = rglru_inputs(1, T, 256, seed=9)
+    pallas = kernels.rglru_scan(jnp.asarray(a), jnp.asarray(b), block_w=128,
+                                chunk=T, interpret=True)
+    y, _ = rglru_chunked_ref(torch.from_numpy(a), torch.from_numpy(b), chunk=chunk)
+    assert rel_err(y.numpy(), pallas) < 1e-5
+
+
+@pytest.mark.parametrize("a_value", [1e-5, 1.0 - 1e-5])
+def test_rglru_chunked_ref_at_extreme_decays(a_value):
+    """a near 0 (each chunk's product underflows: the carry-in vanishes, as
+    it should) and near 1 (the state sums every input)."""
+    _, b, h0 = rglru_inputs(2, SPLIT_T + 1, 32, seed=11)
+    a = np.full_like(b, a_value)
+    args = torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(h0)
+    y, h = rglru_chunked_ref(*args, chunk=chunk_len(SPLIT_T + 1))
+    y_p, h_p = rglru_ref(*args)
+    assert np.isfinite(y.numpy()).all()
+    assert rel_err(y.numpy(), y_p.numpy()) < 1e-5
+    assert rel_err(h.numpy(), h_p.numpy()) < 1e-5
+
+
+def test_rglru_chunk_len():
+    assert [chunk_len(T) for T in (1, 16, SPLIT_T - 1)] == [0, 0, 0]
+    for T in (SPLIT_T, SPLIT_T + 1, 2048, 100_000):
+        c = chunk_len(T)
+        assert MIN_CHUNK <= c < T and -(-T // c) <= MAX_CHUNKS
+
+
 # ----------------------------------------------------------------- wkv6 (K6)
 WKV_SHAPES = [(1, 128, 2, 64), (2, 256, 2, 64), (1, 256, 4, 64)]
 
@@ -462,12 +594,17 @@ def test_recurrence_wrappers_on_cpu_are_the_plain_versions():
     x, w = (torch.from_numpy(a) for a in gmm_inputs(2, 8, 16, 24))
     a, b, h0 = (torch.from_numpy(t) for t in rglru_inputs(2, 5, 12))
     *arrs, s0 = (torch.from_numpy(t) for t in wkv_inputs(1, 6, 2, 16))
+    xi, r_logit, i_logit, lam, _ = (torch.from_numpy(t) for t in gated_inputs(2, 5, 12))
+    gates = [t.to(torch.bfloat16) for t in (xi, r_logit, i_logit)]
     counts = (moe_gmm.launches, rglru_scan.launches, wkv6.launches)
     for dt in (None, torch.float32, torch.bfloat16):
         assert torch.equal(moe_gmm(x, w, dt), gmm_ref(x, w, dt))
         fill = torch.tensor([5, 0], dtype=torch.int32)
         assert torch.equal(moe_gmm(x, w, dt, fill), gmm_ref(x, w, dt, fill))
     for got, want in ((rglru_scan(a, b, h0), rglru_ref(a, b, h0)),
+                      (rglru_gated_scan(*gates, lam, h0), rglru_gated_ref(*gates, lam, h0)),
+                      (rglru_gated_scan(xi, r_logit, i_logit, lam),
+                       rglru_gated_ref(xi, r_logit, i_logit, lam)),
                       (wkv6(*arrs, s0), wkv6_ref(*arrs, s0))):
         assert all(torch.equal(g, r) for g, r in zip(got, want))
     assert (moe_gmm.launches, rglru_scan.launches, wkv6.launches) == counts
@@ -482,6 +619,13 @@ def test_recurrence_wrappers_reject_bad_shapes():
             moe_gmm(x, w, counts=counts)      # counts must be int32 [E]
     with pytest.raises(ValueError):
         rglru_scan(torch.zeros(1, 3, 4), torch.zeros(1, 3, 4), torch.zeros(1, 5))
+    g = torch.zeros(1, 3, 4)
+    for args in ((g, g, torch.zeros(1, 3, 5), torch.zeros(4)),      # logits differ
+                 (g, g, g, torch.zeros(5)),                          # lam is not [W]
+                 (g, g, g, torch.zeros(4), torch.zeros(1, 5)),       # h0 is not [B, W]
+                 (g[0], g[0], g[0], torch.zeros(4))):                # not [B, T, W]
+        with pytest.raises(ValueError):
+            rglru_gated_scan(*args)
     z = torch.zeros(1, 3, 2, 16)
     with pytest.raises(ValueError):
         wkv6(z, z, z, z, torch.zeros(2, 8))
@@ -526,6 +670,35 @@ def test_dispatch_kernels_exact_on_card(cuda_device, W, O, E):
                                   for a in (scores, mult, delta)))
     exact = scores.astype(np.float64) + mult.astype(np.float64) @ delta
     assert np.abs(out.cpu().numpy() - exact).max() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,K,E", [(256, 2, 16),                # the serving shape
+                                   (256, 2, 5), (256, 2, 17),    # ragged E
+                                   (256, 1, 16), (256, 33, 16), (256, 128, 16),
+                                   (256, 64, 64), (1, 2, 16), (1, 3, 5)])
+def test_dispatch_score_update_exact_on_card(cuda_device, W, K, E):
+    scores, mult, delta = update_inputs(W, K, E)
+    exact = scores.astype(np.float64) + mult.astype(np.float64) @ delta
+    before = dispatch_score_update.launches
+    out = dispatch_score_update(*(torch.from_numpy(a).to(cuda_device)
+                                  for a in (scores, mult, delta)))
+    assert dispatch_score_update.launches == before + 1
+    assert np.abs(out.cpu().numpy().astype(np.float64) - exact).max() == 0.0
+
+
+@pytest.mark.cuda
+def test_dispatch_score_update_unaligned_view_on_card(cuda_device):
+    """Scores whose storage starts off 16 bytes take the scalar path."""
+    scores, mult, delta = update_inputs(64, 4, 16)
+    buf = torch.zeros(scores.size + 1, device=cuda_device)
+    buf[1:] = torch.from_numpy(scores).reshape(-1).to(cuda_device)
+    s = buf[1:].view(scores.shape)
+    assert s.data_ptr() % 16 != 0
+    out = dispatch_score_update(s, *(torch.from_numpy(a).to(cuda_device)
+                                     for a in (mult, delta)))
+    exact = scores.astype(np.float64) + mult.astype(np.float64) @ delta
+    assert np.abs(out.cpu().numpy().astype(np.float64) - exact).max() == 0.0
 
 
 @pytest.mark.cuda
@@ -617,16 +790,67 @@ def test_gmm_kernel_never_reads_dead_experts_on_card(cuda_device, C, dtype):
     assert rel_err(got[~dead], want[~dead]) < GMM_TOL[dtype]
 
 
+# recurrentgemma-9b's width: decode, the serving prefill, a 2,048-token
+# prompt (its attention window), both sides of the split; a ragged shape
+RGLRU_CARD_SHAPES = [(1, 1, 4096), (1, 16, 4096), (1, 2048, 4096), (2, 17, 300),
+                     (1, SPLIT_T - 1, 4096), (1, SPLIT_T, 4096), (1, SPLIT_T + 1, 4096)]
+
+
+def k5_launches(T):
+    """Launches of one K5 call: one, or two on the split path."""
+    return 2 if chunk_len(T) else 1
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,W", RGLRU_SHAPES + [(1, 1, 4096), (2, 17, 300)])
+@pytest.mark.parametrize("B,T,W", RGLRU_SHAPES + RGLRU_CARD_SHAPES)
 def test_rglru_kernel_matches_plain_on_card(cuda_device, B, T, W):
     a, b, h0 = (torch.from_numpy(t).to(cuda_device) for t in rglru_inputs(B, T, W))
     for init in (None, h0):
+        before = rglru_scan.launches
         y, h = rglru_scan(a, b, init)
         torch.cuda.synchronize()
+        assert rglru_scan.launches == before + k5_launches(T)
         y_r, h_r = rglru_ref(a, b, init)
         assert rel_err(_np(y), _np(y_r)) < 1e-5
         assert rel_err(_np(h), _np(h_r)) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,T,W", RGLRU_CARD_SHAPES)
+def test_rglru_gated_kernel_matches_plain_on_card(cuda_device, B, T, W, dtype):
+    xi, r_logit, i_logit, lam, h0 = (torch.from_numpy(t).to(cuda_device)
+                                     for t in gated_inputs(B, T, W))
+    gates = _torch([t.cpu().numpy() for t in (xi, r_logit, i_logit)], dtype, cuda_device)
+    for init in (None, h0):
+        before = rglru_scan.launches
+        y, h = rglru_gated_scan(*gates, lam, init)
+        torch.cuda.synchronize()
+        assert rglru_scan.launches == before + k5_launches(T)
+        y_r, h_r = rglru_gated_ref(*gates, lam, init)
+        assert rel_err(_np(y), _np(y_r)) < 1e-5
+        assert rel_err(_np(h), _np(h_r)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_rglru_gated_decode_step_launches_one_kernel_on_card(cuda_device):
+    """At a decode step the model passes bf16 logits and a view of the
+    session's cache as h0: the wrapper launches the kernel and nothing else
+    (no copy, no cast)."""
+    W = 4096
+    xi, r_logit, i_logit, lam, _ = (torch.from_numpy(t).to(cuda_device)
+                                    for t in gated_inputs(1, 1, W))
+    gates = [t.to(torch.bfloat16) for t in (xi, r_logit, i_logit)]
+    cache_h = torch.zeros((3, 1, W), device=cuda_device)      # [layers, B, W]
+    rglru_gated_scan(*gates, lam, cache_h[1])                   # build and load
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        rglru_gated_scan(*gates, lam, cache_h[1])
+        torch.cuda.synchronize()
+    launched = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [e.name for e in launched if "rglru" not in e.name] == []
+    assert len(launched) == 1
 
 
 @pytest.mark.cuda
