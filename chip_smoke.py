@@ -18,7 +18,7 @@ Phases (any failure exits non-zero before the result line):
                finite, 0 on dead rows and equal to the plain version on live
                rows), the RG-LRU scan (1e-5; the plain entry and the gated
                one, whose gate chain runs inside the kernel, from T = 1 to
-               2,048 and on both sides of the split of long prompts) and
+               2,048, and at a ragged last group of steps) and
                WKV6 (1e-4 at rwkv6's heads
                from T = 1 to 2,048, short and windowed; finite and 1e-3 under
                strong decay, w down to 1e-5), the two scans with a
@@ -843,12 +843,12 @@ def main() -> None:
             say("parity rglru_scan: " + json.dumps(rglru_case(*shape, with_h0)))
     for shape in ((2, 17, 300), (1, 1, rg.rnn_width), (1, 16, rg.rnn_width)):
         say("parity rglru_scan: " + json.dumps(rglru_case(*shape)))
-    # a 2,048-token prompt (recurrentgemma's window) and both sides of the split
-    from repro_torch.kernels.rglru_scan.ops import SPLIT_T
-    split = [(1, T, rg.rnn_width) for T in (2048, SPLIT_T - 1, SPLIT_T, SPLIT_T + 1)]
-    for shape in split:
+    # a 2,048-token prompt (recurrentgemma's window) and 65 steps, whose last
+    # group of the 8 steps a thread loads together holds one step
+    long = [(1, T, rg.rnn_width) for T in (2048, 65)]
+    for shape in long:
         say("parity rglru_scan: " + json.dumps(rglru_case(*shape)))
-    for shape in [(1, 1, rg.rnn_width), (1, 16, rg.rnn_width), (2, 17, 300)] + split:
+    for shape in [(1, 1, rg.rnn_width), (1, 16, rg.rnn_width), (2, 17, 300)] + long:
         for dt in ("bf16", "f32"):
             say("parity rglru_gated_scan: " + json.dumps(rglru_gated_case(
                 *shape, dtype_name=dt)))

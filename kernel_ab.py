@@ -5,7 +5,6 @@ two versions on one card.
 
     python3 kernel_ab.py --src path/to/checkout/src --label parent
     python3 kernel_ab.py --label change          # this checkout's src/
-    python3 kernel_ab.py --label change --sweep  # and K5's split sweep
 
 Builds that checkout's kernel sources into its own ``build/kernels`` and
 prints one JSON line: CUDA-event ms (means over back-to-back launches, as in
@@ -15,14 +14,10 @@ the card's name and power limit.  K1 runs at the serving window (W, O, E) =
 (256, 2, 16) and at (256, 64, 64); K5 at recurrentgemma-9b's width (W =
 4,096) for T = 1, 16 and 2,048, through the plain entry and, where the
 checkout has it, the gated one (bf16 logits); K6 at rwkv6-3b's heads (H =
-40, N = 64, bf16 r/k/v) for T = 1, 16, 64 and 2,048.  ``--sweep`` times K5's
-two paths against each other where the checkout splits long prompts: each
-entry with the split forced off and forced on at several chunk lengths, for
-T from 16 to 2,048 (the numbers behind ``SPLIT_T`` in
-``kernels/rglru_scan/ops.py``).
-K4 runs without fill counts (every row
-live) so that a version without them computes the same function, and, where
-the checkout's ``moe_gmm`` takes counts, also at one decode token's routing.
+40, N = 64, bf16 r/k/v) for T = 1, 16, 64 and 2,048.  K4 runs without fill
+counts (every row live) so that a version without them computes the same
+function, and, where the checkout's ``moe_gmm`` takes counts, also at one
+decode token's routing.
 Run it for each version in turns (parent, change, change, parent) in one
 call and compare only within the call.  Needs a CUDA card.
 """
@@ -43,7 +38,6 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(Path(__file__).resolve().parent / "src"))
     ap.add_argument("--label", required=True)
-    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -95,8 +89,6 @@ def main() -> None:
     for T in (1, 16, 2048):
         for key, fn in k5_calls(rg_ops, gated, T).items():
             res[key] = cs.cuda_ms(fn)
-    if args.sweep and hasattr(rg_ops, "SPLIT_T"):
-        res["k5 sweep"] = k5_sweep(rg_ops, gated)
 
     H, N = 40, 64                           # rwkv6-3b
     for T in (1, 16, 64, 2048):
@@ -120,27 +112,6 @@ def k5_calls(rg_ops, gated, T, W=4096):
         xb, rb, ib = (t.to(torch.bfloat16) for t in (x, r, i))
         calls[f"rglru gated T={T}"] = lambda: gated(xb, rb, ib, lam, h0)
     return calls
-
-
-def k5_sweep(rg_ops, gated):
-    """K5's one-launch path against the split path at chunk lengths 16 to
-    128, each entry, T = 16 to 2,048; the module's own settings are restored
-    afterwards."""
-    saved = rg_ops.SPLIT_T, rg_ops.MIN_CHUNK, rg_ops.MAX_CHUNKS
-    out = {}
-    try:
-        for T in (16, 32, 64, 96, 128, 192, 256, 512, 2048):
-            for key, fn in k5_calls(rg_ops, gated, T).items():
-                rg_ops.SPLIT_T = 1 << 30
-                row = {"one launch": cs.cuda_ms(fn)}
-                for chunk in (16, 32, 64, 128):
-                    if chunk < T:
-                        rg_ops.SPLIT_T, rg_ops.MIN_CHUNK, rg_ops.MAX_CHUNKS = 1, chunk, T
-                        row[f"split chunk={chunk}"] = cs.cuda_ms(fn)
-                out[key] = row
-    finally:
-        rg_ops.SPLIT_T, rg_ops.MIN_CHUNK, rg_ops.MAX_CHUNKS = saved
-    return out
 
 
 if __name__ == "__main__":

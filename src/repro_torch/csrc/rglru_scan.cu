@@ -30,36 +30,23 @@
 // with h in a register; neighbouring threads own neighbouring channels, so
 // every load and store of a time step is one coalesced row.  A thread walks
 // time in groups of U = 8 steps: it issues the next group's loads (clamped
-// to the chunk, so they are unconditional and all in flight together), then
+// to the last step, so they are unconditional and all in flight together), then
 // runs the current group's gate arithmetic and the dependent chain of h, so
 // memory latency is paid once for the first group and then hidden behind
 // the arithmetic of the one before.
 //
-// Long prompts are split over the card.  One launch walks the whole time
-// axis below SPLIT_T = 64 steps (decode, T = 1, and the 16-token serving
-// prefill); from SPLIT_T on, T is cut into nc chunks of `chunk` steps (the
-// wrapper, kernels/rglru_scan/ops.py, picks chunk = max(16, ceil(T / 64)))
-// and the third grid axis runs the chunks side by side in two launches:
-//   1. each chunk's summary per channel: the product of its a_t and its end
-//      state from h = 0 (scratch [2, B, nc, W]);
-//   2. each chunk's carry-in, h0 folded through the earlier chunks'
-//      summaries (carry = P_j carry + H_j), then the chunk rerun from it,
-//      writing y and, in the last chunk, hT.
-// The carry-in is summed in another order than the sequential scan, so the
-// result moves by rounding only (1e-5 relative, K5's tolerance).  Blocks of
-// later chunks read h0 while the last chunk writes hT, so hT must not alias
-// h0 on this path (the wrapper allocates it).  SPLIT_T and the chunk length
-// come from kernel_ab.py's sweep of both paths on the H100 (PERF.md): at
-// W = 4,096 the gated entry takes 0.0130 ms split against 0.0167 in one
-// launch at T = 64 (0.0122 against 0.0096 at T = 32), the plain entry gains
-// from T = 96 on; chunks of 16 steps are fastest up to T = 256, and the
-// gated entry's chunks of 32 at T = 2,048.
+// Every call is one launch over the whole time axis: decode (T = 1) and the
+// 16-token serving prefill alike.  A prompt's length sets only how long a
+// thread walks; long prompts (recurrentgemma's window is 2,048) still run
+// W / 128 blocks, 32 of 132 SMs at W = 4,096.  Splitting T into chunks over
+// more blocks waits for a served workload that sends such prompts (ROADMAP
+// K5).
 //
 // What bounds it on the H100.  Bytes.  Plain: a and b read once, y written
 // once (12 bytes per element, plus the two states): 100.7 MB, 0.030 ms, at
 // B = 1, T = 2,048, W = 4,096 against 3.35 TB/s.  Gated, bf16 logits: 10
-// bytes per element, 84 MB, 0.025 ms.  The split path reads its inputs
-// twice (once per launch).  At T = 1 (decode) the launch dominates.
+// bytes per element, 84 MB, 0.025 ms.  At T = 1 (decode) the launch
+// dominates.
 //
 // C entry points return cudaGetLastError().
 
@@ -73,8 +60,8 @@ constexpr int U = 8;     // steps whose loads are issued together
 
 // Each operand type loads a group of U steps' raw values (load: loads only,
 // so that all of them are in flight before anything waits on one) and turns
-// them into a_t and b_t (compute).  Indices past the chunk's end are clamped
-// to its last step by the caller; those steps are masked in the recurrence.
+// them into a_t and b_t (compute).  Indices past the last step are clamped
+// to it by the caller; those steps are masked in the recurrence.
 struct PlainAB {
   const float* __restrict__ a;
   const float* __restrict__ b;
@@ -137,128 +124,87 @@ struct GatedAB {
   }
 };
 
-enum Mode { WHOLE = 0, SUMMARY = 1, CARRY = 2 };
-
-// Element offsets of the U steps from t (clamped to t1 - 1).
-__device__ __forceinline__ void step_offsets(long (&o)[U], long base, int t, int t1, int W) {
+// Element offsets of the U steps from t (clamped to T - 1).
+__device__ __forceinline__ void step_offsets(long (&o)[U], long base, int t, int T, int W) {
 #pragma unroll
-  for (int u = 0; u < U; ++u) o[u] = base + (long)min(t + u, t1 - 1) * W;
+  for (int u = 0; u < U; ++u) o[u] = base + (long)min(t + u, T - 1) * W;
 }
 
-// WHOLE: one chunk, the whole time axis.  SUMMARY: chunk blockIdx.z from
-// h = 0, writing its product of a and end state.  CARRY: chunk blockIdx.z
-// from its carry-in, writing y (and hT in the last chunk).  The next group's
-// loads are issued before the current group's arithmetic.
-template <class AB, int MODE>
+// One thread walks the whole time axis of one (batch row, channel).  The
+// next group's loads are issued before the current group's arithmetic.
+template <class AB>
 __global__ void __launch_bounds__(NT)
 rglru_kernel(AB ab, const float* __restrict__ h0, float* __restrict__ y,
-             float* __restrict__ hT, float* __restrict__ sum_p,
-             float* __restrict__ sum_h, int T, int W, int chunk) {
+             float* __restrict__ hT, int T, int W) {
   const int c = blockIdx.x * NT + threadIdx.x;
   const int bi = blockIdx.y;
   if (c >= W) return;
-  const int k = blockIdx.z, nc = gridDim.z;
-  const int t0 = MODE == WHOLE ? 0 : k * chunk;
-  const int t1 = MODE == WHOLE ? T : min(T, t0 + chunk);
   const long base = (long)bi * T * W + c;
-  const long sbase = (long)bi * nc * W + c;    // summaries of (bi, chunk 0, c)
 
   const float lam_raw = ab.channel_raw(c);
   typename AB::Raw cur;
   long o[U];
-  if (t0 < t1) {
-    step_offsets(o, base, t0, t1, W);
+  if (T > 0) {
+    step_offsets(o, base, 0, T, W);
     ab.load(cur, o);
   }
-  float h = 0.f, prod = 1.f;
-  if (MODE != SUMMARY) {
-    h = h0 != nullptr ? h0[(long)bi * W + c] : 0.f;
-    if (MODE == CARRY) {
-#pragma unroll 8
-      for (int j = 0; j < k; ++j)
-        h = __fadd_rn(__fmul_rn(sum_p[sbase + (long)j * W], h), sum_h[sbase + (long)j * W]);
-    }
-  }
+  float h = h0 != nullptr ? h0[(long)bi * W + c] : 0.f;
   const float neg_c = ab.channel(lam_raw);
-  for (int t = t0; t < t1; t += U) {
+  for (int t = 0; t < T; t += U) {
     typename AB::Raw nxt;
-    const bool more = t + U < t1;
+    const bool more = t + U < T;
     if (more) {
-      step_offsets(o, base, t + U, t1, W);
+      step_offsets(o, base, t + U, T, W);
       ab.load(nxt, o);
     }
     float av[U], bv[U];
     ab.compute(cur, neg_c, av, bv);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (t + u < t1) {
+      if (t + u < T) {
         h = __fadd_rn(__fmul_rn(av[u], h), bv[u]);
-        if (MODE == SUMMARY) prod = __fmul_rn(prod, av[u]);
-        else y[base + (long)(t + u) * W] = h;
+        y[base + (long)(t + u) * W] = h;
       }
     }
     if (more) cur = nxt;
   }
-  if (MODE == SUMMARY) {
-    sum_p[sbase + (long)k * W] = prod;
-    sum_h[sbase + (long)k * W] = h;
-  } else if (k == nc - 1) {
-    hT[(long)bi * W + c] = h;
-  }
+  hT[(long)bi * W + c] = h;
 }
 
 template <class AB>
-int launch(const AB& ab, const void* h0, void* y, void* hT, void* scratch,
-           int B, int T, int W, int chunk, void* stream) {
+int launch(const AB& ab, const void* h0, void* y, void* hT, int B, int T, int W,
+           void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this call's
-  if (B <= 0 || B > 65535 || T < 0 || W <= 0 || chunk < 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* h = static_cast<const float*>(h0);
-  float* yo = static_cast<float*>(y);
-  float* ho = static_cast<float*>(hT);
-  const int gx = (W + NT - 1) / NT;
-  if (chunk == 0 || chunk >= T) {
-    rglru_kernel<AB, WHOLE><<<dim3(gx, B, 1), NT, 0, s>>>(ab, h, yo, ho, nullptr,
-                                                         nullptr, T, W, T);
-    return (int)cudaGetLastError();
-  }
-  const int nc = (T + chunk - 1) / chunk;
-  if (nc > 65535 || scratch == nullptr || h0 == hT) return (int)cudaErrorInvalidValue;
-  float* sum_p = static_cast<float*>(scratch);          // [B, nc, W]
-  float* sum_h = sum_p + (long)B * nc * W;              // [B, nc, W]
-  const dim3 grid(gx, B, nc);
-  rglru_kernel<AB, SUMMARY><<<grid, NT, 0, s>>>(ab, h, yo, ho, sum_p, sum_h, T, W, chunk);
-  rglru_kernel<AB, CARRY><<<grid, NT, 0, s>>>(ab, h, yo, ho, sum_p, sum_h, T, W, chunk);
+  if (B <= 0 || B > 65535 || T < 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + NT - 1) / NT, B);
+  rglru_kernel<AB><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      ab, static_cast<const float*>(h0), static_cast<float*>(y), static_cast<float*>(hT), T, W);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// a, b, y: contiguous float32 [B,T,W]; h0 (may be null), hT: float32 [B,W];
-// chunk: 0 for one launch, else the split path's chunk length, with scratch
-// float32 [2, B, ceil(T / chunk), W].
+// a, b, y: contiguous float32 [B,T,W]; h0 (may be null), hT: float32 [B,W].
 extern "C" int rglru_scan_fwd(const void* a, const void* b, const void* h0,
-                              void* y, void* hT, void* scratch, int B, int T,
-                              int W, int chunk, void* stream) {
+                              void* y, void* hT, int B, int T, int W, void* stream) {
   const PlainAB ab{static_cast<const float*>(a), static_cast<const float*>(b)};
-  return launch(ab, h0, y, hT, scratch, B, T, W, chunk, stream);
+  return launch(ab, h0, y, hT, B, T, W, stream);
 }
 
 // x, r_logit, i_logit: contiguous [B,T,W], bf16 when bf16 != 0, else
 // float32; lam: float32 [W]; the rest as rglru_scan_fwd.
 extern "C" int rglru_gated_scan_fwd(const void* x, const void* r_logit,
                                     const void* i_logit, const void* lam,
-                                    const void* h0, void* y, void* hT,
-                                    void* scratch, int B, int T, int W,
-                                    int chunk, int bf16, void* stream) {
+                                    const void* h0, void* y, void* hT, int B,
+                                    int T, int W, int bf16, void* stream) {
   const float* l = static_cast<const float*>(lam);
   if (bf16) {
     const GatedAB<uint16_t> ab{static_cast<const uint16_t*>(x),
                                static_cast<const uint16_t*>(r_logit),
                                static_cast<const uint16_t*>(i_logit), l};
-    return launch(ab, h0, y, hT, scratch, B, T, W, chunk, stream);
+    return launch(ab, h0, y, hT, B, T, W, stream);
   }
   const GatedAB<float> ab{static_cast<const float*>(x), static_cast<const float*>(r_logit),
                           static_cast<const float*>(i_logit), l};
-  return launch(ab, h0, y, hT, scratch, B, T, W, chunk, stream);
+  return launch(ab, h0, y, hT, B, T, W, stream);
 }

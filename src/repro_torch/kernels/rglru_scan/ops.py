@@ -10,11 +10,9 @@ kernel or raise.  Two entries share the kernel:
   in their own type when all three are bfloat16 or all float32 (no copy for
   contiguous operands, as the model passes them), else as float32.
 
-From ``SPLIT_T`` steps on, a call splits the time axis into chunks of
-``chunk_len(T)`` steps and runs two launches (chunk summaries, then every
-chunk from its carry-in); below it, one.  ``rglru_scan.launches`` counts the
-launches of both entries, ``rglru_gated_scan.launches`` those of the gated
-one.
+Every call is one launch over the whole time axis.  ``rglru_scan.launches``
+counts the launches of both entries, ``rglru_gated_scan.launches`` those of
+the gated one.
 """
 
 from __future__ import annotations
@@ -24,23 +22,10 @@ import torch
 from .. import _build
 from .ref import rglru_gated_ref, rglru_ref
 
-# The split path's settings, from ``kernel_ab.py --sweep`` on the H100 (both
-# entries, W = 4,096; PERF.md): the gated entry gains from the split at T = 64
-# (0.0130 against 0.0167 ms in one launch), the plain one from T = 96; chunks
-# of 16 steps are fastest up to T = 256, and the gated entry's of 32 at 2,048.
-SPLIT_T = 64       # from this many steps on, the time axis is split
-MIN_CHUNK = 16     # steps a chunk at least
-MAX_CHUNKS = 64    # chunks a row at most (the carry-in walk is this long)
-
 _SIGNATURES = {
-    "rglru_scan_fwd": [_build.P] * 6 + [_build.I] * 4 + [_build.P],
-    "rglru_gated_scan_fwd": [_build.P] * 8 + [_build.I] * 5 + [_build.P],
+    "rglru_scan_fwd": [_build.P] * 5 + [_build.I] * 3 + [_build.P],
+    "rglru_gated_scan_fwd": [_build.P] * 7 + [_build.I] * 4 + [_build.P],
 }
-
-
-def chunk_len(T: int) -> int:
-    """Steps a chunk of the split path at T steps, or 0 below ``SPLIT_T``."""
-    return 0 if T < SPLIT_T else max(MIN_CHUNK, -(-T // MAX_CHUNKS))
 
 
 def _check_state(h0, B, W):
@@ -59,25 +44,21 @@ def _f32(x):
 
 
 def _launch(entry, operands, h0, B, T, W, *flags):
-    """Allocate y, hT and the split path's scratch on the operands' device,
-    launch ``entry``.  Returns (y, hT, kernel launches)."""
+    """Allocate y and hT on the operands' device and launch ``entry``.
+    Returns (y, hT, kernel launches)."""
     dev = operands[0].device
     y = torch.empty((B, T, W), dtype=torch.float32, device=dev)
     hT = torch.empty((B, W), dtype=torch.float32, device=dev)
     if B == 0 or W == 0:
         return y, hT, 0
-    chunk = chunk_len(T)
-    scratch = (torch.empty((2, B, -(-T // chunk), W), dtype=torch.float32, device=dev)
-               if chunk else None)
     lib = _build.library("rglru_scan", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(
             *(x.data_ptr() for x in operands), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), hT.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            B, T, W, chunk, *flags, stream)
+            y.data_ptr(), hT.data_ptr(), B, T, W, *flags, stream)
     _build.check(err, entry)
-    return y, hT, 2 if chunk else 1
+    return y, hT, 1
 
 
 def rglru_scan(a, b, h0=None):
@@ -124,5 +105,4 @@ def rglru_gated_scan(xi, r_logit, i_logit, lam, h0=None):
 rglru_scan.launches = 0
 rglru_gated_scan.launches = 0
 
-__all__ = ["rglru_scan", "rglru_gated_scan", "rglru_ref", "rglru_gated_ref",
-           "chunk_len", "SPLIT_T", "MIN_CHUNK", "MAX_CHUNKS"]
+__all__ = ["rglru_scan", "rglru_gated_scan", "rglru_ref", "rglru_gated_ref"]

@@ -16,7 +16,6 @@ import torch
 from repro.models import moe as jmoe
 from repro.models import rglru as jrg
 from repro.models import rwkv as jrw
-from repro_torch.kernels.rglru_scan.ops import SPLIT_T
 from repro_torch.models import moe as tmoe
 from repro_torch.models import rglru as trg
 from repro_torch.models import rwkv as trw
@@ -205,10 +204,11 @@ def test_rglru_block_apply_with_state(T, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rglru_block_apply_long_prompt(dtype):
-    """A prompt of SPLIT_T + 1 steps, past where the kernel splits the time
-    axis (its CPU path is the plain scan)."""
+    """A prompt of 65 steps, four times the serving prefill, whose last group
+    of the 8 steps a kernel thread loads together is ragged (the CPU path is
+    the plain scan)."""
     rng = np.random.default_rng(3)
-    B, D, W, T = 1, 16, 32, SPLIT_T + 1
+    B, D, W, T = 1, 16, 32, 65
     pj, pt = tree_both(rglru_weights(rng, D, W), dtype, f32_keys=("lam",))
     st = rglru_state(rng, B, W)
     sj = {"h": jnp.asarray(st["h"]), "conv": both(st["conv"], dtype)[0]}

@@ -25,10 +25,6 @@ from repro_torch.kernels.dispatch_score.ops import (
 from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
 from repro_torch.kernels.moe_gmm.ops import gmm_ref, moe_gmm
 from repro_torch.kernels.rglru_scan.ops import (
-    MAX_CHUNKS,
-    MIN_CHUNK,
-    SPLIT_T,
-    chunk_len,
     rglru_gated_ref,
     rglru_gated_scan,
     rglru_ref,
@@ -336,7 +332,7 @@ def gated_inputs(B, T, W, seed=6):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("with_h0", [False, True])
-@pytest.mark.parametrize("B,T,W", [(2, 9, 24), (1, 130, 64)])
+@pytest.mark.parametrize("B,T,W", [(2, 9, 24), (1, 130, 64), (1, 2048, 16)])
 def test_rglru_gated_ref_matches_jax(jref, B, T, W, with_h0, dtype):
     """The gated plain version against the reference's gate chain:
     ``jax.nn.sigmoid`` of the logits into ``repro.models.rglru.rglru_scan``
@@ -359,92 +355,31 @@ def test_rglru_gated_ref_matches_jax(jref, B, T, W, with_h0, dtype):
     assert rel_err(h.numpy(), h_j) < tol
 
 
-def rglru_chunked_ref(a, b, h0=None, chunk=32):
-    """The split path of ``csrc/rglru_scan.cu`` in plain PyTorch: the same
-    function as ``rglru_ref``, computed as the kernel's two launches do.
-
-    1. per chunk of ``chunk`` steps (the last one ragged): P = prod a_t and
-       H = the chunk's end state from h = 0;
-    2. per chunk: carry = h0 folded through the earlier chunks' summaries
-       (carry = P_j carry + H_j), then the chunk rerun from it.
-    """
-    B, T, W = a.shape
-    a, b = a.float(), b.float()
-    h0 = torch.zeros((B, W)) if h0 is None else h0.float()
-    bounds = [(t0, min(T, t0 + chunk)) for t0 in range(0, T, chunk)]
-    summaries = []
-    for t0, t1 in bounds:
-        p, h = torch.ones((B, W)), torch.zeros((B, W))
-        for t in range(t0, t1):
-            p, h = p * a[:, t], a[:, t] * h + b[:, t]
-        summaries.append((p, h))
-    ys, hT = [], h0
-    for j, (t0, t1) in enumerate(bounds):
-        h = h0
-        for p, hj in summaries[:j]:
-            h = p * h + hj
-        for t in range(t0, t1):
-            h = a[:, t] * h + b[:, t]
-            ys.append(h)
-        hT = h
-    return (torch.stack(ys, 1) if ys else torch.zeros((B, 0, W))), hT
-
-
-def split_cases():
-    """(T, chunk): the wrapper's own chunk on both sides of SPLIT_T (its
-    least where it takes one launch), at a 2,048-step prompt, and chunks
-    that leave ragged tails."""
-    return [(T, chunk_len(T) or MIN_CHUNK) for T in (SPLIT_T - 1, SPLIT_T, SPLIT_T + 1)] + [
-        (SPLIT_T + 1, 7), (SPLIT_T - 1, 13), (200, 64), (2048, chunk_len(2048)), (5, 8)]
-
-
-@pytest.mark.parametrize("T,chunk", split_cases())
-def test_rglru_chunked_ref_matches_exact_scan(jref, T, chunk):
-    kernels, jnp = jref
-    a, b, h0 = rglru_inputs(2, T, 48, seed=T)
-    for init in (None, h0):
-        ti = None if init is None else torch.from_numpy(init)
-        y, h = rglru_chunked_ref(torch.from_numpy(a), torch.from_numpy(b), ti, chunk)
-        y_p, h_p = rglru_ref(torch.from_numpy(a), torch.from_numpy(b), ti)
-        y_j, h_j = kernels.rglru_ref(jnp.asarray(a), jnp.asarray(b),
-                                     None if init is None else jnp.asarray(init))
-        for want_y, want_h in ((y_p.numpy(), h_p.numpy()), (y_j, h_j)):
-            assert rel_err(y.numpy(), want_y) < 1e-5
-            assert rel_err(h.numpy(), want_h) < 1e-5
-
-
-@pytest.mark.parametrize("T,chunk", split_cases()[:3])
-def test_rglru_chunked_ref_matches_pallas_interpret(jref, T, chunk):
-    """The Pallas kernel (from a zero state, one chunk of its own a row so
-    that any T divides) against the split form at the wrapper's chunk, on
-    both sides of SPLIT_T."""
+@pytest.mark.parametrize("T,chunk", [(65, 65), (2048, 256)])
+def test_rglru_ref_long_prompts_match_pallas_interpret(jref, T, chunk):
+    """Past the serving prefill: a prompt whose last group of the 8 steps a
+    kernel thread loads together is ragged, and a 2,048-step prompt
+    (recurrentgemma's attention window), from a zero state."""
     kernels, jnp = jref
     a, b, _ = rglru_inputs(1, T, 256, seed=9)
     pallas = kernels.rglru_scan(jnp.asarray(a), jnp.asarray(b), block_w=128,
-                                chunk=T, interpret=True)
-    y, _ = rglru_chunked_ref(torch.from_numpy(a), torch.from_numpy(b), chunk=chunk)
+                                chunk=chunk, interpret=True)
+    y, _ = rglru_ref(torch.from_numpy(a), torch.from_numpy(b))
     assert rel_err(y.numpy(), pallas) < 1e-5
 
 
 @pytest.mark.parametrize("a_value", [1e-5, 1.0 - 1e-5])
-def test_rglru_chunked_ref_at_extreme_decays(a_value):
-    """a near 0 (each chunk's product underflows: the carry-in vanishes, as
-    it should) and near 1 (the state sums every input)."""
-    _, b, h0 = rglru_inputs(2, SPLIT_T + 1, 32, seed=11)
+def test_rglru_ref_at_extreme_decays(jref, a_value):
+    """a near 0 (the state forgets at once) and near 1 (it sums every
+    input), against the reference's scan, with a carried-in state."""
+    kernels, jnp = jref
+    _, b, h0 = rglru_inputs(2, 65, 32, seed=11)
     a = np.full_like(b, a_value)
-    args = torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(h0)
-    y, h = rglru_chunked_ref(*args, chunk=chunk_len(SPLIT_T + 1))
-    y_p, h_p = rglru_ref(*args)
+    y, h = rglru_ref(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(h0))
+    y_j, h_j = kernels.rglru_ref(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0))
     assert np.isfinite(y.numpy()).all()
-    assert rel_err(y.numpy(), y_p.numpy()) < 1e-5
-    assert rel_err(h.numpy(), h_p.numpy()) < 1e-5
-
-
-def test_rglru_chunk_len():
-    assert [chunk_len(T) for T in (1, 16, SPLIT_T - 1)] == [0, 0, 0]
-    for T in (SPLIT_T, SPLIT_T + 1, 2048, 100_000):
-        c = chunk_len(T)
-        assert MIN_CHUNK <= c < T and -(-T // c) <= MAX_CHUNKS
+    assert rel_err(y.numpy(), y_j) < 1e-5
+    assert rel_err(h.numpy(), h_j) < 1e-5
 
 
 # ----------------------------------------------------------------- wkv6 (K6)
@@ -791,14 +726,10 @@ def test_gmm_kernel_never_reads_dead_experts_on_card(cuda_device, C, dtype):
 
 
 # recurrentgemma-9b's width: decode, the serving prefill, a 2,048-token
-# prompt (its attention window), both sides of the split; a ragged shape
-RGLRU_CARD_SHAPES = [(1, 1, 4096), (1, 16, 4096), (1, 2048, 4096), (2, 17, 300),
-                     (1, SPLIT_T - 1, 4096), (1, SPLIT_T, 4096), (1, SPLIT_T + 1, 4096)]
-
-
-def k5_launches(T):
-    """Launches of one K5 call: one, or two on the split path."""
-    return 2 if chunk_len(T) else 1
+# prompt (its attention window), a ragged last group of 8 steps; a ragged
+# shape
+RGLRU_CARD_SHAPES = [(1, 1, 4096), (1, 16, 4096), (1, 2048, 4096), (1, 65, 4096),
+                     (2, 17, 300)]
 
 
 @pytest.mark.cuda
@@ -809,7 +740,7 @@ def test_rglru_kernel_matches_plain_on_card(cuda_device, B, T, W):
         before = rglru_scan.launches
         y, h = rglru_scan(a, b, init)
         torch.cuda.synchronize()
-        assert rglru_scan.launches == before + k5_launches(T)
+        assert rglru_scan.launches == before + 1
         y_r, h_r = rglru_ref(a, b, init)
         assert rel_err(_np(y), _np(y_r)) < 1e-5
         assert rel_err(_np(h), _np(h_r)) < 1e-5
@@ -826,7 +757,7 @@ def test_rglru_gated_kernel_matches_plain_on_card(cuda_device, B, T, W, dtype):
         before = rglru_scan.launches
         y, h = rglru_gated_scan(*gates, lam, init)
         torch.cuda.synchronize()
-        assert rglru_scan.launches == before + k5_launches(T)
+        assert rglru_scan.launches == before + 1
         y_r, h_r = rglru_gated_ref(*gates, lam, init)
         assert rel_err(_np(y), _np(y_r)) < 1e-5
         assert rel_err(_np(h), _np(h_r)) < 1e-5
