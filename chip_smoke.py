@@ -38,7 +38,22 @@ Phases (any failure exits non-zero before the result line):
                Kernel launch counters are zeroed just before each and read
                just after, and every RG-LRU launch of recurrentgemma's run
                must come from the gated entry;
-  6. timing  - each kernel at the main path's shapes: CUDA-event times of
+  6. payload - internlm2-1.8b at full width served twice on the launcher's
+               stream with two HBM session slots over eight sessions and a
+               host tier of eight, payload modeled and then real: equal
+               counters, assignment logs and greedy tokens, swap-ins > 0,
+               every measured edge that touches hbm in (0, 64) GB/s (the
+               host link); then one session's cache hbm -> dram -> disk ->
+               hbm through ``RealPayload`` in 4 MiB spill chunks, bit-equal,
+               its spill freed, and a flipped spill byte caught in both
+               corrupt modes;
+  7. checkpoint - the same params saved by ``AsyncCheckpointer`` into a
+               temporary directory, restored onto the card bit for bit;
+  8. ci      - the obs, chaos and overload smokes of
+               ``.github/workflows/ci.yml`` with ``repro_torch.launch.serve``
+               (on the card), each in a temporary directory, their assertion
+               blocks unchanged;
+  9. timing  - each kernel at the main path's shapes: CUDA-event times of
                the kernel, its plain version and one library call where one
                computes the same function, beside the card's bound (bytes
                over 3.35 TB/s or operations over the type's peak, whichever
@@ -73,6 +88,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+HOST_LINK_BYTES_PER_S = 64e9     # its host link: PCIe Gen5 x16, per direction
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}   # dense tensor-core bf16; fp32 SIMT
 
 REPLACES = {
@@ -91,6 +107,7 @@ SOURCES = {
     "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
     "wkv6": "src/repro_torch/csrc/wkv6.cu",
 }
+SERVE_COUNTERS = ("served", "prefix_hits", "prefills", "swap_ins", "decode_steps")
 # The served families: (arch, sessions, requests, the kernels its path must
 # launch besides the two scoring kernels every vectorized drain runs).
 FAMILIES = (("internlm2-1.8b", 8, 32, ("flash_attention",)),
@@ -613,6 +630,40 @@ def kernel_ops():
             "rglru_gated_scan": rglru_gated_scan, "wkv6": wkv6}
 
 
+def drive_stream(srv, n_sessions, n_req, ops, label):
+    """The launcher's stream (seed 0, 16-token prompts, 8 new tokens, bursts
+    of 8) through ``srv``, the score mirror verified after every step.  The
+    launch counters are zeroed just before and read just after.  Returns
+    (wall s, launches, mirror checks)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    prompts = {f"s{i}": rng.integers(0, srv.cfg.vocab_size, size=(16,))
+               for i in range(n_sessions)}
+    sids = list(prompts)
+    burst = 8
+    verify_checks = 0
+    mirror = srv.score_mirror
+
+    torch.cuda.synchronize()
+    for fn in ops.values():
+        fn.launches = 0
+    t_start = time.perf_counter()
+    for i in range(n_req):
+        sid = sids[int(rng.integers(0, len(sids)))]
+        srv.submit(sid, prompts[sid], max_new_tokens=8)
+        if (i + 1) % burst == 0 or i + 1 == n_req:
+            srv.step()          # rescore, drain, serve, mirror flush
+            err = mirror.verify()
+            if err != 0.0:
+                fail(f"{label}: device mirror verify() = {err} after a step")
+            verify_checks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    return wall, {k: fn.launches for k, fn in ops.items()}, verify_checks
+
+
 def serve_full_width(arch, n_sessions, n_req, needs, ops):
     """Serve ``arch`` at full width on the launcher's kind of stream; the
     launch counters cover this run alone.  Frees the model before returning."""
@@ -657,29 +708,7 @@ def serve_full_width(arch, n_sessions, n_req, needs, ops):
     srv.prefill_fn = timed("prefill", srv.prefill_fn)
     srv.decode_fn = timed("decode", srv.decode_fn)
 
-    rng = np.random.default_rng(0)
-    prompts = {f"s{i}": rng.integers(0, cfg.vocab_size, size=(16,))
-               for i in range(n_sessions)}
-    sids = list(prompts)
-    burst = 8
-    verify_checks = 0
-
-    torch.cuda.synchronize()
-    for fn in ops.values():
-        fn.launches = 0
-    t_start = time.perf_counter()
-    for i in range(n_req):
-        sid = sids[int(rng.integers(0, len(sids)))]
-        srv.submit(sid, prompts[sid], max_new_tokens=8)
-        if (i + 1) % burst == 0 or i + 1 == n_req:
-            srv.step()          # rescore, drain, serve, mirror flush
-            err = mirror.verify()
-            if err != 0.0:
-                fail(f"{arch}: device mirror verify() = {err} after a step")
-            verify_checks += 1
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_start
-    launches = {k: fn.launches for k, fn in ops.items()}
+    wall, launches, verify_checks = drive_stream(srv, n_sessions, n_req, ops, arch)
 
     s, sc = srv.stats, srv.score_stats
     sb, sw = disp.rebuild_scores(backend="cuda")
@@ -732,6 +761,314 @@ def serve_full_width(arch, n_sessions, n_req, needs, ops):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, shapes, perf
+
+
+# ------------------------------------------------------------------- payload
+def _flat(tree):
+    """Leaves of a tree in the order the port's checkpointer writes them."""
+    from repro_torch.checkpoint.checkpointer import _tree_flatten_with_paths
+    return _tree_flatten_with_paths(tree)[1]
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def _edge_rows(measured, label, card):
+    """Print each measured edge; fail unless every edge that touches hbm
+    lies in (0, 64) GB/s, the H100's host link (PCIe Gen5 x16)."""
+    rows = measured.rows()
+    for r in rows:
+        say(f"payload {label} [{card}]: {r['src']}->{r['dst']} moves={r['moves']} "
+            f"bytes={r['bytes']:.0f} seconds={r['seconds']:.6f} "
+            f"GB/s={r['bytes_per_s'] / 1e9:.3f}")
+    bad = [f"{r['src']}->{r['dst']} {r['bytes_per_s'] / 1e9:.3f} GB/s" for r in rows
+           if "hbm" in (r["src"], r["dst"])
+           and not 0.0 < r["bytes_per_s"] < HOST_LINK_BYTES_PER_S]
+    if bad:
+        fail(f"payload {label}: hbm edges outside (0, 64) GB/s: {bad}")
+    return rows
+
+
+def payload_phase(ops, card):
+    """internlm2-1.8b at full width served twice on one stream, payload
+    modeled then real, with two HBM session slots over eight sessions so
+    that sessions are demoted to host memory and swapped back in; then one
+    session's cache through every home of a ``RealPayload``.  Returns the
+    real server (its params feed the checkpoint phase) and the results."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.diffusion.payload import RealPayload
+    from repro_torch.runtime.chaos import flip_spill_byte
+    from repro_torch.runtime.serve_loop import DiffusionServer
+
+    cfg = get_arch("internlm2-1.8b")
+    runs = {}
+    for payload in ("modeled", "real"):
+        srv = None                      # the modeled run's model goes first
+        gc.collect()
+        torch.cuda.empty_cache()
+        srv = DiffusionServer(cfg, device="cuda", dispatcher_impl="vectorized",
+                              batch_drain=True, seed=0, max_replicas=1,
+                              min_replicas=1, max_sessions=2,
+                              host_cache_sessions=8, cache_cap=128,
+                              payload=payload)
+        srv.router.assignment_log = []
+        tokens = []
+        decode = srv.decode_fn
+
+        def recorded(params, batch, decode=decode, tokens=tokens):
+            logits, caches = decode(params, batch)
+            tokens.append(logits.argmax(-1))
+            return logits, caches
+
+        srv.decode_fn = recorded
+        wall, launches, checks = drive_stream(srv, 8, 32, ops, f"payload {payload}")
+        s = srv.stats
+        runs[payload] = {
+            "counters": {c: getattr(s, c) for c in SERVE_COUNTERS},
+            "log": list(srv.router.assignment_log),
+            "tokens": torch.cat(tokens).tolist(), "wall_s": wall,
+            "launches": launches, "mirror_checks": checks,
+            "mirror_verify": srv.score_mirror.verify()}
+        say(f"payload={payload}: served={s.served} prefix_hits={s.prefix_hits} "
+            f"prefills={s.prefills} swap_ins={s.swap_ins} "
+            f"decode_steps={s.decode_steps} wall={wall:.2f}s "
+            f"launches {' '.join(f'{k}={v}' for k, v in launches.items() if v)}")
+    m, r = runs["modeled"], runs["real"]
+    edges = _edge_rows(srv.measured, "serve real", card)
+    checks = {
+        "swap_ins > 0": r["counters"]["swap_ins"] > 0,
+        "counters equal": r["counters"] == m["counters"],
+        "assignment logs equal": r["log"] == m["log"] and len(r["log"]) == 32,
+        "greedy tokens equal": r["tokens"] == m["tokens"]
+        and len(r["tokens"]) == r["counters"]["decode_steps"],
+        "mirror verify": m["mirror_verify"] == 0.0 and r["mirror_verify"] == 0.0,
+        "roofline check": srv.measured.check_roofline(10.0) == [],
+        "swap-in bandwidth measured": srv.swap_in_bandwidth() > 0.0,
+        "edges hbm<->dram measured": {(e["src"], e["dst"]) for e in edges}
+        >= {("hbm", "dram"), ("dram", "hbm")},
+        **{f"{k} launched": r["launches"][k] > 0 for k in
+           ("flash_attention", "dispatch_scores", "dispatch_score_update")},
+    }
+
+    # one full-width session cache through every home: hbm -> dram -> disk -> hbm
+    (replica,) = srv.replicas.values()
+    caches = replica.sessions[sorted(replica.sessions)[0]]["caches"]
+    want = [t.clone() for t in _flat(caches)]
+    nbytes = sum(t.numel() * t.element_size() for t in want)
+    chunk = 4 << 20
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spill_") as spill:
+        p = RealPayload("roundtrip", spill_dir=spill, chunk_bytes=chunk,
+                        device="cuda")
+        p.put("kv:rt", caches, "hbm")
+        chunks = []
+        for tier in ("dram", "disk", "hbm"):
+            p.moved("kv:rt", tier)
+            if tier == "disk":
+                chunks = [len(leaf.chunks) for leaf in p._leaves["kv:rt"]]
+        got = _flat(p.value("kv:rt"))
+        checks["round trip bit-equal on the card"] = len(got) == len(want) and all(
+            g.is_cuda and _same_bits(g, w) for g, w in zip(got, want))
+        checks["every leaf over more than one chunk"] = bool(chunks) and min(chunks) > 1
+        p.dropped("kv:rt")
+        checks["spill files freed"] = not any(Path(spill).iterdir())
+        rt_edges = _edge_rows(p.measured, "round trip", card)
+        checks["round trip edges"] = [(e["src"], e["dst"]) for e in rt_edges] == [
+            ("disk", "hbm"), ("dram", "disk"), ("hbm", "dram")]
+        for mode in ("raise", "recover"):
+            fired = []
+            q = RealPayload(f"corrupt_{mode}", spill_dir=spill, chunk_bytes=chunk,
+                            device="cuda", corrupt_mode=mode)
+            q.on_corruption = fired.append
+            q.put("kv:c", caches, "dram")
+            q.moved("kv:c", "disk")
+            flipped = flip_spill_byte(q, "kv:c")
+            if mode == "raise":
+                try:
+                    q.get("kv:c")
+                    caught = False
+                except IOError:
+                    caught = True
+                q.dropped("kv:c")
+                checks["raise mode: IOError"] = flipped and caught
+            else:
+                back = q.get("kv:c")
+                checks["recover mode: None, on_corruption once"] = (
+                    flipped and back is None and fired == ["kv:c"]
+                    and q.corruptions_recovered == 1 and not q.has("kv:c"))
+        checks["corrupt spills freed"] = not any(Path(spill).iterdir())
+    say(f"payload round trip: {len(want)} leaves, {nbytes} bytes, chunks per "
+        f"leaf on disk {chunks}")
+    split = swap_in_split(caches, nbytes, card)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"payload checks failed: {bad}")
+    result = {"runs": {k: {x: v[x] for x in ("counters", "wall_s", "launches",
+                                                 "mirror_checks")}
+                       for k, v in runs.items()},
+              "serve_edges": edges, "roundtrip_edges": rt_edges,
+              "session_cache_bytes": nbytes, "chunks_per_leaf": chunks,
+              "swap_in_split": split}
+    return srv, result
+
+
+def swap_in_split(caches, nbytes, card, reps=5):
+    """Time a dram->hbm swap-in of one session cache whole (``moved``, its
+    mean over ``reps``) and its two steps apart (medians of ``reps``): the
+    host copy out of the dram home, and the upload of that copy."""
+    import statistics
+
+    import torch
+    from repro_torch.diffusion.payload import RealPayload
+
+    p = RealPayload("split", device="cuda")
+    p.put("kv:s", caches, "dram")
+    t_host, t_up = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = p._to_host("kv:s")
+        t1 = time.perf_counter()
+        p._to_device(host)
+        t_up.append(time.perf_counter() - t1)
+        t_host.append(t1 - t0)
+        p.moved("kv:s", "hbm")
+        p.moved("kv:s", "dram")
+    row = next(r for r in p.measured.rows() if (r["src"], r["dst"]) == ("dram", "hbm"))
+    p.dropped("kv:s")
+    out = {"reps": reps, "bytes": nbytes,
+           "host_copy_s": statistics.median(t_host),
+           "upload_s": statistics.median(t_up),
+           "move_mean_s": row["seconds"] / row["moves"]}
+    out["host_copy_share"] = out["host_copy_s"] / (out["host_copy_s"] + out["upload_s"])
+    say(f"payload swap-in split [{card}]: host copy "
+        f"{nbytes / out['host_copy_s'] / 1e9:.3f} GB/s, upload "
+        f"{nbytes / out['upload_s'] / 1e9:.3f} GB/s, whole move "
+        f"{nbytes / out['move_mean_s'] / 1e9:.3f} GB/s; host copy share "
+        f"{out['host_copy_share']:.3f}")
+    return out
+
+
+# ---------------------------------------------------------------- checkpoint
+def checkpoint_phase(params, card):
+    """Save ``params`` with the AsyncCheckpointer into a temporary directory,
+    restore them onto the card, and hold them bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+
+    leaves = _flat(params)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(d).free
+        say(f"checkpoint: {len(leaves)} leaves, {nbytes} bytes; "
+            f"{free / 1e9:.1f} GB free under {tempfile.gettempdir()}")
+        if free < 1.05 * nbytes:
+            fail(f"checkpoint: {nbytes / 1e9:.2f} GB to write, only "
+                 f"{free / 1e9:.2f} GB free")
+        torch.cuda.synchronize()
+        ck = AsyncCheckpointer(d, keep=1)
+        t0 = time.perf_counter()
+        ck.save(0, params)
+        t_snapshot = time.perf_counter() - t0       # copies to host memory
+        ck.wait()
+        t_save = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(d, 0, params)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        got = _flat(restored)
+        exact = len(got) == len(leaves) and all(
+            g.is_cuda and _same_bits(g, w) for g, w in zip(got, leaves))
+        del restored, got
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    result = {"bytes": nbytes, "bytes_on_disk": on_disk,
+              "snapshot_s": t_snapshot, "save_s": t_save, "restore_s": t_restore,
+              "save_gb_s": nbytes / t_save / 1e9,
+              "restore_gb_s": nbytes / t_restore / 1e9}
+    say(f"checkpoint [{card}]: " + json.dumps(result))
+    if not exact:
+        fail("checkpoint: the restored params differ from the saved ones")
+    return result
+
+
+# ------------------------------------------------------------------------ ci
+CI_WORKFLOW = ROOT / ".github" / "workflows" / "ci.yml"
+CI_STEPS = ("Observability smoke", "Chaos smoke", "Overload smoke")
+
+
+def ci_scripts():
+    """{step: its ``run:`` block from the CI workflow, with the reference
+    launcher (``repro.launch.serve``) replaced by the port's}."""
+    lines = CI_WORKFLOW.read_text().splitlines()
+    out = {}
+    for step in CI_STEPS:
+        i = next(n for n, l in enumerate(lines)
+                 if l.strip().startswith(f"- name: {step}"))
+        i = next(n for n in range(i + 1, len(lines))
+                 if lines[n].strip() == "run: |")
+        indent = len(lines[i + 1]) - len(lines[i + 1].lstrip())
+        body = []
+        for line in lines[i + 1:]:
+            if line.strip() and len(line) - len(line.lstrip()) < indent:
+                break
+            body.append(line[indent:])
+        script = "\n".join(body).strip() + "\n"
+        if script.count("python -m repro.launch.serve") != 1:
+            fail(f"ci: {step}: expected one reference launcher command")
+        out[step] = script.replace("python -m repro.launch.serve",
+                                   "python -m repro_torch.launch.serve")
+    return out
+
+
+def ci_phase():
+    """The CI workflow's obs, chaos and overload smokes with the port's
+    launcher on the card (no ``--device``: the default is cuda), each a
+    subprocess in a temporary directory whose ``src`` links to this
+    checkout's; their assertion blocks run unchanged."""
+    import os
+    import shutil
+    import tempfile
+
+    results = {}
+    for step, script in ci_scripts().items():
+        d = Path(tempfile.mkdtemp(prefix="chip_smoke_ci_"))
+        try:
+            (d / "src").symlink_to(SRC)
+            (d / "bin").mkdir()
+            shim = d / "bin" / "python"   # the workflow calls "python"
+            shim.write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+            shim.chmod(0o755)
+            env = {**os.environ, "PATH": f"{d / 'bin'}:{os.environ.get('PATH', '')}"}
+            env.pop("PYTHONPATH", None)
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                ["bash", "--noprofile", "--norc", "-eo", "pipefail", "-c", script],
+                cwd=d, env=env, capture_output=True, text=True, timeout=600)
+            took = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        lines = out.stdout.splitlines()
+        shown = [l for l in lines if l.startswith(
+            ("served=", "chaos:", "admission:", "scores:"))]
+        for line in shown:
+            say(f"ci {step}: {line}")
+        say(f"ci {step}: rc={out.returncode} in {took:.1f}s")
+        if out.returncode != 0:
+            tail = "\n".join((out.stdout + out.stderr).splitlines()[-30:])
+            fail(f"ci {step}: rc {out.returncode}\n{tail}")
+        results[step] = {"seconds": took, "lines": shown}
+    return results
 
 
 def main() -> None:
@@ -895,7 +1232,25 @@ def main() -> None:
     launches = {k: served[a][0][k] for k, a in owner.items()}
     shapes = served["internlm2-1.8b"][1]
 
-    # 6. timing at the main path's shapes (decode shapes for the scans,
+    # 6. real KV bytes on the card, 7. a checkpoint of the same params
+    t0 = time.perf_counter()
+    psrv, payload = payload_phase(ops, smi_line)
+    payload["seconds"] = time.perf_counter() - t0
+    say(f"payload: ok in {payload['seconds']:.1f}s")
+    t0 = time.perf_counter()
+    ckpt = checkpoint_phase(psrv.params, smi_line)
+    ckpt["seconds"] = time.perf_counter() - t0
+    say(f"checkpoint: ok in {ckpt['seconds']:.1f}s")
+    del psrv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the CI workflow's serving smokes with the port's launcher
+    t0 = time.perf_counter()
+    ci = ci_phase()
+    say(f"ci: ok in {time.perf_counter() - t0:.1f}s")
+
+    # 9. timing at the main path's shapes (decode shapes for the scans,
     # whose decode launches outnumber their prefill launches eightfold)
     main_rows = {
         "flash_attention": flash_case(shapes["flash_attention"], True, 0, "bf16",
@@ -965,7 +1320,8 @@ def main() -> None:
         {"device": name, "nvidia_smi": smi_line, "flash_rows": flash_rows,
          "main_rows": main_rows, "more_rows": more_rows,
          "serve": {a: v[2] for a, v in served.items()}, "launches": launches,
-         "shapes": shapes}, indent=1))
+         "shapes": shapes, "payload": payload, "checkpoint": ckpt, "ci": ci},
+        indent=1))
     say(f"nvidia-smi: {smi_line}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

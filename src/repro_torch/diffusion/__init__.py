@@ -6,10 +6,9 @@ objects through.
   * ``transfer`` — ``TransferEngine``: cheapest-source (peer NIC vs persistent
     store) resolution with single-flight dedup and bounded concurrency.
   * ``payload``  — the physical plane under the bookkeeping: the modeled
-    and in-memory backends and the measured-bandwidth accumulator, checked
-    against the ``launch.rooflines`` machine model.  ``RealPayload`` (KV
-    tensors moved between device, host and verified disk spill) is not
-    ported yet.
+    and in-memory backends, ``RealPayload`` (KV tensors moved between the
+    card, host memory and verified disk spill) and the measured-bandwidth
+    accumulator, checked against the ``launch.rooflines`` machine model.
   * ``prefetch`` — ``Prefetcher``: warm an executor's tiers for upcoming work
     so transfer overlaps compute.
 """
@@ -19,6 +18,7 @@ from .payload import (
     MeasuredBandwidth,
     NullPayload,
     PayloadBackend,
+    RealPayload,
 )
 from .prefetch import Prefetcher, PrefetchStats
 from .tiers import StoreTier, TieredStore, TierSpec, default_tier_weights, serving_tier_specs
@@ -31,6 +31,7 @@ __all__ = [
     "PayloadBackend",
     "Prefetcher",
     "PrefetchStats",
+    "RealPayload",
     "StoreTier",
     "TieredStore",
     "TierSpec",

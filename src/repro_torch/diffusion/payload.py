@@ -6,10 +6,11 @@ adds the physical plane underneath: a ``PayloadBackend`` attached to a store
 receives a callback for every placement change (admit / promote / demote /
 drop) and moves the real tensors between physical homes:
 
-  * ``hbm``  — accelerator device arrays (``jax.device_put``; every timed
-    edge is closed with ``jax.block_until_ready`` so async dispatch cannot
-    fake bandwidth);
-  * ``dram`` — host numpy (``jax.device_get`` on the way down);
+  * ``hbm``  — torch tensors on the backend's device (the card by default;
+    every timed edge that touches it is closed with
+    ``torch.cuda.synchronize`` so the asynchronous CUDA queue cannot fake
+    bandwidth);
+  * ``dram`` — distinct CPU tensors (pageable host memory);
   * ``disk`` — chunked spill files written through the checkpoint plane's
     dtype-safe byte view (``checkpoint.checkpointer.to_raw_bytes``), with a
     per-chunk sha256 verified on every read back.
@@ -23,9 +24,7 @@ Three backends share the interface:
     copy host bytes and record *modeled* seconds (size / roofline), so
     measured rows are reproducible without an accelerator.
   * ``RealPayload`` — the physical homes above, timed with
-    ``time.perf_counter``.  Not in this package yet: its homes are device
-    arrays, and the serving launcher never selects ``payload="real"``
-    (``DiffusionServer`` raises ``NotImplementedError`` for it).
+    ``time.perf_counter``.
 
 The decision plane never reads the payload plane: a backend with no bytes
 registered for an object (a placeholder — e.g. the DES, or a peer fetch of
@@ -49,12 +48,14 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "MeasuredBandwidth",
     "PayloadBackend",
     "NullPayload",
     "FakePayload",
+    "RealPayload",
 ]
 
 # Tier names with a physical roofline; edges touching anything else (engine
@@ -150,7 +151,9 @@ def _tree_rebuild(template: Any, leaves: List[Any]) -> Any:
 
 
 def _leaf_nbytes(leaves: List[Any]) -> float:
-    return float(sum(int(np.asarray(l).nbytes) for l in leaves))
+    # numpy cannot view a CUDA or a bfloat16 tensor: count a tensor's bytes
+    return float(sum(l.numel() * l.element_size() if isinstance(l, torch.Tensor)
+                     else int(np.asarray(l).nbytes) for l in leaves))
 
 
 class PayloadBackend:
@@ -254,3 +257,240 @@ class FakePayload(PayloadBackend):
         self._templates.pop(obj, None)
         self._leaves.pop(obj, None)
 
+
+class _SpilledLeaf:
+    """One leaf's on-disk home: chunked raw files + per-chunk sha256."""
+
+    __slots__ = ("dtype", "shape", "nbytes", "chunks")
+
+    def __init__(self, dtype: str, shape: Tuple[int, ...], nbytes: int,
+                 chunks: List[Tuple[str, str]]):
+        self.dtype = dtype
+        self.shape = shape
+        self.nbytes = nbytes
+        self.chunks = chunks            # [(path, sha256 hexdigest), ...]
+
+
+def _copy_to(leaf: Any, device: torch.device) -> torch.Tensor:
+    """A distinct contiguous copy of ``leaf`` (a tensor, or anything
+    ``torch.as_tensor`` takes) on ``device``.  ``Tensor.to`` returns the
+    tensor itself when it is already there, and ``.numpy()`` of a CPU tensor
+    shares its storage: neither is a snapshot of a cache that decode then
+    updates in place."""
+    src = leaf.detach() if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
+    return torch.empty(src.shape, dtype=src.dtype, device=device).copy_(src)
+
+
+class RealPayload(PayloadBackend):
+    """Physical KV homes: torch tensors on ``device`` (hbm), CPU tensors
+    (everything else), chunked spill files with verified digests (disk).
+
+    Every home is a private copy: a put copies at any tier, a move copies,
+    and ``get``/``value`` hand out copies, so no caller can write into what
+    the backend holds (decode updates its caches in place).  Every timed
+    edge that touches a CUDA device synchronizes before the clock stops —
+    the measured bandwidth is the bytes actually landed, not the enqueue.
+    """
+
+    def __init__(
+        self,
+        name: str = "payload",
+        measured: Optional[MeasuredBandwidth] = None,
+        spill_dir: Optional[str] = None,
+        chunk_bytes: int = 64 * 1024 * 1024,
+        device: Any = "cuda",
+        corrupt_mode: str = "raise",
+    ):
+        super().__init__(measured)
+        if corrupt_mode not in ("raise", "recover"):
+            raise ValueError(f"unknown corrupt_mode {corrupt_mode!r}")
+        self.name = name
+        self.spill_dir = spill_dir
+        self.chunk_bytes = max(1, int(chunk_bytes))
+        self.device = torch.device(device)
+        # Serving-path degradation: "raise" surfaces a poisoned spill chunk
+        # as IOError (checkpoint/training semantics — corrupt state halts);
+        # "recover" drops the poisoned copy, fires ``on_corruption(obj)``
+        # (the router quarantines the index entry and re-fetches from a
+        # clean source), and the read returns None like a placeholder.
+        self.corrupt_mode = corrupt_mode
+        self.on_corruption: Optional[Callable[[str], None]] = None
+        self.corruptions_recovered = 0
+        self._tiers: Dict[str, str] = {}
+        self._templates: Dict[str, Any] = {}
+        # leaves: in-memory tensors (device or CPU), or _SpilledLeaf on disk
+        self._leaves: Dict[str, List[Any]] = {}
+        self._nbytes: Dict[str, float] = {}
+        self._spill_seq = 0
+
+    # -- physical homes -------------------------------------------------------
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _to_device(self, leaves: List[Any]) -> List[torch.Tensor]:
+        out = [_copy_to(l, self.device) for l in leaves]
+        self._sync()                    # the bytes have landed
+        return out
+
+    def _to_host(self, obj: str) -> List[torch.Tensor]:
+        """Materialize the current home into contiguous CPU tensors.
+
+        Always a real copy: a "demotion" that aliased the device buffer (as
+        ``Tensor.to("cpu")`` does for a CPU device) would be a free pointer
+        cast and its measured bandwidth a lie — the DRAM home must be a
+        distinct host buffer that survives the device copy being dropped."""
+        leaves = self._leaves[obj]
+        if leaves and isinstance(leaves[0], _SpilledLeaf):
+            return [self._read_spilled(s) for s in leaves]
+        return [_copy_to(l, torch.device("cpu")) for l in leaves]
+
+    def _spill(self, obj: str, host: List[torch.Tensor]) -> List[_SpilledLeaf]:
+        if self.spill_dir is None:
+            raise ValueError(
+                f"RealPayload {self.name!r}: disk tier used without spill_dir")
+        from ..checkpoint.checkpointer import dtype_name, to_raw_bytes
+        os.makedirs(self.spill_dir, exist_ok=True)
+        out = []
+        for t in host:
+            raw = to_raw_bytes(t)
+            chunks: List[Tuple[str, str]] = []
+            for lo in range(0, max(1, raw.nbytes), self.chunk_bytes):
+                piece = raw[lo:lo + self.chunk_bytes]
+                self._spill_seq += 1
+                path = os.path.join(
+                    self.spill_dir, f"{self.name}.{self._spill_seq:08d}.kv")
+                with open(path, "wb") as f:
+                    f.write(piece)
+                chunks.append((path, hashlib.sha256(piece).hexdigest()))
+            out.append(_SpilledLeaf(dtype_name(t), tuple(t.shape),
+                                    int(raw.nbytes), chunks))
+        return out
+
+    def _read_spilled(self, leaf: _SpilledLeaf) -> torch.Tensor:
+        from ..checkpoint.checkpointer import from_raw_bytes
+        parts = []
+        for path, digest in leaf.chunks:
+            with open(path, "rb") as f:
+                data = f.read()
+            if hashlib.sha256(data).hexdigest() != digest:
+                raise IOError(f"KV spill chunk corrupt: {path}")
+            parts.append(np.frombuffer(data, dtype=np.uint8))
+        raw = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        return from_raw_bytes(raw, leaf.dtype, leaf.shape)
+
+    def _free_spill(self, leaves: List[Any]) -> None:
+        for leaf in leaves:
+            if isinstance(leaf, _SpilledLeaf):
+                for path, _ in leaf.chunks:
+                    try:
+                        os.unlink(path)
+                    except OSError:
+                        pass
+
+    def _home(self, obj: str, host: List[torch.Tensor], tier: str) -> List[Any]:
+        if tier == "hbm":
+            return self._to_device(host)
+        if tier == "disk":
+            return self._spill(obj, host)
+        return host
+
+    # -- interface ------------------------------------------------------------
+    def put(self, obj: str, value: Any, tier: str) -> None:
+        """Register a copy of ``value``'s leaves at ``tier``; at hbm it
+        returns once the bytes are on the device (callers time it)."""
+        self.dropped(obj)               # re-put replaces (frees old spill)
+        leaves: List[Any] = []
+        template = _tree_leaves(value, leaves)
+        self._nbytes[obj] = _leaf_nbytes(leaves)
+        self._templates[obj] = template
+        if tier == "hbm":
+            self._leaves[obj] = self._to_device(leaves)
+        else:
+            host = [_copy_to(l, torch.device("cpu")) for l in leaves]
+            self._leaves[obj] = self._home(obj, host, tier)
+        self._tiers[obj] = tier
+
+    def _recover_corrupt(self, obj: str) -> None:
+        """Poisoned spill copy: drop it (remaining chunks freed), notify the
+        owner so the index entry quarantines and a re-fetch is queued."""
+        self.corruptions_recovered += 1
+        self.dropped(obj)
+        if self.on_corruption is not None:
+            self.on_corruption(obj)
+
+    def get(self, obj: str) -> Optional[Any]:
+        """Host (CPU tensor) copy of the payload; None for placeholders."""
+        if obj not in self._leaves:
+            return None
+        try:
+            host = self._to_host(obj)
+        except IOError:
+            if self.corrupt_mode != "recover":
+                raise
+            self._recover_corrupt(obj)
+            return None                 # degrades to placeholder semantics
+        return _tree_rebuild(self._templates[obj], host)
+
+    def value(self, obj: str) -> Optional[Any]:
+        """A copy of the payload in its *current* home (device tensors when
+        resident in hbm) — what a decode step wants after a swap-in, and
+        free for it to update in place."""
+        if obj not in self._leaves:
+            return None
+        leaves = self._leaves[obj]
+        if leaves and isinstance(leaves[0], _SpilledLeaf):
+            try:
+                leaves = [self._read_spilled(s) for s in leaves]
+            except IOError:
+                if self.corrupt_mode != "recover":
+                    raise
+                self._recover_corrupt(obj)
+                return None
+        else:
+            leaves = [l.clone() for l in leaves]
+        return _tree_rebuild(self._templates[obj], leaves)
+
+    def has(self, obj: str) -> bool:
+        return obj in self._leaves
+
+    def tier_of(self, obj: str) -> Optional[str]:
+        return self._tiers.get(obj)
+
+    def nbytes(self, obj: str) -> float:
+        return self._nbytes.get(obj, 0.0)
+
+    def moved(self, obj: str, tier: str) -> None:
+        src = self._tiers.get(obj)
+        if src is None:
+            self.placeholder_moves += 1
+            return
+        if src == tier:
+            return
+        old = self._leaves[obj]
+        if "hbm" in (src, tier):
+            # Unlike a JAX array's, a CUDA copy waits in the stream behind
+            # whatever was queued before it (the tail of the last decode):
+            # drain the queue first so the clock bills this move alone.
+            self._sync()
+        t0 = time.perf_counter()
+        try:
+            host = self._to_host(obj)   # verified read out of the old home
+        except IOError:
+            if self.corrupt_mode != "recover":
+                raise
+            self._recover_corrupt(obj)
+            return                      # no move recorded; copy is gone
+        self._leaves[obj] = self._home(obj, host, tier)
+        dt = time.perf_counter() - t0
+        self._free_spill(old)
+        self._tiers[obj] = tier
+        self.measured.record(src, tier, self._nbytes[obj], dt)
+
+    def dropped(self, obj: str) -> None:
+        leaves = self._leaves.pop(obj, None)
+        if leaves:
+            self._free_spill(leaves)
+        self._tiers.pop(obj, None)
+        self._templates.pop(obj, None)
+        self._nbytes.pop(obj, None)

@@ -31,8 +31,9 @@ True)``) so it can ride the single-scan drain.
 
 Bulk (re)scoring — ``rebuild_scores()`` — runs the one-shot matmul on the
 materialized bitmaps: numpy always; ``score_backend="cuda"`` routes it
-through the tiled CUDA kernel in ``kernels.dispatch_score`` (float32 FMA on
-the card, exact in the dyadic tier-weight regime).
+through the SIMT CUDA kernel in ``kernels.dispatch_score`` (one warp per
+executor and two window rows; float32 FMA on the card, exact in the dyadic
+tier-weight regime).
 The incremental plane never needs it in steady state — it exists for
 bootstrap-from-snapshot, consistency verification, and the benchmark's
 kernel-vs-numpy comparison.
@@ -788,8 +789,9 @@ class VectorizedDispatcher(DataAwareDispatcher):
         """One-shot ``demand @ presence.T`` over the materialized bitmaps.
 
         Returns (Sb, Sw) for active rows (row-id order).  ``backend`` falls
-        back to ``self.score_backend``; "cuda" runs the tiled scoring
-        kernel from ``kernels.dispatch_score`` on the card (float32),
+        back to ``self.score_backend``; "cuda" runs the SIMT scoring
+        kernel from ``kernels.dispatch_score`` on the card (float32, one
+        warp per executor and two window rows),
         "numpy" the float64 BLAS path.  With ``apply=True``
         the incremental matrices are overwritten — the recovery path after
         adopting a pre-populated index snapshot.

@@ -20,8 +20,9 @@ per epoch either.
     ``Sw += mult @ delta`` (``mult[r, k]`` = row r's multiplicity of delta
     k's object column, ``delta[k, :]`` = one-hot executor row times dw) and
     runs it through ``kernels.dispatch_score.dispatch_score_update`` — the
-    tiled CUDA accumulate whose register accumulator seeds from the resident
-    score tile, so the matrix never leaves the device between epochs.
+    SIMT CUDA kernel in which each thread owns one float4 of outputs (reads
+    its resident scores, adds its K products), so the matrix never leaves
+    the device between epochs.
     ``backend="numpy"`` applies the identical float32 product host-side;
   * row/executor *lifecycle* events (submit, dequeue, deregister) do not
     fit a rank-K product — they rewrite whole rows/columns.  They are

@@ -13,7 +13,8 @@ this module owns only the model: params, prefill, decode, KV tensors.
 A port of the reference's ``runtime/serve_loop.py``: routing is the copied
 ``CacheAffinityRouter`` unchanged, the model is the torch decoder on
 ``device`` (the card by default; ``device="cpu"`` runs the kernels' plain
-versions).  ``payload="real"`` is not ported yet and raises.  With the
+versions).  ``payload="real"`` moves each session's KV tensors between the
+card, host memory and disk under the tier bookkeeping.  With the
 vectorized dispatcher, each step() (one drain epoch) also runs the
 dispatcher's scoring on the model's device: the dispatch-score kernel
 rescores the window and the rank-K kernel keeps the device-resident score
@@ -31,7 +32,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
 from ..core.provisioner import DynamicResourceProvisioner
-from ..diffusion.payload import MeasuredBandwidth
+from ..diffusion.payload import MeasuredBandwidth, RealPayload
 from ..diffusion.tiers import TierSpec
 from ..models import cache_init, init_params, make_decode_step, make_prefill_step
 from .router import (Assignment, AdmissionController, CacheAffinityRouter,
@@ -139,10 +140,17 @@ class DiffusionServer:
         # per-batch delta and misses admitted through one batched transfer
         # resolution.  Best paired with dispatcher_impl="vectorized".
         batch_drain: bool = False,
-        # payload="real" (the reference's physical plane: session KV tensors
-        # moved between device, host and disk under the tier bookkeeping)
-        # is not ported yet and raises; "modeled" keeps the bookkeeping.
+        # payload="real" runs the physical plane under the tier bookkeeping:
+        # each session's KV tree is registered with its replica store's
+        # RealPayload backend, HBM evictions demote copies of the actual
+        # tensors to host memory (and to verified spill files when spill_dir
+        # names a disk tier home), and a lower-tier prefix hit copies the
+        # real bytes back onto the device — wall-clock timed into
+        # ``self.measured`` (the dram->hbm edge is the measured swap-in
+        # bandwidth).  Routing decisions are identical to payload="modeled"
+        # by construction.
         payload: str = "modeled",
+        spill_dir: Optional[str] = None,
         # obs: a repro.obs.Observability instance threads the unified
         # observability plane through the server — every stats island
         # (serve/router/dispatch/transfer/tiers/...) is adopted into its
@@ -179,13 +187,11 @@ class DiffusionServer:
     ):
         if payload not in ("modeled", "real"):
             raise ValueError(f"payload must be 'modeled' or 'real': {payload!r}")
-        if payload == "real":
-            raise NotImplementedError(
-                "payload='real' (RealPayload on torch, ROADMAP A5) is not ported")
         self.cfg = cfg
         self.device = torch.device(device)
         self.cap = cache_cap
         self.measured = MeasuredBandwidth()
+        self.payload_mode = payload
         self.params = init_params(cfg, device=self.device, seed=seed)
         shape = ShapeConfig("serve", "prefill", cache_cap, 1)
         self.prefill_fn = make_prefill_step(cfg, shape)
@@ -232,6 +238,15 @@ class DiffusionServer:
             on_object_evicted=self._on_session_evicted,
             dispatcher_impl=dispatcher_impl,
             batch_drain=batch_drain,
+            transfer_payload=payload if tier_specs is not None else "modeled",
+            payload_factory=(
+                # Serving path degrades on a poisoned spill chunk instead of
+                # failing the request: drop the copy, quarantine, re-fetch.
+                (lambda name: RealPayload(name=name, measured=self.measured,
+                                          spill_dir=spill_dir,
+                                          device=self.device,
+                                          corrupt_mode="recover"))
+                if payload == "real" and tier_specs is not None else None),
             obs=obs,
             chaos=chaos,
             heartbeat_timeout_s=heartbeat_timeout_s,
@@ -349,6 +364,27 @@ class DiffusionServer:
             caches, pos = state["caches"], state["pos"]
             if store is not None and found is not None and found != store.top_tier:
                 self.stats.swap_ins += 1
+                if self.payload_mode == "real":
+                    # The routing access already promoted the object, which
+                    # made the backend copy the demoted host bytes back onto
+                    # the device (timed into self.measured).  Decode must
+                    # continue on those swapped-in tensors (``value`` hands
+                    # out a copy, which decode may update in place), not on
+                    # the working copy the eviction left behind.
+                    t0 = time.time()
+                    backend = store.tiers.payload
+                    restored = (backend.value(session_object(sid))
+                                if backend is not None else None)
+                    if restored is not None:
+                        caches = restored
+                        if self._trace is not None:
+                            # Structural span: the real KV bytes returning
+                            # to the device for this request.
+                            self._trace.record(
+                                routed.request_id, session_object(sid),
+                                "payload", t0, time.time(),
+                                replica=replica.name, parent="dispatch",
+                                detail=(found, store.top_tier))
             self.stats.restore_time_s += routed.restore_cost_s
         else:
             # "copy from persistent storage": replay the prompt (prefill).
@@ -396,6 +432,16 @@ class DiffusionServer:
             store = self.router.stores.get(replica.name)
             if store is not None and store.contains(session_object(sid)):
                 replica.sessions[sid] = {"caches": caches, "pos": pos}
+                if self.payload_mode == "real":
+                    backend = store.tiers.payload
+                    if backend is not None:
+                        # Register/refresh the session's actual KV bytes in
+                        # the physical plane so later demotions/swap-ins
+                        # move real tensors (an untimed copy of the working
+                        # caches, not a tier move).
+                        obj = session_object(sid)
+                        backend.put(obj, caches,
+                                    store.tier_of(obj) or store.top_tier)
             else:
                 replica.sessions.pop(sid, None)
         req.finish_time_s = time.time()

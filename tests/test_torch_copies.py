@@ -19,7 +19,7 @@ def _verbatim():
     for pkg in ("core", "index", "obs"):
         files += sorted((REF / pkg).glob("*.py"))
     files += [REF / "diffusion" / f for f in ("tiers.py", "transfer.py", "prefetch.py")]
-    files += [REF / "dispatch_vec" / "__init__.py"]
+    files += [REF / "dispatch_vec" / "__init__.py", REF / "checkpoint" / "__init__.py"]
     files += [REF / "runtime" / f for f in
               ("router.py", "admission.py", "chaos.py", "fault_tolerance.py")]
     return [str(p.relative_to(REF)) for p in files]

@@ -145,12 +145,6 @@ def test_device_scores_raise_on_a_difference():
         srv._flush_scores()
 
 
-def test_payload_real_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A5"):
-        DiffusionServer(get_arch("internlm2-1.8b").reduced(), device="cpu",
-                        payload="real", host_cache_sessions=2)
-
-
 def _run_launcher(capsys, *args):
     port_serve.main(["--arch", "internlm2-1.8b", "--reduced", "--device", "cpu",
                      *args])
