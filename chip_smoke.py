@@ -53,7 +53,24 @@ Phases (any failure exits non-zero before the result line):
                ``.github/workflows/ci.yml`` with ``repro_torch.launch.serve``
                (on the card), each in a temporary directory, their assertion
                blocks unchanged;
-  9. timing  - each kernel at the main path's shapes: CUDA-event times of
+  9. train   - (a) each kernel entry point on CUDA inputs that require grad
+               raises (no kernel has a backward), and under no_grad matches
+               its plain version; reduced olmoe, recurrentgemma and rwkv6
+               raise at their first kernel under grad mode; (b) one train step of reduced internlm2
+               and gemma3 on the card against the CPU: loss, grad norm,
+               grads and first moments within 2e-2, each leaf's update
+               within 2e-2 of AdamW applied on the CPU to the card's
+               moments, params within one bf16 ulp (98%) and 2 lr plus one
+               ulp (all) of the CPU's step, no flash-attention launch;
+               (c) ``python -m repro_torch.launch.train`` at internlm2-1.8b's
+               full width (8 x 256 tokens, 9 steps): finite losses and grad
+               norms, the mean loss of the last three steps under step 1's,
+               the median step ms over steps 4-9, tokens/s, peak memory,
+               and the AdamW update timed alone at that width (its share of
+               a step); (d) a failure at step 12 and a restart from the
+               step-10 checkpoint on the card, the restored state bit-equal
+               to the saved one;
+ 10. timing  - each kernel at the main path's shapes: CUDA-event times of
                the kernel, its plain version and one library call where one
                computes the same function, beside the card's bound (bytes
                over 3.35 TB/s or operations over the type's peak, whichever
@@ -766,8 +783,8 @@ def serve_full_width(arch, n_sessions, n_req, needs, ops):
 # ------------------------------------------------------------------- payload
 def _flat(tree):
     """Leaves of a tree in the order the port's checkpointer writes them."""
-    from repro_torch.checkpoint.checkpointer import _tree_flatten_with_paths
-    return _tree_flatten_with_paths(tree)[1]
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
 
 
 def _same_bits(a, b) -> bool:
@@ -1071,6 +1088,377 @@ def ci_phase():
     return results
 
 
+# ----------------------------------------------------------------------- train
+TRAIN_ARCH = "internlm2-1.8b"
+# the reference launcher's own docstring shape; 9 steps write no checkpoint
+# (the launcher checkpoints every max(10, steps // 4) steps)
+TRAIN_ARGS = ("--arch", TRAIN_ARCH, "--seq", "256", "--batch", "8", "--steps", "9")
+GUARDED = ("flash_attention", "moe_gmm", "rglru_scan", "rglru_gated_scan", "wkv6",
+           "dispatch_scores", "dispatch_score_update")
+
+
+def _first(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _guard_inputs(name, ops):
+    """(call, f32 CUDA inputs) of one kernel entry point at a small shape."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    fn = ops[name]
+    if name == "flash_attention":
+        return (lambda q, k, v: fn(q, k, v, causal=True),
+                [rnd(1, 64, 4, 64), rnd(1, 64, 2, 64), rnd(1, 64, 2, 64)])
+    if name == "moe_gmm":
+        return fn, [rnd(4, 8, 64), rnd(4, 64, 32)]
+    if name == "rglru_scan":
+        return fn, [torch.sigmoid(rnd(1, 8, 64)), rnd(1, 8, 64), rnd(1, 64)]
+    if name == "rglru_gated_scan":
+        return fn, [rnd(1, 8, 64), rnd(1, 8, 64), rnd(1, 8, 64), rnd(64), rnd(1, 64)]
+    if name == "wkv6":
+        return fn, [rnd(1, 8, 2, 64), rnd(1, 8, 2, 64), rnd(1, 8, 2, 64),
+                    torch.sigmoid(rnd(1, 8, 2, 64)), rnd(2, 64), rnd(1, 2, 64, 64)]
+    if name == "dispatch_scores":
+        return fn, [rnd(8, 256), rnd(16, 256)]
+    return fn, [rnd(256, 16), rnd(256, 2), rnd(2, 16)]
+
+
+def grad_guard_check(ops):
+    """(a) Each entry point on CUDA inputs that require grad raises before it
+    launches; under ``torch.no_grad()`` it launches once and matches its plain
+    version (the wrapper on CPU copies) within 1e-4 relative."""
+    import torch
+    rows = {}
+    for name in GUARDED:
+        fn, xs = _guard_inputs(name, ops)
+        before = ops[name].launches
+        try:
+            with torch.enable_grad():
+                fn(*[x.clone().requires_grad_(True) for x in xs])
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                fail(f"train guard {name}: unexpected error {e}")
+        else:
+            fail(f"train guard {name}: launched on inputs that require grad")
+        if ops[name].launches != before:
+            fail(f"train guard {name}: counted a launch it refused")
+        with torch.no_grad():
+            got = _first(fn(*[x.clone().requires_grad_(True) for x in xs]))
+        torch.cuda.synchronize()
+        if ops[name].launches != before + 1:
+            fail(f"train guard {name}: no launch under torch.no_grad()")
+        rows[name] = rel_err(got.cpu(), _first(fn(*[x.cpu() for x in xs])))
+        if not rows[name] < 1e-4:
+            fail(f"train guard {name}: rel. err {rows[name]} >= 1e-4 under no_grad")
+    return rows
+
+
+def kernel_family_refusal():
+    """The families whose blocks call a kernel (MoE: K4, 'R': K5, 'W': K6)
+    raise at their first kernel under grad mode on the card (ROADMAP B5)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import init_params, make_loss_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    out = {}
+    for arch in ("olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-3b"):
+        cfg = get_arch(arch).reduced()
+        params = init_params(cfg, device="cuda", seed=0)
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        tokens = torch.zeros((1, 16), dtype=torch.long, device="cuda")
+        try:
+            make_loss_fn(cfg, ShapeConfig("t", "train", 16, 1))(
+                tree_unflatten(params, leaves), {"tokens": tokens})
+        except RuntimeError as e:
+            if "ROADMAP B5" not in str(e):
+                fail(f"train guard {arch}: unexpected error {e}")
+            out[arch] = str(e).split(":")[0]
+        else:
+            fail(f"train guard {arch}: trained through a kernel without a backward")
+    return out
+
+
+def _l2_rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / (b.norm() + 1e-30))
+
+
+def train_step_check(arch, ops):
+    """(b) One ``make_train_step`` on the card and on the CPU from the same
+    params and pipeline tokens (reduced ``arch``; lr 1e-2 at schedule scale 1,
+    so every bf16 param moves by many ulps).  Held to the CPU within 2e-2:
+    the loss, the grad norm and each leaf's grads and first moment (L2).
+    Each leaf's update on the card is held within 2e-2 (L2) to the AdamW
+    update computed on the CPU from the card's own moments: AdamW's first
+    update is close to lr * sign(g), so where card and CPU grads are near 0
+    with opposite signs the two steps move an element apart by 2 lr, which
+    says nothing about the update.  Against the CPU's step, at least 98% of
+    each leaf's elements lie within one bf16 ulp, and all within 2 lr plus
+    one ulp of the larger of the two.  The flash-attention kernel must not
+    launch."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DiffusionDataPipeline, PipelineConfig
+    from repro_torch.models import init_opt_state, init_params, make_loss_fn, make_train_step
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    cfg = get_arch(arch).reduced()
+    S, B = 64, 4
+    shape = ShapeConfig("t", "train", S, B)
+    pipe = DiffusionDataPipeline(PipelineConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                                global_batch=B, seed=0), num_hosts=2)
+    tokens = torch.as_tensor(pipe.next_batch()[0][:, :S], dtype=torch.long)
+    opt = AdamWConfig(lr=1e-2)
+    step = make_train_step(cfg, shape, opt, total_steps=1, microbatches=1)
+    loss_fn = make_loss_fn(cfg, shape)
+    cpu = init_params(cfg, device="cpu", seed=5)
+    p0 = [t.float() for t in tree_leaves(cpu)]
+    flash = ops["flash_attention"]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(cpu, dev)
+        batch = {"tokens": tokens.to(dev)}
+        before = flash.launches
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss, _ = loss_fn(tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        new_p, new_o, metrics = step(params, init_opt_state(params, cfg), batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                    "grads": [g.float().cpu() for g in grads],
+                    "params": [t.float().cpu() for t in tree_leaves(new_p)],
+                    "m": [t.cpu() for t in tree_leaves(new_o["m"])],
+                    "v": [t.cpu() for t in tree_leaves(new_o["v"])],
+                    "flash_launches": flash.launches - before}
+    c, h = res["cuda"], res["cpu"]
+    lr = opt.lr * float(cosine_schedule(torch.tensor(1), warmup=1, total=1))
+    b1c = 1.0 - torch.tensor(opt.b1, dtype=torch.float32)
+    b2c = 1.0 - torch.tensor(opt.b2, dtype=torch.float32)
+    upd_err, grad_err, m_err, within_ulp, excess = [], [], [], [], []
+    for p, m, v, pc, ph, gc, gh, mh in zip(p0, c["m"], c["v"], c["params"], h["params"],
+                                           c["grads"], h["grads"], h["m"]):
+        want = (p - lr * ((m / b1c) / (torch.sqrt(v / b2c) + opt.eps)
+                          + opt.weight_decay * p)).to(torch.bfloat16).float()
+        upd_err.append(_l2_rel(pc - p, want - p))
+        grad_err.append(_l2_rel(gc, gh))
+        m_err.append(_l2_rel(m, mh))
+        ulp = torch.from_numpy(np.spacing(ph.abs().numpy())) * 65536.0
+        ulp_max = torch.from_numpy(np.spacing(torch.maximum(pc.abs(), ph.abs()).numpy())) \
+            * 65536.0
+        diff = (pc - ph).abs()
+        within_ulp.append(float((diff <= ulp).double().mean()))
+        # before rounding the two differ by at most 2 lr (|update| <= lr at
+        # step 1); each bf16 rounding adds at most half an ulp of its value
+        excess.append(float((diff - ulp_max).max()) / lr)
+    row = {"arch": arch, "loss": [c["loss"], h["loss"]],
+           "grad_norm": [c["grad_norm"], h["grad_norm"]],
+           "loss_rel_err": abs(c["loss"] - h["loss"]) / abs(h["loss"]),
+           "grad_norm_rel_err": abs(c["grad_norm"] - h["grad_norm"]) / h["grad_norm"],
+           "worst_grad_l2": max(grad_err), "worst_m_l2": max(m_err),
+           "worst_update_l2": max(upd_err), "min_within_ulp": min(within_ulp),
+           "max_excess_over_lr": max(excess),
+           "flash_launches": c["flash_launches"], "leaves": len(p0)}
+    say(f"train step {arch} reduced (card vs cpu): " + json.dumps(row))
+    finite = all(bool(torch.isfinite(t).all()) for t in c["params"] + c["grads"])
+    problems = [k for k, ok in (
+        ("finite", finite and np.isfinite(c["loss"])),
+        ("loss", row["loss_rel_err"] < 2e-2),
+        ("grad_norm", row["grad_norm_rel_err"] < 2e-2),
+        ("grads", row["worst_grad_l2"] < 2e-2), ("m", row["worst_m_l2"] < 2e-2),
+        ("update", row["worst_update_l2"] < 2e-2),
+        ("params within one ulp", row["min_within_ulp"] >= 0.98),
+        ("params within 2 lr + one ulp", row["max_excess_over_lr"] <= 2.0),
+        ("no flash_attention launch", row["flash_launches"] == 0)) if not ok]
+    if problems:
+        fail(f"train step {arch}: {problems}")
+    return row
+
+
+def train_full_width(card):
+    """(c) ``python -m repro_torch.launch.train`` at internlm2-1.8b's full
+    width, 9 steps of 8 x 256 tokens on the card, in a subprocess.  Returns
+    its per-step report, the median step ms over steps 4-9 and tokens/s."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGS,
+           "--ckpt-dir", d]
+    try:
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+                             capture_output=True, text=True, timeout=900)
+        took = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if out.returncode != 0:
+        tail = "\n".join((out.stdout + out.stderr).splitlines()[-30:])
+        fail(f"train full width: rc {out.returncode}\n{tail}")
+    lines = out.stdout.splitlines()
+    for line in lines:
+        if line.startswith("step "):
+            say(f"train full width: {line}")
+    if not lines[-1].startswith("done: 9 steps"):
+        fail(f"train full width: last line {lines[-1]!r}")
+    report = json.loads(next(l for l in lines if l.startswith("train: "))[len("train: "):])
+    losses, norms, step_ms = report["losses"], report["grad_norms"], report["step_ms"]
+    med = statistics.median(step_ms[3:9])
+    tokens = int(TRAIN_ARGS[3]) * int(TRAIN_ARGS[5])
+    row = {"arch": TRAIN_ARCH, "seq": report["seq"], "batch": report["batch"],
+           "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "median_step_ms_4_9": med, "tokens_per_s": tokens / (med / 1e3),
+           "max_memory_allocated": report["max_memory_allocated"],
+           "device_name": report["device_name"], "nvidia_smi": card,
+           "command_s": took, "done": lines[-1]}
+    say(f"train full width [{card}]: median step {med:.2f} ms over steps 4-9, "
+        f"{row['tokens_per_s']:.0f} tokens/s, peak "
+        f"{row['max_memory_allocated'] / 1e9:.2f} GB allocated; {lines[-1]}")
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        fail(f"train full width: non-finite loss or grad norm {losses} {norms}")
+    if len(losses) != 9 or not np.mean(losses[-3:]) < losses[0]:
+        fail(f"train full width: the loss did not fall: {losses}")
+    return row
+
+
+def optimizer_timing(arch):
+    """The AdamW update alone at ``arch``'s full width on the card (random
+    bf16 grads), CUDA events around each of 3 calls after one warm-up; the
+    bound moves 22 bytes a param (read g, p, m, v; write p, m, v).  Also the
+    step's bound: 8 operations a matmul param a token (forward, backward,
+    the group recompute) at the bf16 peak, plus the update's bytes."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import tree_flatten_with_paths, tree_map
+    cfg = get_arch(arch)
+    params = init_params(cfg, device="cuda", seed=0)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    grads = tree_map(lambda p: (1e-3 * torch.randn(p.shape, generator=g, device="cuda"))
+                     .to(p.dtype), params)
+    state = adamw_init(params)
+    paths, leaves, _ = tree_flatten_with_paths(params)
+    n = sum(t.numel() for t in leaves)
+    # matmul params: all but the embedding table and the norm scales
+    n_mm = sum(t.numel() for p, t in zip(paths, leaves)
+               if p != "embed" and not p.endswith("scale"))
+    adamw_update(grads, state, params, AdamWConfig())
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        adamw_update(grads, state, params, AdamWConfig())
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    del params, grads, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n, "matmul_params": n_mm, "ms": statistics.median(times),
+            "ms_all": times, "bound_ms": 22.0 * n / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def train_restart_check(ops):
+    """(d) The reference test's failure injection on the card: reduced
+    internlm2, 20 steps of 4 x 64 tokens, a checkpoint every 5, host1 lost
+    at step 12.  One restart, two hosts left, a finite loss, and the state
+    the restart restores is the state saved at step 10, bit for bit.  No
+    kernel launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.runtime import FailureInjector, TrainConfig, Trainer
+    d = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    try:
+        tr = Trainer(get_arch(TRAIN_ARCH).reduced(), ShapeConfig("t", "train", 64, 4),
+                     TrainConfig(total_steps=20, log_every=100, checkpoint_every=5,
+                                 checkpoint_dir=d, num_hosts=3),
+                     failure_injector=FailureInjector({12: ["host1"]}), device="cuda")
+        saved, restored = {}, []
+        save, restore = tr.ckpt.save, tr.restore_or_init
+
+        def saving(step, tree):
+            saved[step] = [t.detach().cpu().clone() for t in _flat(tree)]
+            save(step, tree)
+
+        def restoring():
+            restored.append(restore())
+            return restored[-1]
+
+        tr.ckpt.save, tr.restore_or_init = saving, restoring
+        before = {k: fn.launches for k, fn in ops.items()}
+        t0 = time.perf_counter()
+        res = tr.run(start_fresh=True)
+        took = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    launched = {k: fn.launches - before[k] for k, fn in ops.items() if fn.launches > before[k]}
+    (params, opt, step), = restored
+    got = _flat({"params": params, "opt": opt})
+    exact = len(got) == len(saved.get(step, [])) and all(
+        g.is_cuda and _same_bits(g.cpu(), w) for g, w in zip(got, saved[step]))
+    row = {"restarts": res.restarts, "hosts_left": tr.pipeline.num_hosts(),
+           "restored_step": step, "opt_step": int(opt["step"]), "saved_steps": sorted(saved),
+           "leaves": len(got), "bit_equal": exact, "final_loss": res.final_loss,
+           "steps_run": res.steps_run, "kernel_launches": launched, "seconds": took}
+    say("train restart (card): " + json.dumps(row))
+    ok = (res.restarts == 1 and row["hosts_left"] == 2 and np.isfinite(res.final_loss)
+          and step == 10 and row["opt_step"] == 10 and exact and not launched)
+    if not ok:
+        fail(f"train restart: {row}")
+    return row
+
+
+def train_phase(ops, card):
+    """(a) the grad guards, (b) one step card vs CPU for reduced internlm2
+    and gemma3, (c) the launcher at full width, the AdamW update timed
+    alone at the same width, (d) a failure and restart on the card."""
+    import torch
+    out = {"guards": grad_guard_check(ops), "refused": kernel_family_refusal()}
+    say("train guards: every entry point refused grad inputs; no_grad rel. err "
+        + json.dumps(out["guards"]) + "; families refused at "
+        + json.dumps(out["refused"]))
+    out["step"] = [train_step_check(arch, ops) for arch in (TRAIN_ARCH, "gemma3-1b")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["full_width"] = train_full_width(card)
+    out["optimizer"] = opt = optimizer_timing(TRAIN_ARCH)
+    fw = out["full_width"]
+    tokens = fw["seq"] * fw["batch"]
+    step_bound = 8.0 * opt["matmul_params"] * tokens / PEAK_OPS["bf16"] * 1e3 \
+        + opt["bound_ms"]
+    fw["step_bound_ms"] = step_bound
+    fw["optimizer_share"] = opt["ms"] / fw["median_step_ms_4_9"]
+    say(f"train optimizer [{card}]: AdamW update {opt['ms']:.2f} ms "
+        f"(runs {', '.join(f'{t:.2f}' for t in opt['ms_all'])}) over {opt['params']} "
+        f"params, bound {opt['bound_ms']:.2f} ms (bytes); "
+        f"{100 * fw['optimizer_share']:.1f}% of the median step; step bound "
+        f"{step_bound:.2f} ms ({opt['matmul_params']} matmul params)")
+    out["restart"] = train_restart_check(ops)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -1250,7 +1638,13 @@ def main() -> None:
     ci = ci_phase()
     say(f"ci: ok in {time.perf_counter() - t0:.1f}s")
 
-    # 9. timing at the main path's shapes (decode shapes for the scans,
+    # 9. training: the guards, card vs CPU, full width, a restart
+    t0 = time.perf_counter()
+    train = train_phase(ops, smi_line)
+    train["seconds"] = time.perf_counter() - t0
+    say(f"train: ok in {train['seconds']:.1f}s")
+
+    # 10. timing at the main path's shapes (decode shapes for the scans,
     # whose decode launches outnumber their prefill launches eightfold)
     main_rows = {
         "flash_attention": flash_case(shapes["flash_attention"], True, 0, "bf16",
@@ -1320,7 +1714,8 @@ def main() -> None:
         {"device": name, "nvidia_smi": smi_line, "flash_rows": flash_rows,
          "main_rows": main_rows, "more_rows": more_rows,
          "serve": {a: v[2] for a, v in served.items()}, "launches": launches,
-         "shapes": shapes, "payload": payload, "checkpoint": ckpt, "ci": ci},
+         "shapes": shapes, "payload": payload, "checkpoint": ckpt, "ci": ci,
+         "train": train},
         indent=1))
     say(f"nvidia-smi: {smi_line}")
     say(json.dumps({"kernels": kernels}))

@@ -15,14 +15,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-
-def _map(tree: Any, fn) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        seq = [_map(v, fn) for v in tree]
-        return tuple(seq) if isinstance(tree, tuple) else seq
-    return fn(tree)
+from .tree import tree_map
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -45,12 +38,12 @@ def tensor_to_numpy(t: torch.Tensor, bf16_dtype: Optional[np.dtype] = None):
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     """Numpy param tree (the reference's layout) -> torch tensors."""
-    return _map(tree, lambda a: tensor_from_numpy(a, device))
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)
 
 
 def params_to_numpy(tree: Any, bf16_dtype: Optional[np.dtype] = None) -> Any:
     """Inverse of ``params_from_numpy``."""
-    return _map(tree, lambda t: tensor_to_numpy(t, bf16_dtype))
+    return tree_map(lambda t: tensor_to_numpy(t, bf16_dtype), tree)
 
 
 # Cache trees ({"groups": ..., "rem": [...]}) convert leaf by leaf the same way.

@@ -37,6 +37,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..tree import tree_flatten_with_paths
+
 MAX_FILE_BYTES = 1 << 28  # 256 MiB per npz member group
 
 _STEP_DIR = re.compile(r"step_(\d+)")
@@ -68,46 +70,6 @@ def from_raw_bytes(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
     if not raw.flags.writeable:         # torch tensors may not wrap read-only memory
         raw = raw.copy()
     return torch.from_numpy(raw).view(getattr(torch, dtype)).reshape(tuple(shape))
-
-
-# -- tree paths ---------------------------------------------------------------
-
-def _tree_flatten_with_paths(tree) -> Tuple[List[str], List[Any],
-                                            Callable[[List[Any]], Any]]:
-    """(paths, leaves, unflatten) of a dict/list/tuple tree.  The paths are
-    the reference's (``jax.tree_util.tree_flatten_with_path``): dict keys in
-    sorted order, a sequence index as its number, joined by ``/``; ``None``
-    is an empty subtree, not a leaf."""
-    paths: List[str] = []
-    leaves: List[Any] = []
-
-    def walk(node, prefix):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: walk(node[k], prefix + (str(k),)) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            seq = [walk(v, prefix + (str(i),)) for i, v in enumerate(node)]
-            return tuple(seq) if isinstance(node, tuple) else seq
-        paths.append("/".join(prefix))
-        leaves.append(node)
-        return len(leaves) - 1
-
-    template = walk(tree, ())
-
-    def unflatten(new_leaves: List[Any]) -> Any:
-        def build(node):
-            if node is None:
-                return None
-            if isinstance(node, dict):
-                return {k: build(v) for k, v in node.items()}
-            if isinstance(node, (list, tuple)):
-                seq = [build(v) for v in node]
-                return tuple(seq) if isinstance(node, tuple) else seq
-            return new_leaves[node]
-        return build(template)
-
-    return paths, leaves, unflatten
 
 
 # -- save ---------------------------------------------------------------------
@@ -145,7 +107,7 @@ def _host_snapshot(leaf: Any) -> Tuple[str, List[int], np.ndarray]:
 def save_checkpoint(directory: str, step: int, tree, *, blocking: bool = True):
     """Write checkpoint for ``step``.  Returns the checkpoint path, or the
     started writer thread when ``blocking=False``."""
-    paths, leaves, _ = _tree_flatten_with_paths(tree)
+    paths, leaves, _ = tree_flatten_with_paths(tree)
     # Snapshot now: the caller may change its tensors in place (the next
     # optimizer step, a decode step) as soon as this returns.
     host_leaves = [_host_snapshot(l) for l in leaves]
@@ -285,7 +247,7 @@ def restore_checkpoint(directory: str, step: int, target_tree,
                 path_to_t[e["path"]] = from_raw_bytes(data[e["key"]], e["dtype"],
                                                       e["shape"])
 
-    paths, leaves, unflatten = _tree_flatten_with_paths(target_tree)
+    paths, leaves, unflatten = tree_flatten_with_paths(target_tree)
     out = []
     for path, leaf in zip(paths, leaves):
         if path not in path_to_t:

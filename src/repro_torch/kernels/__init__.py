@@ -3,7 +3,9 @@
 Each kernel directory holds ``ref.py`` (the plain PyTorch version) and
 ``ops.py`` (the wrapper: plain version for CPU tensors, the kernel for CUDA
 tensors, with a ``launches`` counter).  ``_build`` compiles and loads the
-sources at first use.
+sources at first use.  No kernel has a backward: on CUDA tensors, every
+wrapper raises when grad mode is on and an input requires grad
+(``_build.refuse_grad``), where the plain versions stay differentiable.
 """
 
 from .dispatch_score.ops import (

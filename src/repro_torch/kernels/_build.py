@@ -7,6 +7,9 @@ changed source rebuilds, an unchanged one is loaded as built.  All missing
 libraries build at once, one ``nvcc`` per source started together.  The C
 entry points take ``void*`` for pointers and the stream and ``int`` for
 sizes, and return ``cudaGetLastError()``; ``check`` raises on anything but 0.
+A kernel writes a fresh output through raw pointers, so autograd cannot see
+through it: ``refuse_grad`` raises before a launch that would lose a
+gradient.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -21,6 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -99,6 +104,19 @@ def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def refuse_grad(kernel: str, *operands) -> None:
+    """Raise when grad mode is on and an operand requires grad.  The
+    kernels have no backward and their outputs no ``grad_fn``: a launch
+    would silently cut the graph.  Called on the CUDA path only; CPU
+    tensors take the plain versions, which autograd differentiates."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in operands):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward and an input requires "
+            "grad; call it under torch.no_grad(), or train through its plain "
+            "version on CPU tensors (ROADMAP B5)")
 
 
 def check(err: int, what: str) -> None:

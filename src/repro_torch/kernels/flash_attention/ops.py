@@ -38,6 +38,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError("H must be a multiple of Hkv")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if not (q.device == k.device == v.device):

@@ -46,6 +46,7 @@ def moe_gmm(x, w, out_dtype=None, counts=None):
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return gmm_ref(x, w, out_dtype, counts)
+    _build.refuse_grad("moe_gmm", x, w)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"unsupported devices {x.device}, {w.device}")
     if x.dtype not in _DTYPES or w.dtype != x.dtype or out_dtype not in _DTYPES:

@@ -1,0 +1,81 @@
+"""Training launcher of the port.
+
+  python -m repro_torch.launch.train --arch internlm2-1.8b --seq 256 --batch 8
+  python -m repro_torch.launch.train --arch internlm2-1.8b --reduced --steps 3 --device cpu
+
+The reference launcher's flags and defaults, plus ``--device`` (default
+``cuda``): the diffusion-scheduled data pipeline, the train step, async
+checkpoints and heartbeat/straggler monitoring on one device.  ``--reduced``
+swaps in the architecture's smoke-test dims; ``--mesh host`` (sharding over
+the local devices) is not ported (ROADMAP D1).  Before the reference's
+``done:`` line, a ``train:`` line gives each step's loss, grad norm and wall
+ms as JSON, with the device and, on CUDA, the peak memory allocated.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+
+import torch
+
+from ..configs import get_arch
+from ..configs.base import ShapeConfig
+from ..optim.adamw import AdamWConfig
+from ..runtime.train_loop import TrainConfig, Trainer
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-test dims (CPU)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--hosts", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_train"))
+    ap.add_argument("--mesh", default="none",
+                    help="'none' (single device) | 'host' (not ported, ROADMAP D1)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.mesh != "none":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: sharding over a device mesh is not ported "
+            "(ROADMAP D1); the port trains on one device (--mesh none)")
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    shape = ShapeConfig("train", "train", args.seq, args.batch)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    trainer = Trainer(
+        cfg, shape,
+        TrainConfig(total_steps=args.steps, log_every=max(1, args.steps // 10),
+                    checkpoint_every=max(10, args.steps // 4),
+                    checkpoint_dir=args.ckpt_dir, num_hosts=args.hosts,
+                    opt=AdamWConfig(lr=args.lr)),
+        device=device,
+    )
+    res = trainer.run()
+    report = {"arch": cfg.name, "device": str(device), "seq": args.seq,
+              "batch": args.batch, "losses": res.losses,
+              "grad_norms": res.grad_norms,
+              "step_ms": [s * 1e3 for s in res.step_s]}
+    if device.type == "cuda":
+        report["device_name"] = torch.cuda.get_device_name(device)
+        report["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    print("train: " + json.dumps(report))
+    print(f"done: {res.steps_run} steps, final loss {res.final_loss:.4f}, "
+          f"pipeline hit-rate {res.pipeline_hit_rate:.0%}, wall {res.wall_s:.0f}s")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,19 @@
 from .api import (
+    OPT8BIT_PARAM_THRESHOLD,
     attn_chunk,
     cache_init,
+    init_opt_state,
     init_params,
     is_encdec,
     make_decode_step,
+    make_loss_fn,
     make_prefill_step,
+    make_train_step,
+    use_8bit_opt,
 )
 
 __all__ = [
-    "attn_chunk", "cache_init", "init_params", "is_encdec",
-    "make_decode_step", "make_prefill_step",
+    "OPT8BIT_PARAM_THRESHOLD", "attn_chunk", "cache_init", "init_opt_state",
+    "init_params", "is_encdec", "make_decode_step", "make_loss_fn",
+    "make_prefill_step", "make_train_step", "use_8bit_opt",
 ]

@@ -1,8 +1,11 @@
-"""Model API of the port: init / caches / prefill and decode steps.
+"""Model API of the port: init / caches / loss / train, prefill and decode
+steps.
 
 A port of the decoder-only half of the reference's ``models/api.py``;
 encoder-decoder configs raise (ROADMAP C4).  Params are drawn on the target
-device from an explicit ``torch.Generator``.
+device from an explicit ``torch.Generator``.  The train step is a plain
+function (there is no ``jit``) that returns new param and optimizer trees
+and changes none of its arguments.
 """
 
 from __future__ import annotations
@@ -13,7 +16,22 @@ from typing import Optional
 import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
+from ..optim.adamw import (
+    AdamWConfig,
+    adamw8bit_init,
+    adamw8bit_update,
+    adamw_init,
+    adamw_update,
+    cosine_schedule,
+)
+from ..tree import tree_leaves, tree_map, tree_unflatten
 from . import lm
+
+OPT8BIT_PARAM_THRESHOLD = 100e9  # >100B params: 8-bit AdamW moments
+
+
+def use_8bit_opt(cfg: ArchConfig) -> bool:
+    return cfg.param_count() > OPT8BIT_PARAM_THRESHOLD
 
 
 def is_encdec(cfg: ArchConfig) -> bool:
@@ -56,3 +74,70 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig):
 def make_decode_step(cfg: ArchConfig):
     _require_decoder_only(cfg)
     return functools.partial(lm.lm_decode, cfg=cfg)
+
+
+def make_loss_fn(cfg: ArchConfig, shape: ShapeConfig):
+    _require_decoder_only(cfg)
+    return functools.partial(lm.lm_loss, cfg=cfg, chunk=attn_chunk(shape.seq_len))
+
+
+def make_train_step(cfg: ArchConfig, shape: ShapeConfig,
+                    opt: AdamWConfig = AdamWConfig(), total_steps: int = 10_000,
+                    microbatches: Optional[int] = None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``microbatches`` > 1 accumulates grads: the batch is split along dim 0,
+    each slice runs forward and backward in turn, and its grads are added
+    into an f32 accumulator, each divided by the slice count.  Returns new
+    trees; the caller's params, optimizer state and batch stay as they were.
+    """
+    loss_fn = make_loss_fn(cfg, shape)
+    n_mb = microbatches if microbatches is not None else cfg.train_microbatches(
+        shape.global_batch)
+
+    def grad_of(params, mb):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, extras = loss_fn(tree_unflatten(params, leaves), mb)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        extras = {k: v.detach() for k, v in extras.items()}
+        return (loss.detach(), extras), tree_unflatten(params, grads)
+
+    def train_step(params, opt_state, batch):
+        eightbit = use_8bit_opt(cfg)
+        if n_mb == 1:
+            (loss, extras), grads = grad_of(params, batch)
+        else:
+            size = tree_leaves(batch)[0].shape[0] // n_mb
+            mbs = [tree_map(lambda x: x[i * size:(i + 1) * size], batch)
+                   for i in range(n_mb)]
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            dev = tree_leaves(params)[0].device
+            loss_m = torch.zeros((), dtype=torch.float32, device=dev)
+            aux_m = torch.zeros((), dtype=torch.float32, device=dev)
+            for mb in mbs:
+                (_, ex), g = grad_of(params, mb)
+                grads = tree_map(lambda a, gg: a + gg.to(torch.float32) / n_mb,
+                                 grads, g)
+                loss_m = loss_m + ex["loss"] / n_mb
+                aux_m = aux_m + ex["aux"] / n_mb
+            loss, extras = loss_m, {"loss": loss_m, "aux": aux_m}
+        # the schedule runs on the post-increment step (lr > 0 from step one)
+        lr_scale = cosine_schedule(
+            opt_state["step"] + 1, warmup=min(100, max(1, total_steps // 10)),
+            total=total_steps)
+        update = adamw8bit_update if eightbit else adamw_update
+        params, opt_state, om = update(grads, opt_state, params, opt, lr_scale)
+        metrics = {"loss": extras["loss"], "total_loss": loss, **om}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def init_opt_state(params, cfg: Optional[ArchConfig] = None):
+    if cfg is not None and use_8bit_opt(cfg):
+        return adamw8bit_init(params)
+    return adamw_init(params)

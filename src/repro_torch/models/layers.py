@@ -9,6 +9,9 @@ operands are upcast (bf16 products are exact in fp32) and summed in fp32.
 Prefill attention goes through the flash-attention kernel
 (``kernels.flash_attention``); decode stays on the direct path, because the
 kernel takes no key positions and cannot read a partly filled or ring cache.
+Training stays on ``attention_core`` too (``use_kernel=False``), as the
+reference trains through its jnp attention: the kernel has no backward.
+The loss functions (``softmax_xent``, ``chunked_lm_loss``) close the file.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import flash_attention
 
@@ -99,7 +103,9 @@ def attention_core(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
     """q: [B, Sq, H, Dh]; k, v: [B, Skv, Hkv, Dh]; qpos: [Sq]; kpos: [Skv].
 
     Direct path for Sq == 1 (decode) or Skv <= chunk; otherwise the chunked
-    online softmax, whose transient is [B, H, Sq, chunk] fp32.
+    online softmax, whose transient is [B, H, Sq, chunk] fp32.  Under grad
+    mode each chunk is recomputed in backward (the reference's per-chunk
+    ``jax.checkpoint``) instead of keeping its scores for it.
     """
     B, Sq, H, Dh = q.shape
     _, Skv, Hkv, _ = k.shape
@@ -119,10 +125,9 @@ def attention_core(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
     m = torch.full((B, H, Sq), NEG_INF, dtype=F32, device=q.device)
     l = torch.zeros((B, H, Sq), dtype=F32, device=q.device)
     qf = q.to(F32)
-    for start in range(0, Skv, chunk):
-        kc = _repeat_kv(k[:, start:start + chunk], rep)
-        vc = _repeat_kv(v[:, start:start + chunk], rep)
-        kp = kpos[start:start + chunk]
+
+    def body(o, m, l, kc, vc, kp):
+        kc, vc = _repeat_kv(kc, rep), _repeat_kv(vc, rep)
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kc.to(F32)) * scale
         s = s + _mask_bias(qpos, kp, causal, window)[None, None]
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -131,18 +136,26 @@ def attention_core(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
         l = l * alpha + p.sum(dim=-1)
         o = o * alpha[..., None] + torch.einsum(
             "bhqk,bkhd->bhqd", p.to(vc.dtype).to(F32), vc.to(F32))
-        m = m_new
+        return o, m_new, l
+
+    for start in range(0, Skv, chunk):
+        args = (o, m, l, k[:, start:start + chunk], v[:, start:start + chunk],
+                kpos[start:start + chunk])
+        o, m, l = (checkpoint(body, *args, use_reentrant=False)
+                   if torch.is_grad_enabled() else body(*args))
     out = (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     return out.permute(0, 2, 1, 3).contiguous()  # [B, Sq, H, Dh]
 
 
 def attention_block(p, x, *, cfg, positions, causal=True, window=0,
-                    kv_override: Optional[Tuple] = None, chunk=1024):
+                    kv_override: Optional[Tuple] = None, chunk=1024,
+                    use_kernel: bool = True):
     """Projections + RoPE + attention + output proj.  x: [B, S, D].
 
-    Full-sequence self-attention (no ``kv_override``, S > 1, positions
-    0..S-1) runs the flash-attention kernel; everything else the direct or
-    chunked ``attention_core``.
+    With ``use_kernel``, full-sequence self-attention (no ``kv_override``,
+    S > 1, positions 0..S-1) runs the flash-attention kernel; everything
+    else, and everything when training passes ``use_kernel=False``, the
+    direct or chunked ``attention_core``.
     """
     B, S, D = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -153,7 +166,7 @@ def attention_block(p, x, *, cfg, positions, causal=True, window=0,
         kpos = positions
     else:
         k, v, kpos = kv_override
-    if kv_override is None and S > 1:
+    if use_kernel and kv_override is None and S > 1:
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=window)
     else:
@@ -197,3 +210,42 @@ def logits_head(p, x, vocab_size: int):
         logits = torch.where(mask, logits,
                              torch.full((), NEG_INF, dtype=F32, device=logits.device))
     return logits
+
+
+# ------------------------------------------------------------------- loss
+def softmax_xent(logits, labels, vocab_size: int):
+    """Mean token cross entropy; labels: integer, logits' leading shape."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def _xent_sum(lm_head, h, labels, vocab_size: int):
+    logits = logits_head({"lm_head": lm_head}, h, vocab_size)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_lm_loss(params, h, labels, vocab_size: int, *, chunk: int = 256):
+    """Next-token xent without materializing full [B, S, V] logits.
+
+    Sequence chunks of ``chunk`` positions, each chunk's logits -> xent ->
+    summed; under grad mode a chunk's body is recomputed in backward (the
+    reference's ``jax.checkpoint``), so no chunk's logits are kept for it.
+    The last S % chunk positions run as one more, plain, chunk.
+    h: [B, S, D] (positions predicting labels [B, S]).
+    """
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    n, rem = divmod(S, chunk)
+    acc = torch.zeros((), dtype=F32, device=h.device)
+    for i in range(n):
+        args = (params["lm_head"], h[:, i * chunk:(i + 1) * chunk],
+                labels[:, i * chunk:(i + 1) * chunk], vocab_size)
+        acc = acc + (checkpoint(_xent_sum, *args, use_reentrant=False)
+                     if torch.is_grad_enabled() else _xent_sum(*args))
+    if rem:
+        acc = acc + _xent_sum(params["lm_head"], h[:, n * chunk:],
+                              labels[:, n * chunk:], vocab_size)
+    return acc / (B * S)

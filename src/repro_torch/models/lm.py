@@ -5,16 +5,24 @@ and 'L' (windowed) attention with dense or MoE FFNs, 'R' (RG-LRU) and 'W'
 A port of the reference's ``models/lm.py``: the same parameter and cache
 trees (a stacked ``groups`` axis over the repeating layer pattern plus an
 unrolled ``rem`` list), with ``lax.scan`` over groups become a Python loop
-over that axis.  Two entry points: ``lm_prefill`` (full sequence, builds the
-decode caches) and ``lm_decode`` (one token against the caches).
+over that axis.  Three entry points: ``lm_loss`` (train), ``lm_prefill``
+(full sequence, builds the decode caches) and ``lm_decode`` (one token
+against the caches).
+
+Training runs each group under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of the group body) and its attention through the plain
+``attention_core``, never the flash-attention kernel, which has no
+backward.  The MoE, RG-LRU and RWKV6 blocks call their kernels in training
+too: on CUDA tensors those raise under grad mode (ROADMAP B5), and on CPU
+tensors the plain versions are differentiated.
 
 Decode writes its new state into the cache it is given, in place (the
 reference returns fresh buffers): the K/V slot of 'A' and 'L' blocks, and
 the whole state of 'R' and 'W' blocks (copied into the cache views).  Each
 session owns its cache, so the copy the functional version makes would only
-cost memory.  The MoE auxiliary loss is dropped for every block kind: it is
-a training term (ROADMAP B2).  The vision frontend is not ported yet and
-raises.
+cost memory.  A block with a MoE FFN returns its auxiliary loss (every
+other block None, so serving adds nothing); ``lm_loss`` sums it, prefill
+and decode drop it.  The vision frontend is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -22,14 +30,17 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import rglru as rg
 from . import rwkv as rw
 from .layers import (
     BF16,
+    F32,
     attention_block,
     attn_init,
+    chunked_lm_loss,
     dense_init,
     embed_init,
     embed_lookup,
@@ -131,20 +142,30 @@ def lm_cache_init(cfg: ArchConfig, batch: int, cap: int, device="cuda"):
 
 
 # ---------------------------------------------------------------- blocks
+def _add_aux(total, aux):
+    """Sum of MoE aux terms; None stands for the 0 of every other block, so
+    serving launches nothing for it."""
+    return aux if total is None else (total if aux is None else total + aux)
+
+
 def _ffn_apply(bp, cfg: ArchConfig, h2):
-    """Dense or MoE FFN on [B, S, D]."""
+    """Dense or MoE FFN on [B, S, D]; returns (out, aux), aux None when
+    dense."""
     if cfg.num_experts:
         B, S, D = h2.shape
-        out, _aux = moe_ffn(bp["moe"], h2.reshape(B * S, D),
-                            n_experts=cfg.num_experts, top_k=cfg.moe_top_k,
-                            capacity_factor=cfg.capacity_factor)
-        return out.reshape(B, S, D)
-    return mlp(bp["ffn"], h2)
+        out, aux = moe_ffn(bp["moe"], h2.reshape(B * S, D),
+                           n_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.capacity_factor)
+        return out.reshape(B, S, D), aux
+    return mlp(bp["ffn"], h2), None
 
 
 def _store(cache, new, mode: str):
     """Prefill returns the fresh state; decode copies it into the cache
-    views it was given (the session's own buffers) and returns those."""
+    views it was given (the session's own buffers) and returns those;
+    training keeps no state."""
+    if mode == "train":
+        return None
     if mode != "decode":
         return new
     for k, v in new.items():
@@ -161,9 +182,11 @@ def _ring_positions(pos: int, cap: int, device=None):
 
 def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
                 cache=None, pos=None, chunk: int = 1024):
-    """One block.  Returns (h, new_cache)."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    """One block.  Returns (h, aux, new_cache): aux is the MoE FFN's
+    auxiliary loss (None for any other block), ``new_cache`` None in
+    training."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
     if kind == "R":
         state = cache if cache is not None else rg.rglru_state_init(
             h.shape[0], cfg.rnn_width, cfg.conv_width, h.device)
@@ -171,7 +194,7 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
         out, new_state = rg.rglru_block_apply(bp["rglru"], hn, state)
         h = h + out
         h2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
-        return h + mlp(bp["ffn"], h2), _store(cache, new_state, mode)
+        return h + mlp(bp["ffn"], h2), None, _store(cache, new_state, mode)
     if kind == "W":
         st = cache if cache is not None else rw.rwkv_state_init(
             h.shape[0], cfg.d_model, cfg.rwkv_head_dim, h.device)
@@ -182,7 +205,7 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
         hn2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
         cm_out, shift_cm = rw.channelmix_apply(bp["cm"], hn2, st["shift_cm"])
         new_state = {"S": S_new, "shift_tm": shift_tm, "shift_cm": shift_cm}
-        return h + cm_out, _store(cache, new_state, mode)
+        return h + cm_out, None, _store(cache, new_state, mode)
     window = cfg.window_size if kind == "L" else 0
     hn = rmsnorm(bp["norm1"], h, cfg.norm_eps)
     if mode == "decode":
@@ -205,9 +228,11 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
     else:
         attn_out, (k_full, v_full) = attention_block(
             bp["attn"], hn, cfg=cfg, positions=positions, causal=True,
-            window=window, chunk=chunk)
+            window=window, chunk=chunk, use_kernel=mode != "train")
         S = h.shape[1]
-        if kind == "L":
+        if mode == "train":
+            new_cache = None
+        elif kind == "L":
             w = min(cfg.window_size, S)
             slots = torch.remainder(torch.arange(S - w, S, device=h.device), w)
             k_ring = torch.zeros_like(k_full[:, :w])
@@ -219,14 +244,24 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
             new_cache = {"k": k_full, "v": v_full}
     h = h + attn_out
     h2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
-    h = h + _ffn_apply(bp, cfg, h2)
-    return h, new_cache
+    ffn_out, aux = _ffn_apply(bp, cfg, h2)
+    return h + ffn_out, aux, new_cache
 
 
 def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int):
+    """The ``n`` slices of a stacked tree along its leading axis, one
+    ``torch.unbind`` a leaf: in backward each leaf's slice grads are
+    stacked once (indexing slice by slice would add ``n`` full-size grads)."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return torch.unbind(tree, 0)
 
 
 def _stack(trees):
@@ -240,35 +275,69 @@ def _stack(trees):
 def _run_stack(params, h, *, cfg, positions, mode, caches=None, pos=None,
                chunk=1024):
     """Loop over the stacked groups, then the unrolled remainder.
-    Returns (h, caches): fresh caches in prefill, ``caches`` updated in place
-    in decode."""
+    Returns (h, aux, caches): the MoE aux summed block by block in layer
+    order (None without MoE blocks); fresh caches in prefill, ``caches``
+    updated in place in decode, None in training, where each group is
+    recomputed in backward."""
     pat = group_pattern(cfg)
     n_groups, rem = group_counts(cfg)
-    built = {f"b{j}": [] for j in range(len(pat))}
-    for g in range(n_groups):
-        gp = _index(params["groups"], g)
-        gcache = _index(caches["groups"], g) if caches is not None else None
+
+    def group(h, aux, gp, gcache):
+        new = {}
         for j, kind in enumerate(pat):
             bcache = gcache[f"b{j}"] if gcache is not None else None
-            h, nc = apply_block(gp[f"b{j}"], kind, h, cfg=cfg, positions=positions,
-                                mode=mode, cache=bcache, pos=pos, chunk=chunk)
-            if mode == "prefill":
-                built[f"b{j}"].append(nc)
+            h, a, new[f"b{j}"] = apply_block(
+                gp[f"b{j}"], kind, h, cfg=cfg, positions=positions, mode=mode,
+                cache=bcache, pos=pos, chunk=chunk)
+            aux = _add_aux(aux, a)
+        return h, aux, new
+
+    aux = None
+    built = {f"b{j}": [] for j in range(len(pat))}
+    for g, gp in enumerate(_unbind(params["groups"], n_groups)):
+        if mode == "train":
+            h, aux = checkpoint(lambda h, aux, gp=gp: group(h, aux, gp, None)[:2],
+                                h, aux, use_reentrant=False)
+            continue
+        gcache = _index(caches["groups"], g) if caches is not None else None
+        h, aux, new = group(h, aux, gp, gcache)
+        if mode == "prefill":
+            for k, nc in new.items():
+                built[k].append(nc)
     rem_caches = []
     for i in range(rem):
         bcache = caches["rem"][i] if caches is not None else None
-        h, nc = apply_block(params["rem"][i], pat[i], h, cfg=cfg,
-                            positions=positions, mode=mode, cache=bcache,
-                            pos=pos, chunk=chunk)
+        h, a, nc = apply_block(params["rem"][i], pat[i], h, cfg=cfg,
+                               positions=positions, mode=mode, cache=bcache,
+                               pos=pos, chunk=chunk)
+        aux = _add_aux(aux, a)
         rem_caches.append(nc)
+    if mode == "train":
+        return h, aux, None
     if mode == "decode":
-        return h, caches
+        return h, aux, caches
     groups = {k: _stack(v) for k, v in built.items()} if n_groups else {}
-    return h, {"groups": groups, "rem": rem_caches}
+    return h, aux, {"groups": groups, "rem": rem_caches}
 
 
 def _embed(params, tokens):
     return embed_lookup(params, tokens).to(BF16)
+
+
+def lm_loss(params, batch, cfg: ArchConfig, chunk: int = 1024):
+    """Next-token loss.  batch: {tokens [B, S]}.  Returns
+    (loss + 0.01 * aux, {"loss", "aux"})."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    h = _embed(params, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, aux, _ = _run_stack(params, h, cfg=cfg, positions=positions,
+                           mode="train", chunk=chunk)
+    if aux is None:
+        aux = torch.zeros((), dtype=F32, device=h.device)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    loss = chunked_lm_loss(params, h[:, :-1, :], tokens[:, 1:], cfg.vocab_size)
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 def lm_prefill(params, batch, cfg: ArchConfig, chunk: int = 1024):
@@ -277,8 +346,8 @@ def lm_prefill(params, batch, cfg: ArchConfig, chunk: int = 1024):
     check_supported(cfg)
     h = _embed(params, batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
-    h, caches = _run_stack(params, h, cfg=cfg, positions=positions,
-                           mode="prefill", chunk=chunk)
+    h, _, caches = _run_stack(params, h, cfg=cfg, positions=positions,
+                              mode="prefill", chunk=chunk)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = logits_head(params, h[:, -1:, :], cfg.vocab_size)
     return logits[:, 0, :], caches
@@ -292,8 +361,8 @@ def lm_decode(params, batch, cfg: ArchConfig):
     pos = int(batch["pos"])
     h = _embed(params, tok)[:, None, :]
     positions = torch.full((1,), pos, dtype=torch.int64, device=h.device)
-    h, caches = _run_stack(params, h, cfg=cfg, positions=positions,
-                           mode="decode", caches=batch["caches"], pos=pos)
+    h, _, caches = _run_stack(params, h, cfg=cfg, positions=positions,
+                              mode="decode", caches=batch["caches"], pos=pos)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = logits_head(params, h[:, 0, :], cfg.vocab_size)
     return logits, caches

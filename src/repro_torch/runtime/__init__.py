@@ -1,6 +1,7 @@
-"""Serving runtime of the port: the copied router/admission/chaos/fault
-planes plus the torch serving loop.  No training loop is pulled in."""
+"""Runtime of the port: the copied router/admission/chaos/fault/elastic
+planes, the torch serving loop and the training loop."""
 
+from .elastic import ElasticController, ScaleEvent
 from .fault_tolerance import (
     FailureInjector,
     HeartbeatMonitor,
@@ -15,10 +16,13 @@ from .router import (
     RouterStats,
 )
 from .serve_loop import DiffusionServer, Replica, Request, ServeStats
+from .train_loop import TrainConfig, Trainer, TrainResult
 
 __all__ = [
+    "ElasticController", "ScaleEvent",
     "FailureInjector", "HeartbeatMonitor", "RecoveryActions", "recover",
     "Assignment", "CacheAffinityRouter", "ReplicaStore", "RoutedRequest",
     "RouterStats",
     "DiffusionServer", "Replica", "Request", "ServeStats",
+    "TrainConfig", "Trainer", "TrainResult",
 ]

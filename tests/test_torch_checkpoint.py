@@ -2,9 +2,10 @@
 torch tensor trees, and checkpoints crossing between ``repro`` and
 ``repro_torch`` in both directions, bit for bit.
 
-The reference's ``test_elastic_restore_into_model`` saves optimizer state
-from ``init_opt_state``; its port waits for the optimizer (ROADMAP B1/B2).
-A reduced model's params cross between the packages here instead.
+The reference's ``test_elastic_restore_into_model`` runs here with the
+port's ``init_opt_state``, and a trainer's ``{"params", "opt"}`` state
+after a train step (``opt.step`` included) crosses between the packages in
+both directions.
 """
 
 import json
@@ -19,7 +20,10 @@ import torch
 from repro.checkpoint import restore_checkpoint as jax_restore
 from repro.checkpoint import save_checkpoint as jax_save
 from repro.configs import get_arch as jax_get_arch
+from repro.configs.base import ShapeConfig as JaxShapeConfig
+from repro.models import init_opt_state as jax_init_opt_state
 from repro.models import init_params as jax_init_params
+from repro.models import make_train_step as jax_make_train_step
 from repro_torch.bridge import params_from_numpy
 from repro_torch.checkpoint import (
     AsyncCheckpointer,
@@ -30,7 +34,8 @@ from repro_torch.checkpoint import (
 )
 from repro_torch.checkpoint.checkpointer import from_raw_bytes, to_raw_bytes
 from repro_torch.configs import get_arch
-from repro_torch.models import init_params
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models import init_opt_state, init_params, make_train_step
 
 
 def tree():
@@ -254,3 +259,62 @@ def test_reduced_model_params_cross_from_jax(tmp_path):
     assert_bits_equal(restored, _torch_of(jparams))
     assert len(leaves(restored)) == len(jax.tree_util.tree_leaves(jparams)) > 5
     assert {t.dtype for t in leaves(restored)} == {t.dtype for t in leaves(target)}
+
+
+def test_elastic_restore_into_model(tmp_path):
+    """Save a reduced model's state, restore into a fresh instance."""
+    cfg = get_arch("internlm2-1.8b").reduced()
+    params = init_params(cfg, device="cpu", seed=0)
+    opt = init_opt_state(params, cfg)
+    save_checkpoint(str(tmp_path), 7, {"params": params, "opt": opt})
+    fresh = {"params": init_params(cfg, device="cpu", seed=1),
+             "opt": init_opt_state(init_params(cfg, device="cpu", seed=1), cfg)}
+    restored = restore_checkpoint(str(tmp_path), 7, fresh)
+    assert_bits_equal(restored["params"], params)
+    assert_bits_equal(restored["opt"], opt)
+    assert restored["opt"]["step"].dtype == torch.int32
+
+
+def _tokens(cfg):
+    return np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32))
+
+
+def test_train_state_crosses_from_the_port_to_jax(tmp_path):
+    cfg = get_arch("internlm2-1.8b").reduced()
+    params = init_params(cfg, device="cpu", seed=0)
+    step = make_train_step(cfg, ShapeConfig("t", "train", 32, 2), total_steps=4)
+    params, opt, _ = step(params, init_opt_state(params, cfg),
+                          {"tokens": torch.from_numpy(_tokens(cfg))})
+    assert int(opt["step"]) == 1
+    state = {"params": params, "opt": opt}
+    save_checkpoint(str(tmp_path), 1, state)
+    jcfg = jax_get_arch("internlm2-1.8b").reduced()
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
+    restored = jax_restore(str(tmp_path), 1, {"params": jparams,
+                                              "opt": jax_init_opt_state(jparams, jcfg)})
+    assert int(restored["opt"]["step"]) == 1
+    assert restored["opt"]["step"].dtype == jnp.int32
+    got = jax.tree_util.tree_leaves(restored)
+    assert len(got) == len(leaves(state))
+    for a, b in zip(got, leaves(state)):
+        assert a.dtype.name == str(b.dtype).removeprefix("torch.")
+        assert raw(a) == raw(b)
+
+
+def test_train_state_crosses_from_jax_to_the_port(tmp_path):
+    jcfg = jax_get_arch("internlm2-1.8b").reduced()
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    jstep = jax.jit(jax_make_train_step(jcfg, JaxShapeConfig("t", "train", 32, 2),
+                                        total_steps=4))
+    jparams, jopt, _ = jstep(jparams, jax_init_opt_state(jparams, jcfg),
+                             {"tokens": jnp.asarray(_tokens(jcfg), jnp.int32)})
+    jax_save(str(tmp_path), 1, {"params": jparams, "opt": jopt})
+    cfg = get_arch("internlm2-1.8b").reduced()
+    target = init_params(cfg, device="cpu", seed=1)
+    restored = restore_checkpoint(str(tmp_path), 1, {
+        "params": target, "opt": init_opt_state(target, cfg)})
+    assert int(restored["opt"]["step"]) == 1
+    assert restored["opt"]["step"].dtype == torch.int32
+    want = _torch_of({"params": jparams, "opt": jopt})
+    assert_bits_equal(restored, want)
+    assert {t.dtype for t in leaves(restored["opt"]["m"])} == {torch.float32}

@@ -21,7 +21,9 @@ def _verbatim():
     files += [REF / "diffusion" / f for f in ("tiers.py", "transfer.py", "prefetch.py")]
     files += [REF / "dispatch_vec" / "__init__.py", REF / "checkpoint" / "__init__.py"]
     files += [REF / "runtime" / f for f in
-              ("router.py", "admission.py", "chaos.py", "fault_tolerance.py")]
+              ("router.py", "admission.py", "chaos.py", "fault_tolerance.py",
+               "elastic.py")]
+    files += [REF / "data" / f for f in ("__init__.py", "pipeline.py")]
     return [str(p.relative_to(REF)) for p in files]
 
 
@@ -55,6 +57,12 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
     assert not _ABS_REPRO.search(text)
 
 
+def test_port_files_cover_training_and_the_examples():
+    for rel in ("optim/adamw.py", "runtime/train_loop.py", "launch/train.py",
+                "examples/__init__.py", "examples/train_100m.py"):
+        assert rel in PORT_FILES, rel
+
+
 def test_launcher_imports_with_jax_and_repro_blocked():
     code = """
 import importlib, pkgutil, sys
@@ -62,6 +70,7 @@ for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
     sys.modules[name] = None          # any import of them raises ImportError
 import repro_torch
 import repro_torch.launch.serve
+import repro_torch.launch.train
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 bad = [k for k, v in sys.modules.items() if v is not None and (

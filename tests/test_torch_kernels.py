@@ -837,3 +837,76 @@ def test_wkv6_kernel_unaligned_operands_on_card(cuda_device, T):
     out, s = wkv6(r, k, v, w, u, shifted(s0))
     o_r, s_r = wkv6_ref(*arrs, s0)
     assert rel_err(_np(out), _np(o_r)) < 1e-4 and rel_err(_np(s), _np(s_r)) < 1e-4
+
+
+# ------------------------------------------------------------- grad guard
+def _guard_case(name, device):
+    """(wrapper, float inputs) of one entry point at a small shape; every
+    float input will require grad."""
+    g = torch.Generator().manual_seed(11)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(device)
+
+    if name == "flash_attention":
+        return (lambda q, k, v: flash_attention(q, k, v, causal=True),
+                [rnd(1, 16, 4, 64), rnd(1, 16, 2, 64), rnd(1, 16, 2, 64)])
+    if name == "moe_gmm":
+        return moe_gmm, [rnd(2, 8, 32), rnd(2, 32, 16)]
+    if name == "rglru_scan":
+        return rglru_scan, [torch.sigmoid(rnd(1, 5, 32)), rnd(1, 5, 32), rnd(1, 32)]
+    if name == "rglru_gated_scan":
+        return rglru_gated_scan, [rnd(1, 5, 32), rnd(1, 5, 32), rnd(1, 5, 32),
+                                  rnd(32), rnd(1, 32)]
+    if name == "wkv6":
+        w = torch.sigmoid(rnd(1, 5, 2, 16))
+        return wkv6, [rnd(1, 5, 2, 16), rnd(1, 5, 2, 16), rnd(1, 5, 2, 16), w,
+                      rnd(2, 16), rnd(1, 2, 16, 16)]
+    if name == "dispatch_scores":
+        return dispatch_scores, [rnd(8, 32), rnd(4, 32)]
+    return dispatch_score_update, [rnd(8, 4), rnd(8, 3), rnd(3, 4)]
+
+
+ENTRY_POINTS = ["flash_attention", "moe_gmm", "rglru_scan", "rglru_gated_scan",
+                "wkv6", "dispatch_scores", "dispatch_score_update"]
+_COUNTERS = {"flash_attention": flash_attention, "moe_gmm": moe_gmm,
+             "rglru_scan": rglru_scan, "rglru_gated_scan": rglru_scan,
+             "wkv6": wkv6, "dispatch_scores": dispatch_scores,
+             "dispatch_score_update": dispatch_score_update}
+
+
+def _first(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_cpu_entry_points_stay_differentiable(name):
+    """On CPU tensors the wrappers run their plain versions, which autograd
+    differentiates: every input that requires grad gets a finite grad."""
+    fn, xs = _guard_case(name, "cpu")
+    xs = [x.requires_grad_(True) for x in xs]
+    out = _first(fn(*xs))
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out.float().square().sum(), xs, allow_unused=True)
+    assert any(gr is not None for gr in grads)
+    assert all(gr is None or bool(torch.isfinite(gr).all()) for gr in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_cuda_entry_points_refuse_grad(cuda_device, name):
+    """A kernel has no backward: on CUDA inputs that require grad each entry
+    point raises before it launches; under ``torch.no_grad()`` it launches
+    and matches its plain version on the CPU."""
+    fn, xs = _guard_case(name, cuda_device)
+    counter = _COUNTERS[name]
+    before = counter.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*[x.clone().requires_grad_(True) for x in xs])
+    assert counter.launches == before
+    with torch.no_grad():
+        got = _first(fn(*[x.clone().requires_grad_(True) for x in xs]))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = _first(fn(*[x.cpu() for x in xs]))
+    assert rel_err(_np(got), _np(want)) < 1e-4
