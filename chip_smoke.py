@@ -8,7 +8,11 @@ Phases (any failure exits non-zero before the result line):
   2. build   - nvcc builds every kernel in src/repro_torch/csrc, in parallel;
   3. parity  - each kernel against its plain PyTorch version on the card:
                flash attention (bf16, rel. err < 2e-2, head dims up to 256,
-               prompts up to 2,048; f32 < 2e-5), the two dispatch scoring
+               prompts up to 2,048, unmasked at the whisper encoder's 1,024
+               and 1,500 frames and across Sq != Skv (cross-attention, 128
+               and 187 queries), causal at llava's 4,608 positions with 56/8
+               heads; f32 < 2e-5, also unmasked at Sq != Skv), the two
+               dispatch scoring
                kernels (max |out - float64| == 0.0; K1 also at the serving
                window, at W = 1 and at ragged O), the grouped expert GEMM
                (1e-5 f32, 3e-2 bf16; at olmoe's shapes also with fill counts
@@ -26,7 +30,10 @@ Phases (any failure exits non-zero before the result line):
   4. model   - the reduced internlm2, gemma3, olmoe, recurrentgemma and
                rwkv6 decoders, prefill and eight decode steps on the card
                against the same weights on the CPU (plain versions): logits
-               rel. err < 2e-2, equal greedy tokens;
+               rel. err < 2e-2, equal greedy tokens; the same for reduced
+               whisper (64 audio frames, 8 text tokens; 6 flash-attention
+               launches, three a layer pair) and reduced llava (8 patches
+               before 16 tokens; 4 launches);
   5. serve   - each family at full published width (random weights from a
                seed) served through DiffusionServer with the vectorized
                dispatcher and the batch drain, which puts the dispatcher's
@@ -70,7 +77,20 @@ Phases (any failure exits non-zero before the result line):
                a step); (d) a failure at step 12 and a restart from the
                step-10 checkpoint on the card, the restored state bit-equal
                to the saved one;
- 10. timing  - each kernel at the main path's shapes: CUDA-event times of
+ 10. encdec  - whisper-medium at full width and depth (24 + 24 layers,
+               random weights from seed 0): a prefill of 1,024 seeded audio
+               frames and 128 tokens with exactly 72 flash-attention
+               launches, 32 greedy decode steps (self caches of 448, cross
+               caches of 1,024), finite logits, prefill and decode ms, peak
+               memory; then ``python -m repro_torch.launch.train --arch
+               whisper-medium --seq 1024 --batch 8 --steps 6`` in a
+               subprocess (finite losses, step ms, peak memory);
+ 11. vision  - llava-next-34b at full width with its depth cut to 8 of 60
+               layers: a prefill of 2,304 seeded patch embeddings and 2,304
+               tokens (one flash-attention launch a layer), 16 greedy decode
+               steps, finite logits; then the same config served text-only
+               as in phase 5 (4 sessions, 16 requests);
+ 12. timing  - each kernel at the main path's shapes: CUDA-event times of
                the kernel, its plain version and one library call where one
                computes the same function, beside the card's bound (bytes
                over 3.35 TB/s or operations over the type's peak, whichever
@@ -80,7 +100,9 @@ Phases (any failure exits non-zero before the result line):
                its times taken over four copies of the weights in turn so
                that no launch finds them in L2.  More rows: the gate/up
                shape, full capacity at C = 8 and C = 320, flash attention at
-               2,048 tokens (D = 128) and at 512 (D = 256), window scoring at
+               2,048 tokens (D = 128) and at 512 (D = 256), at the whisper
+               encoder's and cross-attention's shapes and at llava's
+               prefill, window scoring at
                (W, O, E) = (256, 512, 64), the rank-K update at (256, 64,
                64), WKV6 at T = 16 and 2,048.  The RG-LRU's row is the gated
                entry at one decode token; rows for the plain entry at T = 1
@@ -105,7 +127,6 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-HOST_LINK_BYTES_PER_S = 64e9     # its host link: PCIe Gen5 x16, per direction
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}   # dense tensor-core bf16; fp32 SIMT
 
 REPLACES = {
@@ -215,7 +236,7 @@ def sdpa_call(q, k, v, causal, window):
         kw["enable_gqa"] = True
     if causal and not window and Sq == Skv:
         kw["is_causal"] = True
-    else:
+    elif causal or window:
         qpos = torch.arange(Sq, device="cuda")[:, None] + (Skv - Sq)
         kpos = torch.arange(Skv, device="cuda")[None, :]
         ok = torch.ones((Sq, Skv), dtype=torch.bool, device="cuda")
@@ -571,34 +592,46 @@ class RoutingReplay:
         self.moe._router = self.orig
 
 
-def model_check(arch: str, prompt_len: int):
-    """Reduced decoder on the card vs the same weights on the CPU.  Returns
-    (worst logits rel. err, routing flips at ties, problems found)."""
+def model_check(arch: str, prompt_len: int, frontend_len: int = 0):
+    """Reduced model on the card vs the same weights on the CPU: prefill,
+    then eight teacher-forced decode steps.  ``frontend_len`` seeded frame
+    embeddings go in as whisper's ``audio_embeds`` (the prompt is then its
+    text) or as llava's ``patch_embeds`` before the prompt.  Returns (worst
+    logits rel. err, routing flips at ties, problems found, card launches)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.models import cache_init, init_params
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import (cache_init, init_params, make_decode_step,
+                                    make_prefill_step)
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models.lm import lm_decode, lm_prefill
     from repro_torch.runtime.serve_loop import _merge_prefill_caches
     cfg = get_arch(arch).reduced()
     cpu = init_params(cfg, device="cpu", seed=3)
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, prompt_len)))
     forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 1)))
+    batch = {"tokens": tokens}
+    pos0 = prompt_len
+    if frontend_len:
+        frames = torch.as_tensor(rng.standard_normal(
+            (1, frontend_len, cfg.d_model)), dtype=torch.float32).to(torch.bfloat16)
+        batch["audio_embeds" if cfg.encoder_layers else "patch_embeds"] = frames
+        pos0 += 0 if cfg.encoder_layers else frontend_len
+    prefill = make_prefill_step(cfg, ShapeConfig("check", "prefill", 64, 1))
+    decode = make_decode_step(cfg)
     res = {}
     ops = kernel_ops()
     before = {k: fn.launches for k, fn in ops.items()}
     with RoutingReplay(moe_mod) as replay:
         for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
             replay.mode = "record" if dev == "cpu" else "replay"
-            logits, pre = lm_prefill(params, {"tokens": tokens.to(dev)}, cfg)
+            logits, pre = prefill(params, {k: v.to(dev) for k, v in batch.items()})
             caches = _merge_prefill_caches(cache_init(cfg, 1, 64, device=dev), pre, cfg)
             steps = [logits]
             for i in range(8):      # teacher-forced decode
-                logits, caches = lm_decode(params, {"token": forced[i].to(dev),
-                                                    "pos": prompt_len + i,
-                                                    "caches": caches}, cfg)
+                logits, caches = decode(params, {"token": forced[i].to(dev),
+                                                 "pos": pos0 + i, "caches": caches})
                 steps.append(logits)
             # padded vocab entries hold -1e30 on both sides; compare the real ones
             res[dev] = [x[..., :cfg.vocab_size].float().cpu() for x in steps]
@@ -621,7 +654,7 @@ def model_check(arch: str, prompt_len: int):
         + " ".join(f"{e:.2e}" for e in errs)
         + f"; routing flips at ties {len(replay.flips)} (CPU margins "
         f"{[f'{m:.1e}' for m in replay.flips]}); card launches {card}")
-    return max(errs), replay.flips, problems
+    return max(errs), replay.flips, problems, card
 
 
 def _to(tree, dev):
@@ -681,9 +714,10 @@ def drive_stream(srv, n_sessions, n_req, ops, label):
     return wall, {k: fn.launches for k, fn in ops.items()}, verify_checks
 
 
-def serve_full_width(arch, n_sessions, n_req, needs, ops):
-    """Serve ``arch`` at full width on the launcher's kind of stream; the
-    launch counters cover this run alone.  Frees the model before returning."""
+def serve_full_width(arch, n_sessions, n_req, needs, ops, cfg=None):
+    """Serve ``arch`` at full width (``cfg``, when given: the config with its
+    depth cut) on the launcher's kind of stream; the launch counters cover
+    this run alone.  Frees the model before returning."""
     from dataclasses import asdict
 
     import numpy as np
@@ -691,7 +725,7 @@ def serve_full_width(arch, n_sessions, n_req, needs, ops):
     from repro_torch.configs import get_arch
     from repro_torch.runtime.serve_loop import DiffusionServer
 
-    cfg = get_arch(arch)
+    cfg = cfg or get_arch(arch)
     say(f"serve: {cfg.name} layers={cfg.num_layers} pattern="
         f"{''.join(cfg.layer_pattern) or 'A'} d_model={cfg.d_model} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} experts={cfg.num_experts} "
@@ -795,7 +829,10 @@ def _same_bits(a, b) -> bool:
 
 def _edge_rows(measured, label, card):
     """Print each measured edge; fail unless every edge that touches hbm
-    lies in (0, 64) GB/s, the H100's host link (PCIe Gen5 x16)."""
+    lies under the dram tier's roofline, the H100's host link (PCIe Gen5
+    x16, 64 GB/s a direction)."""
+    from repro_torch.diffusion.tiers import roofline_tier_bw
+    link = roofline_tier_bw("dram")
     rows = measured.rows()
     for r in rows:
         say(f"payload {label} [{card}]: {r['src']}->{r['dst']} moves={r['moves']} "
@@ -803,9 +840,9 @@ def _edge_rows(measured, label, card):
             f"GB/s={r['bytes_per_s'] / 1e9:.3f}")
     bad = [f"{r['src']}->{r['dst']} {r['bytes_per_s'] / 1e9:.3f} GB/s" for r in rows
            if "hbm" in (r["src"], r["dst"])
-           and not 0.0 < r["bytes_per_s"] < HOST_LINK_BYTES_PER_S]
+           and not 0.0 < r["bytes_per_s"] < link]
     if bad:
-        fail(f"payload {label}: hbm edges outside (0, 64) GB/s: {bad}")
+        fail(f"payload {label}: hbm edges outside (0, {link / 1e9:g}) GB/s: {bad}")
     return rows
 
 
@@ -1283,19 +1320,23 @@ def train_step_check(arch, ops):
     return row
 
 
-def train_full_width(card):
-    """(c) ``python -m repro_torch.launch.train`` at internlm2-1.8b's full
-    width, 9 steps of 8 x 256 tokens on the card, in a subprocess.  Returns
-    its per-step report, the median step ms over steps 4-9 and tokens/s."""
+def train_full_width(card, args=TRAIN_ARGS, falls=True):
+    """(c) ``python -m repro_torch.launch.train`` at full width on the card,
+    in a subprocess: by default internlm2-1.8b, 9 steps of 8 x 256 tokens.
+    Returns its per-step report, the median step ms over steps 4 to the last
+    and the positions (tokens; audio frames for an encoder-decoder) a
+    second.  ``falls``: the mean loss of the last three steps must be under
+    step 1's."""
     import os
     import shutil
     import statistics
     import tempfile
 
     import numpy as np
+    opt = dict(zip(args[::2], args[1::2]))
+    arch, n = opt["--arch"], int(opt["--steps"])
     d = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGS,
-           "--ckpt-dir", d]
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *args, "--ckpt-dir", d]
     try:
         t0 = time.perf_counter()
         out = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
@@ -1303,32 +1344,34 @@ def train_full_width(card):
         took = time.perf_counter() - t0
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    label = f"train full width {arch}"
     if out.returncode != 0:
         tail = "\n".join((out.stdout + out.stderr).splitlines()[-30:])
-        fail(f"train full width: rc {out.returncode}\n{tail}")
+        fail(f"{label}: rc {out.returncode}\n{tail}")
     lines = out.stdout.splitlines()
     for line in lines:
         if line.startswith("step "):
-            say(f"train full width: {line}")
-    if not lines[-1].startswith("done: 9 steps"):
-        fail(f"train full width: last line {lines[-1]!r}")
+            say(f"{label}: {line}")
+    if not lines[-1].startswith(f"done: {n} steps"):
+        fail(f"{label}: last line {lines[-1]!r}")
     report = json.loads(next(l for l in lines if l.startswith("train: "))[len("train: "):])
     losses, norms, step_ms = report["losses"], report["grad_norms"], report["step_ms"]
-    med = statistics.median(step_ms[3:9])
-    tokens = int(TRAIN_ARGS[3]) * int(TRAIN_ARGS[5])
-    row = {"arch": TRAIN_ARCH, "seq": report["seq"], "batch": report["batch"],
+    med = statistics.median(step_ms[3:n])
+    positions = int(opt["--seq"]) * int(opt["--batch"])
+    row = {"arch": arch, "seq": report["seq"], "batch": report["batch"],
            "losses": losses, "grad_norms": norms, "step_ms": step_ms,
-           "median_step_ms_4_9": med, "tokens_per_s": tokens / (med / 1e3),
+           "median_step_ms": med, f"median_step_ms_4_{n}": med,
+           "tokens_per_s": positions / (med / 1e3),
            "max_memory_allocated": report["max_memory_allocated"],
            "device_name": report["device_name"], "nvidia_smi": card,
            "command_s": took, "done": lines[-1]}
-    say(f"train full width [{card}]: median step {med:.2f} ms over steps 4-9, "
-        f"{row['tokens_per_s']:.0f} tokens/s, peak "
+    say(f"{label} [{card}]: median step {med:.2f} ms over steps 4-{n}, "
+        f"{row['tokens_per_s']:.0f} positions/s, peak "
         f"{row['max_memory_allocated'] / 1e9:.2f} GB allocated; {lines[-1]}")
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
-        fail(f"train full width: non-finite loss or grad norm {losses} {norms}")
-    if len(losses) != 9 or not np.mean(losses[-3:]) < losses[0]:
-        fail(f"train full width: the loss did not fall: {losses}")
+        fail(f"{label}: non-finite loss or grad norm {losses} {norms}")
+    if len(losses) != n or (falls and not np.mean(losses[-3:]) < losses[0]):
+        fail(f"{label}: {len(losses)} losses, or the loss did not fall: {losses}")
     return row
 
 
@@ -1459,6 +1502,261 @@ def train_phase(ops, card):
     return out
 
 
+# ------------------------------------------------- encoder-decoder, vision
+ENCDEC_ARCH = "whisper-medium"
+# 1,024 frames: the reference's attention takes a KV length only if
+# attn_chunk(S) divides it, and attn_chunk(1,500) = 1,024 does not divide
+# whisper's own 1,500 (K3 is held at 1,500 in the parity phase); the
+# reference's text length for them, 128 tokens; decode cap 448, whisper's
+# text context
+ENCDEC_FRAMES, ENCDEC_CAP, ENCDEC_STEPS = 1024, 448, 32
+ENCDEC_TRAIN_ARGS = ("--arch", ENCDEC_ARCH, "--seq", "1024", "--batch", "8",
+                     "--steps", "6")
+VISION_ARCH = "llava-next-34b"
+# full width, depth cut from 60 layers: 60 are 68.8 GB of bf16 params, and
+# the f32 draw of the largest leaf alone 35 GB; 8 are 10.9 GB
+VISION_LAYERS, VISION_SEQ, VISION_STEPS = 8, 4608, 16
+
+
+def _zero(ops):
+    import torch
+    torch.cuda.synchronize()
+    for fn in ops.values():
+        fn.launches = 0
+
+
+def _timed_prefill(prefill, params, batch, ops, reps=3):
+    """One prefill with the launch counters zeroed just before and read just
+    after, then ``reps`` more; host ms of each (synchronized).  Returns
+    (logits, caches, launches, ms)."""
+    import torch
+    _zero(ops)
+    t = time.perf_counter()
+    logits, caches = prefill(params, batch)
+    torch.cuda.synchronize()
+    ms = [1e3 * (time.perf_counter() - t)]
+    launches = {k: fn.launches for k, fn in ops.items()}
+    for _ in range(reps):
+        t = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    return logits, caches, launches, ms
+
+
+def _greedy(decode, params, logits, caches, pos, steps, vocab, ops):
+    """``steps`` greedy decode steps after ``logits`` from position ``pos``,
+    counters zeroed before; host ms of each (synchronized).  Returns
+    (tokens, all logits finite, ms, launches)."""
+    import torch
+    finite = torch.isfinite(logits[..., :vocab]).all()
+    tokens, ms = [], []
+    _zero(ops)
+    for i in range(steps):
+        tok = torch.argmax(logits, dim=-1)
+        tokens.append(tok)
+        t = time.perf_counter()
+        logits, caches = decode(params, {"token": tok, "pos": pos + i, "caches": caches})
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        finite = finite & torch.isfinite(logits[..., :vocab]).all()
+    launches = {k: fn.launches for k, fn in ops.items() if fn.launches}
+    return torch.cat(tokens).tolist(), bool(finite), ms, launches
+
+
+def _frontend_inputs(cfg, n_frames, n_tokens, seed=0):
+    """Seeded bf16 frame embeddings [1, n_frames, D] and tokens [1, n_tokens]
+    on the card."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    frames = torch.randn((1, n_frames, cfg.d_model), generator=g,
+                         device="cuda").to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n_tokens), generator=g, device="cuda")
+    return frames, tokens
+
+
+def forward_ops(cfg, B, S, P=0, head_positions=1):
+    """Operations (two a multiply-add) of one forward pass at batch B, the
+    matmuls and the unmasked (query, key) pairs of attention: whisper over S
+    audio frames and its ``text_len(S)`` text tokens, a decoder-only 'A'
+    stack over S positions whose first P are projected patches; the LM head
+    on ``head_positions`` positions a sequence."""
+    from repro_torch.models.encdec import text_len
+    d, f, H, Hkv, Dh = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q_o, k_v = 2 * d * H * Dh, 2 * d * Hkv * Dh
+    head = d * cfg.padded_vocab * head_positions
+    if cfg.encoder_layers:
+        St = text_len(S)
+        mats = (cfg.encoder_layers * (q_o + k_v + 3 * d * f) * S
+                + cfg.decoder_layers * ((2 * q_o + k_v + 3 * d * f) * St + k_v * S))
+        pairs = (cfg.encoder_layers * S * S
+                 + cfg.decoder_layers * (St * (St + 1) // 2 + St * S))
+    else:
+        mats = cfg.num_layers * (q_o + k_v + 3 * d * f) * S + d * d * P
+        pairs = cfg.num_layers * S * (S + 1) // 2
+    return B * (2 * (mats + head) + 4 * Dh * H * pairs)
+
+
+# the embedding and position tables (a few rows read a step), and what a
+# decode step never reads: whisper's encoder, llava's patch projection
+_TABLES = ("embed", "pos_embed_enc", "pos_embed_dec")
+_NOT_IN_DECODE = _TABLES + ("enc", "enc_norm", "patch_proj")
+
+
+def _nbytes(tree, skip=()):
+    return sum(x.numel() * x.element_size() for k, v in tree.items() if k not in skip
+               for x in _flat(v))
+
+
+def _prefill_decode(cfg, batch, seq, new_caches, pos, steps, ops, label):
+    """Params from seed 0, a counted and timed prefill of ``batch`` (shape
+    seq_len ``seq``), its caches copied into ``new_caches()``, then
+    ``steps`` greedy decode steps from ``pos``.  Returns the phase's row,
+    with the prefill's bound (its forward operations at the bf16 peak, or
+    its weights' bytes) and the decode floor: every weight a step reads
+    and the whole decode caches, once, at 3.35 TB/s."""
+    import statistics
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import init_params, make_decode_step, make_prefill_step
+    from repro_torch.runtime.serve_loop import _merge_prefill_caches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in _flat(params))
+    say(f"{label}: init {init_s:.1f}s, {n_params} params "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) on the card")
+    prefill = make_prefill_step(cfg, ShapeConfig(label, "prefill", seq, 1))
+    logits, pre, launches, pre_ms = _timed_prefill(prefill, params, batch, ops)
+    caches = _merge_prefill_caches(new_caches(), pre, cfg)
+    del pre
+    tokens, finite, dec_ms, dec_launches = _greedy(
+        make_decode_step(cfg), params, logits, caches, pos, steps, cfg.vocab_size, ops)
+    if cfg.encoder_layers:
+        fwd = forward_ops(cfg, 1, batch["audio_embeds"].shape[1])
+    else:
+        P = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+        fwd = forward_ops(cfg, 1, P + batch["tokens"].shape[1], P)
+    pre_bound, pre_by = bound_ms(_nbytes(params, _TABLES), fwd, "bf16")
+    dec_bytes = _nbytes(params, _NOT_IN_DECODE) + _nbytes(caches)
+    row = {"arch": cfg.name, "layers": cfg.num_layers or cfg.decoder_layers,
+           "params": n_params, "init_s": init_s, "prefill_ms": pre_ms,
+           "prefill_ms_median_after_first": statistics.median(pre_ms[1:]),
+           "prefill_launches": {k: v for k, v in launches.items() if v},
+           "decode_ms": dec_ms,
+           "decode_ms_per_token_after_first": statistics.mean(dec_ms[1:]),
+           "decode_tokens_per_s": (steps - 1) / (sum(dec_ms[1:]) / 1e3),
+           "decode_launches": dec_launches, "greedy_tokens": tokens,
+           "finite": finite, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "prefill_ops": fwd, "prefill_bound_ms": pre_bound, "prefill_bound_by": pre_by,
+           "decode_bytes_a_step": dec_bytes,
+           "decode_floor_ms": dec_bytes / HBM_BYTES_PER_S * 1e3}
+    say(f"{label} perf: " + json.dumps(row))
+    del params, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _report(row, card, label):
+    say(f"{label} [{card}]: prefill {row['prefill_ms_median_after_first']:.2f} ms "
+        f"(bound {row['prefill_bound_ms']:.3f} ms, {row['prefill_bound_by']}; "
+        f"{row['prefill_launches'].get('flash_attention', 0)} K3 launches), decode "
+        f"{row['decode_ms_per_token_after_first']:.2f} ms/token "
+        f"({row['decode_tokens_per_s']:.1f} tokens/s; floor "
+        f"{row['decode_floor_ms']:.3f} ms: {row['decode_bytes_a_step'] / 1e9:.3f} GB a "
+        f"step), peak {row['peak_gb']:.2f} GB")
+
+
+def encdec_phase(ops, card):
+    """whisper-medium at full width and depth (24 + 24 layers): a prefill of
+    1,024 seeded audio frames and 128 text tokens, which must launch K3 72
+    times (the encoder's attention, the decoder's self- and cross-attention
+    in each of 24 layer pairs), 32 greedy decode steps against self caches
+    of capacity 448 and cross caches of 1,024; then the training launcher
+    at 8 x 1,024 frames for 6 steps."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.encdec import encdec_cache_init, text_len
+    cfg = get_arch(ENCDEC_ARCH)
+    say(f"encdec: {cfg.name} layers={cfg.encoder_layers}+{cfg.decoder_layers} "
+        f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+        f"head_dim={cfg.head_dim} vocab={cfg.vocab_size} "
+        f"params={cfg.param_count() / 1e9:.3f}e9 [{card}]")
+    St = text_len(ENCDEC_FRAMES)
+    audio, tokens = _frontend_inputs(cfg, ENCDEC_FRAMES, St)
+    # decode caches: self at whisper's text context, cross at the encoder's
+    # length (the API's cache_init sizes both to the cap, as the reference's)
+    row = _prefill_decode(
+        cfg, {"audio_embeds": audio, "tokens": tokens}, ENCDEC_FRAMES,
+        lambda: encdec_cache_init(cfg, 1, ENCDEC_CAP, ENCDEC_FRAMES, device="cuda"),
+        St, ENCDEC_STEPS, ops, "encdec")
+    want = cfg.encoder_layers + 2 * cfg.decoder_layers
+    k3 = row["prefill_launches"].get("flash_attention", 0)
+    checks = {f"{want} flash_attention launches a prefill": k3 == want,
+              "finite logits": row["finite"],
+              "no flash_attention launch in decode":
+                  "flash_attention" not in row["decode_launches"]}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"encdec: {bad} (prefill launches {row['prefill_launches']})")
+    _report(row, card, "encdec")
+    del audio, tokens
+    torch.cuda.empty_cache()
+    row["train"] = tr = train_full_width(card, ENCDEC_TRAIN_ARGS, falls=False)
+    # the step's bound: forward, backward (twice the forward) and the layer
+    # recompute at the bf16 peak, plus AdamW's 22 bytes a param (read g, p,
+    # m, v; write p, m, v)
+    step_ops = 4 * forward_ops(cfg, tr["batch"], tr["seq"],
+                               head_positions=text_len(tr["seq"]) - 1)
+    tr["step_ops"] = step_ops
+    tr["step_bound_ms"] = (step_ops / PEAK_OPS["bf16"]
+                           + 22 * row["params"] / HBM_BYTES_PER_S) * 1e3
+    say(f"encdec train [{card}]: median step {tr['median_step_ms']:.2f} ms against "
+        f"a bound of {tr['step_bound_ms']:.2f} ms ({step_ops / 1e12:.2f} TFLOP and "
+        f"AdamW's bytes)")
+    return row
+
+
+def vision_phase(ops, card):
+    """llava-next-34b at full width, depth cut to 8 layers: a prefill of
+    2,304 seeded patch embeddings (the config's num_patches, which the
+    reference's P = min(num_patches, S // 2) gives at S = 4,608) and 2,304
+    tokens, one K3 launch a layer, 16 greedy decode steps; then the
+    text-only server on the same config (4 sessions, 16 requests)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import cache_init
+    cfg = replace(get_arch(VISION_ARCH), num_layers=VISION_LAYERS)
+    P = min(cfg.num_patches, VISION_SEQ // 2)
+    say(f"vision: {cfg.name} layers={cfg.num_layers} (of 60) d_model={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} params={cfg.param_count() / 1e9:.3f}e9 "
+        f"patches={P} text={VISION_SEQ - P} [{card}]")
+    patches, tokens = _frontend_inputs(cfg, P, VISION_SEQ - P, seed=1)
+    row = _prefill_decode(
+        cfg, {"patch_embeds": patches, "tokens": tokens}, VISION_SEQ,
+        lambda: cache_init(cfg, 1, VISION_SEQ + VISION_STEPS, device="cuda"),
+        VISION_SEQ, VISION_STEPS, ops, "vision")
+    del patches, tokens
+    k3 = row["prefill_launches"].get("flash_attention", 0)
+    checks = {f"{VISION_LAYERS} flash_attention launches a prefill": k3 == VISION_LAYERS,
+              "finite logits": row["finite"]}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"vision: {bad} (prefill launches {row['prefill_launches']})")
+    _report(row, card, "vision")
+    launches, _, perf = serve_full_width(VISION_ARCH, 4, 16, ("flash_attention",), ops,
+                                         cfg=cfg)
+    row["serve"] = perf
+    return row
+
+
 def main() -> None:
     try:
         import torch
@@ -1519,6 +1817,17 @@ def main() -> None:
     for shape in ((1, 16, 16, 16, 8, 128), (2, 256, 256, 4, 2, 64),
                   (1, 16, 16, 16, 1, 256)):
         flash_rows.append(flash_case(shape, True, 0, "f32"))
+    # the encoder-decoder's and llava's shapes: no mask with Sq != Skv (the
+    # aligned-ends offset must not enter), ragged tiles on both axes, seven
+    # query heads a KV head; the first, third and last are timed
+    for shape, causal, timed in (
+            ((1, 1024, 1024, 16, 16, 64), False, True),     # whisper encoder
+            ((1, 1500, 1500, 16, 16, 64), False, False),    # 1,500 frames: ragged
+            ((1, 128, 1024, 16, 16, 64), False, True),      # cross-attention
+            ((1, 187, 1500, 16, 16, 64), False, False),     # ragged cross-attention
+            ((1, 4608, 4608, 56, 8, 128), True, True)):     # llava prefill
+        flash_rows.append(flash_case(shape, causal, 0, "bf16", timed=timed))
+    flash_rows.append(flash_case((2, 100, 300, 4, 4, 64), False, 0, "f32"))
     for row in flash_rows:
         say("parity flash_attention: " + json.dumps(row))
     for W, O, E, dens in ((16, 64, 4, 0.2), (256, 512, 64, 0.05),
@@ -1599,8 +1908,18 @@ def main() -> None:
     for arch, plen in (("internlm2-1.8b", 16), ("gemma3-1b", 40),
                        ("olmoe-1b-7b", 16), ("recurrentgemma-9b", 40),
                        ("rwkv6-3b", 16)):
-        worst, _, found = model_check(arch, plen)
+        worst, _, found, _ = model_check(arch, plen)
         problems += found
+        say(f"model {arch} reduced: card vs cpu logits rel. err {worst:.3e}")
+    # whisper: 64 frames, its 8-token text, three K3 launches a layer pair
+    # (2 + 2 layers); llava: 8 patches before 16 tokens, one a layer (4)
+    for arch, plen, flen, k3 in (("whisper-medium", 8, 64, 6),
+                                 ("llava-next-34b", 16, 8, 4)):
+        worst, _, found, card = model_check(arch, plen, flen)
+        problems += found
+        if card.get("flash_attention", 0) != k3:
+            problems.append(f"{arch}: {card.get('flash_attention', 0)} flash_attention "
+                            f"launches in one prefill and 8 decode steps, want {k3}")
         say(f"model {arch} reduced: card vs cpu logits rel. err {worst:.3e}")
     if problems:
         fail("model checks failed: " + "; ".join(problems))
@@ -1644,7 +1963,17 @@ def main() -> None:
     train["seconds"] = time.perf_counter() - t0
     say(f"train: ok in {train['seconds']:.1f}s")
 
-    # 10. timing at the main path's shapes (decode shapes for the scans,
+    # 10. whisper-medium whole; 11. llava at full width, 8 layers
+    t0 = time.perf_counter()
+    encdec = encdec_phase(ops, smi_line)
+    encdec["seconds"] = time.perf_counter() - t0
+    say(f"encdec: ok in {encdec['seconds']:.1f}s")
+    t0 = time.perf_counter()
+    vision = vision_phase(ops, smi_line)
+    vision["seconds"] = time.perf_counter() - t0
+    say(f"vision: ok in {vision['seconds']:.1f}s")
+
+    # 12. timing at the main path's shapes (decode shapes for the scans,
     # whose decode launches outnumber their prefill launches eightfold)
     main_rows = {
         "flash_attention": flash_case(shapes["flash_attention"], True, 0, "bf16",
@@ -1658,7 +1987,13 @@ def main() -> None:
         "wkv6": wkv6_case(1, 1, H, N, rkv="bf16", timed=True),
     }
     long_prompt = {(1, 2048, 2048, 16, 8, 128): "flash_attention S=2048 D=128 (causal)",
-                   (1, 512, 512, 16, 1, 256): "flash_attention S=512 D=256 (window 2048)"}
+                   (1, 512, 512, 16, 1, 256): "flash_attention S=512 D=256 (window 2048)",
+                   (1, 1024, 1024, 16, 16, 64):
+                       "flash_attention whisper encoder S=1024 D=64 (non-causal)",
+                   (1, 128, 1024, 16, 16, 64):
+                       "flash_attention whisper cross-attention Sq=128 Skv=1024",
+                   (1, 4608, 4608, 56, 8, 128):
+                       "flash_attention llava prefill S=4608 H=56/8 D=128 (causal)"}
     more_rows = {
         "flash_attention D=256 (recurrentgemma prefill)": flash_case(
             (1, 16, 16, rg.num_heads, rg.num_kv_heads, rg.head_dim), True,
@@ -1715,7 +2050,7 @@ def main() -> None:
          "main_rows": main_rows, "more_rows": more_rows,
          "serve": {a: v[2] for a, v in served.items()}, "launches": launches,
          "shapes": shapes, "payload": payload, "checkpoint": ckpt, "ci": ci,
-         "train": train},
+         "train": train, "encdec": encdec, "vision": vision},
         indent=1))
     say(f"nvidia-smi: {smi_line}")
     say(json.dumps({"kernels": kernels}))

@@ -1,11 +1,13 @@
 """Model API of the port: init / caches / loss / train, prefill and decode
 steps.
 
-A port of the decoder-only half of the reference's ``models/api.py``;
-encoder-decoder configs raise (ROADMAP C4).  Params are drawn on the target
-device from an explicit ``torch.Generator``.  The train step is a plain
-function (there is no ``jit``) that returns new param and optimizer trees
-and changes none of its arguments.
+A port of the reference's ``models/api.py``, dispatching on the
+architecture family (decoder-only LM, with or without the vision stub, vs
+encoder-decoder); the dry run's ``input_specs`` belongs with the cost
+model (ROADMAP D3).  Params are drawn on the target device from an
+explicit ``torch.Generator``.  The train step is a plain function (there
+is no ``jit``) that returns new param and optimizer trees and changes none
+of its arguments.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..optim.adamw import (
     cosine_schedule,
 )
 from ..tree import tree_leaves, tree_map, tree_unflatten
-from . import lm
+from . import encdec, lm
 
 OPT8BIT_PARAM_THRESHOLD = 100e9  # >100B params: 8-bit AdamW moments
 
@@ -38,12 +40,6 @@ def is_encdec(cfg: ArchConfig) -> bool:
     return cfg.encoder_layers > 0
 
 
-def _require_decoder_only(cfg: ArchConfig) -> None:
-    if is_encdec(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models (ROADMAP C4) are not ported")
-
-
 def attn_chunk(seq_len: int) -> int:
     if seq_len >= 1 << 15:
         return 512
@@ -54,31 +50,35 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None, *,
                 device="cuda", seed: int = 0):
     """Random params from ``gen`` (default: a generator on ``device`` seeded
     with ``seed``); they live on the generator's device."""
-    _require_decoder_only(cfg)
     if gen is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
+    if is_encdec(cfg):
+        return encdec.encdec_init(gen, cfg)
     return lm.lm_init(gen, cfg)
 
 
 def cache_init(cfg: ArchConfig, batch: int, cap: int, device="cuda"):
-    _require_decoder_only(cfg)
+    """Decode caches of capacity ``cap``; an encoder-decoder's cross caches
+    hold ``cap`` encoder positions too, as the reference's do."""
+    if is_encdec(cfg):
+        return encdec.encdec_cache_init(cfg, batch, cap, cap, device)
     return lm.lm_cache_init(cfg, batch, cap, device)
 
 
 def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig):
-    _require_decoder_only(cfg)
-    return functools.partial(lm.lm_prefill, cfg=cfg, chunk=attn_chunk(shape.seq_len))
+    fn = encdec.encdec_prefill if is_encdec(cfg) else lm.lm_prefill
+    return functools.partial(fn, cfg=cfg, chunk=attn_chunk(shape.seq_len))
 
 
 def make_decode_step(cfg: ArchConfig):
-    _require_decoder_only(cfg)
-    return functools.partial(lm.lm_decode, cfg=cfg)
+    fn = encdec.encdec_decode if is_encdec(cfg) else lm.lm_decode
+    return functools.partial(fn, cfg=cfg)
 
 
 def make_loss_fn(cfg: ArchConfig, shape: ShapeConfig):
-    _require_decoder_only(cfg)
-    return functools.partial(lm.lm_loss, cfg=cfg, chunk=attn_chunk(shape.seq_len))
+    fn = encdec.encdec_loss if is_encdec(cfg) else lm.lm_loss
+    return functools.partial(fn, cfg=cfg, chunk=attn_chunk(shape.seq_len))
 
 
 def make_train_step(cfg: ArchConfig, shape: ShapeConfig,
@@ -123,7 +123,7 @@ def make_train_step(cfg: ArchConfig, shape: ShapeConfig,
                 grads = tree_map(lambda a, gg: a + gg.to(torch.float32) / n_mb,
                                  grads, g)
                 loss_m = loss_m + ex["loss"] / n_mb
-                aux_m = aux_m + ex["aux"] / n_mb
+                aux_m = aux_m + ex.get("aux", 0.0) / n_mb
             loss, extras = loss_m, {"loss": loss_m, "aux": aux_m}
         # the schedule runs on the post-increment step (lr > 0 from step one)
         lr_scale = cosine_schedule(

@@ -6,9 +6,10 @@ A port of the reference's ``models/layers.py`` for one device: the
 (``[B, S, H, D]`` for attention).  Attention accumulates in fp32 from bf16
 operands, as the reference's ``preferred_element_type=f32`` einsums do: the
 operands are upcast (bf16 products are exact in fp32) and summed in fp32.
-Prefill attention goes through the flash-attention kernel
-(``kernels.flash_attention``); decode stays on the direct path, because the
-kernel takes no key positions and cannot read a partly filled or ring cache.
+Prefill attention, and cross-attention over a whole encoder output, goes
+through the flash-attention kernel (``kernels.flash_attention``); decode
+stays on the direct path, because the kernel takes no key positions and
+cannot read a partly filled or ring cache.
 Training stays on ``attention_core`` too (``use_kernel=False``), as the
 reference trains through its jnp attention: the kernel has no backward.
 The loss functions (``softmax_xent``, ``chunked_lm_loss``) close the file.
@@ -148,25 +149,34 @@ def attention_core(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
 
 
 def attention_block(p, x, *, cfg, positions, causal=True, window=0,
-                    kv_override: Optional[Tuple] = None, chunk=1024,
-                    use_kernel: bool = True):
+                    kv_override: Optional[Tuple] = None, use_rope: bool = True,
+                    full_kv: bool = False, chunk=1024, use_kernel: bool = True):
     """Projections + RoPE + attention + output proj.  x: [B, S, D].
 
-    With ``use_kernel``, full-sequence self-attention (no ``kv_override``,
-    S > 1, positions 0..S-1) runs the flash-attention kernel; everything
-    else, and everything when training passes ``use_kernel=False``, the
-    direct or chunked ``attention_core``.
+    With ``use_kernel`` and S > 1 the flash-attention kernel runs two
+    cases: full-sequence self-attention (no ``kv_override``, positions
+    0..S-1), and attention over a ``kv_override`` whose every key is valid
+    (``full_kv``: the caller's word, so the key positions are never read
+    back from the device) with no causal or window mask, which is
+    cross-attention over a whole encoder output.  Everything else, and
+    everything when training passes ``use_kernel=False``, runs the direct
+    or chunked ``attention_core``.
     """
     B, S, D = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = rope((x @ p["wq"]).reshape(B, S, H, Dh), positions, cfg.rope_theta)
+    q = (x @ p["wq"]).reshape(B, S, H, Dh)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
     if kv_override is None:
-        k = rope((x @ p["wk"]).reshape(B, S, Hkv, Dh), positions, cfg.rope_theta)
+        k = (x @ p["wk"]).reshape(B, S, Hkv, Dh)
+        if use_rope:
+            k = rope(k, positions, cfg.rope_theta)
         v = (x @ p["wv"]).reshape(B, S, Hkv, Dh)
         kpos = positions
     else:
         k, v, kpos = kv_override
-    if use_kernel and kv_override is None and S > 1:
+    unmasked_full = kv_override is not None and full_kv and not causal and not window
+    if use_kernel and S > 1 and (kv_override is None or unmasked_full):
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=window)
     else:

@@ -22,7 +22,10 @@ the whole state of 'R' and 'W' blocks (copied into the cache views).  Each
 session owns its cache, so the copy the functional version makes would only
 cost memory.  A block with a MoE FFN returns its auxiliary loss (every
 other block None, so serving adds nothing); ``lm_loss`` sums it, prefill
-and decode drop it.  The vision frontend is not ported yet and raises.
+and decode drop it.  The vision frontend is the reference's stub: a batch
+may carry precomputed ``patch_embeds`` [B, P, D], projected by
+``patch_proj`` and put before the text; the loss is taken over the text,
+and prefill's caches hold P + S_text positions.
 """
 
 from __future__ import annotations
@@ -66,10 +69,9 @@ def group_counts(cfg: ArchConfig) -> Tuple[int, int]:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the parts of the reference LM this port does not have yet;
-    past this check every block is 'A', 'L', 'R' or 'W'."""
-    missing = ["vision frontend (ROADMAP C5)"] if cfg.frontend == "vision" else []
-    missing += [repr(k) for k in sorted(set(group_pattern(cfg))) if k not in _KINDS]
+    """Raise for a block kind this port does not have; past this check
+    every block is 'A', 'L', 'R' or 'W'."""
+    missing = [repr(k) for k in sorted(set(group_pattern(cfg))) if k not in _KINDS]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported")
 
@@ -105,6 +107,8 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig):
     pat = group_pattern(cfg)
     params: Dict = {}
     params.update(embed_init(gen, cfg.padded_vocab, cfg.d_model))
+    if cfg.frontend == "vision":
+        params["patch_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model))
     params["groups"] = {f"b{j}": block_init(gen, kind, cfg, lead=(n_groups,))
                         for j, kind in enumerate(pat)}
     params["rem"] = [block_init(gen, pat[i], cfg) for i in range(rem)]
@@ -324,27 +328,40 @@ def _embed(params, tokens):
     return embed_lookup(params, tokens).to(BF16)
 
 
+def _embed_input(params, batch, cfg: ArchConfig):
+    """Tokens (after the projected ``patch_embeds`` of a vision config, when
+    the batch has them) -> ([B, S, D], offset of the first text position)."""
+    tok_h = _embed(params, batch["tokens"])
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        patches = batch["patch_embeds"]
+        patch_h = patches.to(BF16) @ params["patch_proj"]
+        return torch.cat([patch_h, tok_h], dim=1), patches.shape[1]
+    return tok_h, 0
+
+
 def lm_loss(params, batch, cfg: ArchConfig, chunk: int = 1024):
-    """Next-token loss.  batch: {tokens [B, S]}.  Returns
-    (loss + 0.01 * aux, {"loss", "aux"})."""
+    """Next-token loss over the text.  batch: {tokens [B, S_text]
+    (+ patch_embeds [B, P, D])}.  Returns (loss + 0.01 * aux,
+    {"loss", "aux"})."""
     check_supported(cfg)
     tokens = batch["tokens"]
-    h = _embed(params, tokens)
+    h, off = _embed_input(params, batch, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     h, aux, _ = _run_stack(params, h, cfg=cfg, positions=positions,
                            mode="train", chunk=chunk)
     if aux is None:
         aux = torch.zeros((), dtype=F32, device=h.device)
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)[:, off:, :]
     loss = chunked_lm_loss(params, h[:, :-1, :], tokens[:, 1:], cfg.vocab_size)
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 def lm_prefill(params, batch, cfg: ArchConfig, chunk: int = 1024):
-    """Full-sequence forward building decode caches.  batch: {tokens [B, S]}.
+    """Full-sequence forward building decode caches.  batch: {tokens [B, S]
+    (+ patch_embeds [B, P, D]: the caches then hold P + S positions)}.
     Returns (logits_last [B, V], caches)."""
     check_supported(cfg)
-    h = _embed(params, batch["tokens"])
+    h, _ = _embed_input(params, batch, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     h, _, caches = _run_stack(params, h, cfg=cfg, positions=positions,
                               mode="prefill", chunk=chunk)

@@ -34,7 +34,8 @@ from ..configs.base import ArchConfig, ShapeConfig
 from ..core.provisioner import DynamicResourceProvisioner
 from ..diffusion.payload import MeasuredBandwidth, RealPayload
 from ..diffusion.tiers import TierSpec
-from ..models import cache_init, init_params, make_decode_step, make_prefill_step
+from ..models import (cache_init, init_params, is_encdec, make_decode_step,
+                      make_prefill_step)
 from .router import (Assignment, AdmissionController, CacheAffinityRouter,
                      RoutedRequest)
 
@@ -187,6 +188,14 @@ class DiffusionServer:
     ):
         if payload not in ("modeled", "real"):
             raise ValueError(f"payload must be 'modeled' or 'real': {payload!r}")
+        if is_encdec(cfg):
+            # the reference cannot serve one either: its prefill batch is
+            # {"tokens": prompt} (repro/runtime/serve_loop.py), while
+            # encdec_prefill reads batch["audio_embeds"]
+            raise NotImplementedError(
+                f"{cfg.name}: the server's prefill batch holds tokens only, and "
+                "an encoder-decoder prefill needs audio_embeds; the reference's "
+                "DiffusionServer serves no encoder-decoder either")
         self.cfg = cfg
         self.device = torch.device(device)
         self.cap = cache_cap

@@ -26,6 +26,7 @@ from ..checkpoint import AsyncCheckpointer, latest_checkpoint, restore_checkpoin
 from ..configs.base import ArchConfig, ShapeConfig
 from ..data.pipeline import DiffusionDataPipeline, PipelineConfig
 from ..models import init_opt_state, init_params, make_train_step
+from ..models.encdec import text_len
 from ..optim.adamw import AdamWConfig
 from .fault_tolerance import FailureInjector, HeartbeatMonitor
 
@@ -103,11 +104,22 @@ class Trainer:
 
     # ------------------------------------------------------------- batch
     def _batch_for(self, tokens_np: np.ndarray) -> Dict[str, Any]:
-        """Decoder-only batch (encoder-decoder configs raise in the train
-        step's constructor, ROADMAP C4)."""
+        """The reference's batch: tokens, plus zero bf16 ``patch_embeds``
+        for a vision config; an encoder-decoder gets zero ``audio_embeds``
+        of ``seq_len`` frames and the first ``text_len(seq_len)`` tokens."""
         tokens = torch.as_tensor(tokens_np[:, : self.shape.seq_len],
                                  dtype=torch.long, device=self.device)
-        return {"tokens": tokens}
+        B, S, D = tokens.shape[0], self.shape.seq_len, self.cfg.d_model
+        batch: Dict[str, Any] = {"tokens": tokens}
+        if self.cfg.frontend == "vision":
+            P = min(self.cfg.num_patches, S // 2)
+            batch["patch_embeds"] = torch.zeros((B, P, D), dtype=torch.bfloat16,
+                                                device=self.device)
+        if self.cfg.encoder_layers:
+            batch = {"audio_embeds": torch.zeros((B, S, D), dtype=torch.bfloat16,
+                                                 device=self.device),
+                     "tokens": tokens[:, : text_len(S)]}
+        return batch
 
     # --------------------------------------------------------------- run
     def run(self, start_fresh: bool = False) -> TrainResult:

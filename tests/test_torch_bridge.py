@@ -89,3 +89,29 @@ def test_moe_and_recurrent_trees_round_trip(arch):
             want = dict(_leaves(ref))[path].dtype
             assert (leaf.dtype == torch.bfloat16) == (want == BF16), path
         _assert_bit_exact(ref, bridge.params_to_numpy(port, bf16_dtype=BF16))
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-34b"])
+def test_encoder_decoder_and_vision_trees_round_trip(arch):
+    """The stacked ``enc``/``dec`` layer axes, the two position tables and
+    the four decoder caches of whisper, and llava's ``patch_proj``, cross
+    bit-exact with the generic walk."""
+    cfg = get_arch(arch).reduced()
+    params = init_params(cfg, jax.random.PRNGKey(3))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": jnp.asarray(rng.integers(0, cfg.vocab_size, (1, 8)), jnp.int32)}
+    key = "audio_embeds" if cfg.encoder_layers else "patch_embeds"
+    frames = 32 if cfg.encoder_layers else cfg.num_patches
+    batch[key] = jnp.asarray(rng.standard_normal((1, frames, cfg.d_model)),
+                             jnp.float32).astype(jnp.bfloat16)
+    _, caches = make_prefill_step(cfg, ShapeConfig("t", "prefill", 64, 1))(params, batch)
+    if cfg.encoder_layers:
+        assert tuple(params["enc"]["attn"]["wq"].shape)[0] == cfg.encoder_layers
+        assert sorted(caches) == ["ck", "cv", "k", "v"]
+    else:
+        assert tuple(params["patch_proj"].shape) == (cfg.d_model, cfg.d_model)
+    for ref in (params, caches):
+        ref = jax.tree_util.tree_map(np.asarray, ref)
+        port = bridge.params_from_numpy(ref, device="cpu")
+        assert [p for p, _ in _leaves(port)] == [p for p, _ in _leaves(ref)]
+        _assert_bit_exact(ref, bridge.params_to_numpy(port, bf16_dtype=BF16))

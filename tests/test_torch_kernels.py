@@ -589,6 +589,26 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, B, Sq, Skv, H, Hkv, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,causal,dtype", [
+    (1, 1024, 1024, 16, 16, 64, False, "bf16"),    # the whisper encoder
+    (1, 1500, 1500, 16, 16, 64, False, "bf16"),    # ragged tiles on both axes
+    (1, 128, 1024, 16, 16, 64, False, "bf16"),     # cross-attention, Sq < Skv
+    (1, 187, 1500, 16, 16, 64, False, "bf16"),     # ragged cross-attention
+    (1, 4608, 4608, 56, 8, 128, True, "bf16"),     # llava: 7 query heads a KV head
+    (2, 100, 300, 4, 4, 64, False, "f32"),
+])
+def test_flash_kernel_unmasked_and_wide_gqa_on_card(cuda_device, B, Sq, Skv, H, Hkv, D,
+                                                    causal, dtype):
+    """The encoder-decoder's and llava's shapes: no mask with Sq != Skv (the
+    aligned-ends offset must not enter), ragged tiles, H / Hkv = 7."""
+    q, k, v = _torch(attn_inputs(B, Sq, Skv, H, Hkv, D), dtype, cuda_device)
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = attention_ref(q, k, v, causal=causal)
+    assert rel_err(_np(out), _np(ref)) < (2e-2 if dtype == "bf16" else 2e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("W,O,E", [(16, 64, 4), (300, 1200, 96), (64, 256, 4),
                                    (8, 256, 16),     # the serving window
                                    (1, 256, 16),     # one queued item

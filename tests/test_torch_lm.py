@@ -18,6 +18,10 @@ against the reference evaluated op by op (``jax.disable_jit()``): under
 inside them, and the jitted reference then differs from its own op-by-op
 evaluation by up to 6.5e-2 on reduced rwkv6 and 3.0e-2 on reduced olmoe.
 Op by op, the port is exact on rwkv6 and within 1.6e-2 on the other two.
+
+llava reduced (four 'A' layers and the vision stub) runs prefill with 8
+projected patch embeddings before a 12-token prompt, and text-only, then
+8 decode steps from the end of what the caches hold (20 and 12).
 """
 
 import jax
@@ -96,7 +100,7 @@ def model(request):
                 tokens=tokens, eager=eager, prefill=(lj, cj, lt, ct))
 
 
-def test_prefill_logits_and_caches(model):
+def _check_prefill(model):
     lj, cj, lt, ct = model["prefill"]
     V = model["cfg_t"].vocab_size
     assert tuple(lt.shape) == tuple(lj.shape)
@@ -105,7 +109,8 @@ def test_prefill_logits_and_caches(model):
     assert_caches_close(ct, cj)
 
 
-def test_teacher_forced_decode(model):
+def _check_decode(model, pos):
+    """8 teacher-forced steps from ``pos`` on both sides' merged caches."""
     cfg_j, cfg_t = model["cfg_j"], model["cfg_t"]
     lj, cj, lt, ct = model["prefill"]
     caches_j = jax_merge(jax_cache_init(cfg_j, 1, CAP), cj, cfg_j)
@@ -114,7 +119,6 @@ def test_teacher_forced_decode(model):
     dec_j = jax.jit(jax_decode_step(cfg_j))
     dec_t = make_decode_step(cfg_t)
     V = cfg_t.vocab_size
-    pos = model["tokens"].shape[1]
     forced = np.random.default_rng(1).integers(0, V, 8)
     for step, tok in enumerate(forced):
         with jax.disable_jit(model["eager"]):
@@ -129,8 +133,44 @@ def test_teacher_forced_decode(model):
     assert_caches_close(caches_t, caches_j)
 
 
-def test_unported_blocks_raise():
-    from repro_torch.models import init_params
-    for name in ("whisper-medium", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(get_arch(name).reduced(), device="cpu")
+def test_prefill_logits_and_caches(model):
+    _check_prefill(model)
+
+
+def test_teacher_forced_decode(model):
+    _check_decode(model, model["tokens"].shape[1])
+
+
+# llava reduced: 4 'A' layers and the vision stub (8 patch positions)
+@pytest.fixture(scope="module", params=[True, False], ids=["patches", "text-only"])
+def vision(request):
+    name = "llava-next-34b"
+    cfg_j, cfg_t = jax_get_arch(name).reduced(), get_arch(name).reduced()
+    params_j = jax_init_params(cfg_j, jax.random.PRNGKey(0))
+    params_t = bridge.params_from_numpy(jax.tree_util.tree_map(np.asarray, params_j),
+                                        device="cpu")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg_t.vocab_size, (1, 12))
+    batch_j, batch_t = {"tokens": jnp.asarray(tokens, jnp.int32)}, \
+        {"tokens": torch.from_numpy(tokens)}
+    if request.param:
+        patches = rng.standard_normal((1, cfg_t.num_patches, cfg_t.d_model))
+        batch_j["patch_embeds"] = jnp.asarray(patches, jnp.float32).astype(jnp.bfloat16)
+        batch_t["patch_embeds"] = torch.from_numpy(patches).to(torch.bfloat16)
+    shape = ShapeConfig("t", "prefill", CAP, 1)
+    lj, cj = jax.jit(jax_prefill_step(cfg_j, shape))(params_j, batch_j)
+    lt, ct = make_prefill_step(cfg_t, shape)(params_t, batch_t)
+    # the caches hold the patch positions before the text
+    pos = tokens.shape[1] + (cfg_t.num_patches if request.param else 0)
+    return dict(cfg_j=cfg_j, cfg_t=cfg_t, params_j=params_j, params_t=params_t,
+                tokens=tokens, eager=False, prefill=(lj, cj, lt, ct), pos=pos)
+
+
+def test_vision_prefill_logits_and_caches(vision):
+    assert tuple(vision["params_t"]["patch_proj"].shape) == (vision["cfg_t"].d_model,) * 2
+    assert vision["prefill"][3]["groups"]["b0"]["k"].shape[2] == vision["pos"]
+    _check_prefill(vision)
+
+
+def test_vision_teacher_forced_decode(vision):
+    _check_decode(vision, vision["pos"])

@@ -253,3 +253,12 @@ def test_modeled_and_real_serve_identically(arch):
     assert real.measured.bandwidth("hbm", "dram") > 0.0
     assert real.swap_in_bandwidth() > 0.0
     assert modeled.measured.total_bytes == 0
+
+
+def test_tier_rooflines_are_the_h100s():
+    """The dram tier reads the card's host link (PCIe Gen5 x16, 64 GB/s a
+    direction), not NVLink; hbm and the disk class stay where they were."""
+    from repro_torch.diffusion.tiers import roofline_tier_bw
+    assert roofline_tier_bw("hbm") == 3.35e12
+    assert roofline_tier_bw("dram") == 64e9
+    assert roofline_tier_bw("disk") == 18e9

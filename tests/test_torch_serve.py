@@ -130,6 +130,28 @@ def test_server_matches_reference_on_moe_and_recurrent_families(arch):
     assert stats == ref_stats and stats["prefix_hits"] > 0
 
 
+def test_server_matches_reference_on_llava_text_only():
+    """llava reduced serves text-only prompts, as the reference's server does
+    (its prefill batch holds tokens alone; the vision stub stays unused)."""
+    kw = dict(dispatcher_impl="vectorized", batch_drain=True, cache_cap=48, seed=0)
+    stream = dict(n=8, burst=4, sessions=4)
+    arch = "llava-next-34b"
+    ref_log, ref_stats = _bursts(JaxServer(jax_get_arch(arch).reduced(), **kw),
+                                 **stream)
+    log, stats = _bursts(DiffusionServer(get_arch(arch).reduced(), device="cpu", **kw),
+                         **stream)
+    assert log == ref_log and len(log) == 8
+    assert stats == ref_stats and stats["prefix_hits"] > 0
+
+
+def test_server_refuses_an_encoder_decoder():
+    """The reference's prefill batch is {"tokens"} and its encoder-decoder
+    prefill reads audio_embeds, so neither server can serve whisper; the
+    port says so before it builds anything."""
+    with pytest.raises(NotImplementedError, match="audio_embeds"):
+        DiffusionServer(get_arch("whisper-medium").reduced(), device="cpu")
+
+
 def test_device_scores_raise_on_a_difference():
     srv = DiffusionServer(get_arch("internlm2-1.8b").reduced(), device="cpu",
                           dispatcher_impl="vectorized", batch_drain=True,

@@ -7,7 +7,8 @@ S - 1 labels) run on the same numpy inputs on both sides; values and grads
 wrt ``h`` and ``lm_head`` within 2e-5 relative in float32 (summation order)
 and 2e-2 in bfloat16.
 
-``lm_loss`` runs on bridged reduced weights, the
+``lm_loss`` runs on bridged reduced weights (llava also with 8 patch
+embeddings before the text), the
 reference evaluated op by op (``jax.disable_jit()``; see
 ``test_torch_lm.py`` for why the jitted bf16 reference is no yardstick).
 The loss agrees within 1e-4 relative.  Grads are bf16 cotangents that the
@@ -125,19 +126,21 @@ def _bridged(name):
     return cfg_j, cfg_t, pj, pt
 
 
-@pytest.mark.parametrize("name", MODELS, ids=[m.split("-")[0] for m in MODELS])
-def test_lm_loss_value_and_grads_match_reference(name):
+def _loss_and_grads_match(name, batch_np):
+    """``make_loss_fn`` on ``batch_np`` (numpy; float arrays go in as bf16)
+    against the reference's value and grads, evaluated op by op."""
     cfg_j, cfg_t, pj, pt = _bridged(name)
-    shape = ShapeConfig("t", "train", 24, 2)
-    tokens = np.random.default_rng(0).integers(0, cfg_t.vocab_size, (2, 24))
+    S = batch_np["tokens"].shape[1]
+    shape = ShapeConfig("t", "train", S, batch_np["tokens"].shape[0])
+    bj = {k: jnp.asarray(v, jnp.int32) if k == "tokens" else
+          jnp.asarray(v, jnp.float32).astype(jnp.bfloat16) for k, v in batch_np.items()}
+    bt = {k: torch.from_numpy(v) if k == "tokens" else
+          torch.from_numpy(v).to(torch.bfloat16) for k, v in batch_np.items()}
     loss_j = jax_make_loss_fn(cfg_j, shape)
     with jax.disable_jit():
-        (lj, exj), gj = jax.value_and_grad(
-            lambda p: loss_j(p, {"tokens": jnp.asarray(tokens, jnp.int32)}),
-            has_aux=True)(pj)
+        (lj, exj), gj = jax.value_and_grad(lambda p: loss_j(p, bj), has_aux=True)(pj)
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(pt)]
-    lt, ext = make_loss_fn(cfg_t, shape)(tree_unflatten(pt, leaves),
-                                         {"tokens": torch.from_numpy(tokens)})
+    lt, ext = make_loss_fn(cfg_t, shape)(tree_unflatten(pt, leaves), bt)
     gt = torch.autograd.grad(lt, leaves)
     assert rel_err(lt, lj) < 1e-4
     assert rel_err(ext["loss"], exj["loss"]) < 1e-4
@@ -155,6 +158,26 @@ def test_lm_loss_value_and_grads_match_reference(name):
         t, j = _np(t), _np(j)
         assert np.linalg.norm(t - j) <= 3e-2 * np.linalg.norm(j), path
         assert rel_err(t, j) < 5e-2, path
+    return gt, paths
+
+
+@pytest.mark.parametrize("name", MODELS, ids=[m.split("-")[0] for m in MODELS])
+def test_lm_loss_value_and_grads_match_reference(name):
+    V = get_arch(name).reduced().vocab_size
+    tokens = np.random.default_rng(0).integers(0, V, (2, 24))
+    _loss_and_grads_match(name, {"tokens": tokens})
+
+
+def test_lm_loss_with_patch_embeds_matches_reference():
+    """llava reduced: 8 patch embeddings before 24 tokens, the loss over the
+    text alone; ``patch_proj`` gets its grad through the patches."""
+    cfg = get_arch("llava-next-34b").reduced()
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 24)),
+             "patch_embeds": rng.standard_normal((2, cfg.num_patches, cfg.d_model))
+             .astype(np.float32)}
+    gt, paths = _loss_and_grads_match("llava-next-34b", batch)
+    assert float(gt[paths.index("['patch_proj']")].float().abs().max()) > 0
 
 
 def test_train_mode_never_calls_flash_attention(monkeypatch):
