@@ -62,21 +62,32 @@ Phases (any failure exits non-zero before the result line):
                blocks unchanged;
   9. train   - (a) each kernel entry point on CUDA inputs that require grad
                raises (no kernel has a backward), and under no_grad matches
-               its plain version; reduced olmoe, recurrentgemma and rwkv6
-               raise at their first kernel under grad mode; (b) one train step of reduced internlm2
-               and gemma3 on the card against the CPU: loss, grad norm,
-               grads and first moments within 2e-2, each leaf's update
-               within 2e-2 of AdamW applied on the CPU to the card's
-               moments, params within one bf16 ulp (98%) and 2 lr plus one
-               ulp (all) of the CPU's step, no flash-attention launch;
-               (c) ``python -m repro_torch.launch.train`` at internlm2-1.8b's
-               full width (8 x 256 tokens, 9 steps): finite losses and grad
-               norms, the mean loss of the last three steps under step 1's,
-               the median step ms over steps 4-9, tokens/s, peak memory,
-               and the AdamW update timed alone at that width (its share of
-               a step); (d) a failure at step 12 and a restart from the
-               step-10 checkpoint on the card, the restored state bit-equal
-               to the saved one;
+               its plain version; (b) one train step of reduced internlm2,
+               gemma3, olmoe (its routing replayed from the CPU),
+               recurrentgemma and rwkv6 on the card against the CPU: loss,
+               grad norm, grads and first moments within 2e-2 (rwkv6's
+               grads and moments 3e-2, ``STEP_LIMITS_BY_ARCH``), each leaf's
+               update within 2e-2 of AdamW applied on the CPU to the card's
+               moments, params within one bf16 ulp (98%; rwkv6 97%) and 2 lr
+               plus one ulp (all) of the CPU's step, no kernel launch (the
+               train route reaches none); (c) ``python -m
+               repro_torch.launch.train`` at internlm2-1.8b's full width (8
+               x 256 tokens, 9 steps): finite losses and grad norms, the
+               mean loss of the last three steps under step 1's, the median
+               step ms over steps 4-9, tokens/s, peak memory, and the AdamW
+               update timed alone at that width (its share of a step); (d) a
+               failure at step 12 and a restart from the step-10 checkpoint
+               on the card, the restored state bit-equal to the saved one;
+               (e) olmoe-1b-7b at 4 of 16 layers and rwkv6-3b at 16 of 32,
+               full width, trained by the port's ``Trainer`` in this process
+               (8 x 256 tokens, 6 steps, the launcher's AdamW): finite
+               losses and grad norms, no kernel launch, the median step ms
+               over steps 4-6, tokens/s, peak memory under 80 GB and the
+               step's bound; (f) recurrentgemma-9b's 'R' block at full width
+               forward and backward on the card against the CPU (B = 1, T =
+               256: output 2e-2, every grad 3e-2 L2), timed at B = 4, then
+               ``python -m repro_torch.launch.train --arch recurrentgemma-9b
+               --reduced --steps 3`` on the card;
  10. encdec  - whisper-medium at full width and depth (24 + 24 layers,
                random weights from seed 0): a prefill of 1,024 seeded audio
                frames and 128 tokens with exactly 72 flash-attention
@@ -145,6 +156,10 @@ SOURCES = {
     "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
     "wkv6": "src/repro_torch/csrc/wkv6.cu",
 }
+# each kernel's launches over the serve run of its family (phase 5): the
+# serving path is the same whatever the train route does
+SERVE_LAUNCHES = {"flash_attention": 264, "dispatch_scores": 8, "dispatch_score_update": 3,
+                  "moe_gmm": 6480, "rglru_scan": 3510, "wkv6": 4320}
 SERVE_COUNTERS = ("served", "prefix_hits", "prefills", "swap_ins", "decode_steps")
 # The served families: (arch, sessions, requests, the kernels its path must
 # launch besides the two scoring kernels every vectorized drain runs).
@@ -1130,6 +1145,14 @@ TRAIN_ARCH = "internlm2-1.8b"
 # the reference launcher's own docstring shape; 9 steps write no checkpoint
 # (the launcher checkpoints every max(10, steps // 4) steps)
 TRAIN_ARGS = ("--arch", TRAIN_ARCH, "--seq", "256", "--batch", "8", "--steps", "9")
+# the families whose blocks hold K4, K5 and K6, trained through the
+# reference's plain ops; olmoe and rwkv6 at full width with their depth
+# cut, recurrentgemma (whose smallest whole group is 2.754 B params) as one
+# full-width 'R' block and as the reduced model through the launcher
+FAMILY_ARCHS = ("olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-3b")
+FAMILY_FULL_WIDTH = (("olmoe-1b-7b", 4), ("rwkv6-3b", 16))
+FAMILY_TRAIN_STEPS = 6
+RG_TRAIN_ARGS = ("--arch", "recurrentgemma-9b", "--reduced", "--steps", "3")
 GUARDED = ("flash_attention", "moe_gmm", "rglru_scan", "rglru_gated_scan", "wkv6",
            "dispatch_scores", "dispatch_score_update")
 
@@ -1195,35 +1218,21 @@ def grad_guard_check(ops):
     return rows
 
 
-def kernel_family_refusal():
-    """The families whose blocks call a kernel (MoE: K4, 'R': K5, 'W': K6)
-    raise at their first kernel under grad mode on the card (ROADMAP B5)."""
-    import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.models import init_params, make_loss_fn
-    from repro_torch.tree import tree_leaves, tree_unflatten
-    out = {}
-    for arch in ("olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-3b"):
-        cfg = get_arch(arch).reduced()
-        params = init_params(cfg, device="cuda", seed=0)
-        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
-        tokens = torch.zeros((1, 16), dtype=torch.long, device="cuda")
-        try:
-            make_loss_fn(cfg, ShapeConfig("t", "train", 16, 1))(
-                tree_unflatten(params, leaves), {"tokens": tokens})
-        except RuntimeError as e:
-            if "ROADMAP B5" not in str(e):
-                fail(f"train guard {arch}: unexpected error {e}")
-            out[arch] = str(e).split(":")[0]
-        else:
-            fail(f"train guard {arch}: trained through a kernel without a backward")
-    return out
-
-
 def _l2_rel(a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / (b.norm() + 1e-30))
+
+
+# Card-vs-CPU limits of one train step: grads and first moments (L2), the
+# share of params within one bf16 ulp.  rwkv6 rounds the cotangent of its
+# WKV output to bf16 (the gate product before ``wo``), and the grads of u
+# and of decay_b are then small sums of large f32 terms: card vs CPU they
+# part by 2.03e-2 (u, L2), and 2.4% of decay_b's elements take opposite
+# grad signs (97.6% within one ulp); the port against the JAX reference on
+# the CPU, at equal params, parts by 1.9e-2 on u.  rwkv6 is held to the
+# cross-implementation grad limit of the lm tests (3e-2 L2) and 97%.
+STEP_LIMITS = {"grads": 2e-2, "m": 2e-2, "within_ulp": 0.98}
+STEP_LIMITS_BY_ARCH = {"rwkv6-3b": {"grads": 3e-2, "m": 3e-2, "within_ulp": 0.97}}
 
 
 def train_step_check(arch, ops):
@@ -1237,16 +1246,21 @@ def train_step_check(arch, ops):
     with opposite signs the two steps move an element apart by 2 lr, which
     says nothing about the update.  Against the CPU's step, at least 98% of
     each leaf's elements lie within one bf16 ulp, and all within 2 lr plus
-    one ulp of the larger of the two.  The flash-attention kernel must not
-    launch."""
+    one ulp of the larger of the two (``STEP_LIMITS``, rwkv6's in
+    ``STEP_LIMITS_BY_ARCH``).  No kernel launches: the train route
+    reaches none.  A MoE config routes on the card as the CPU did
+    (``RoutingReplay``; the router runs again in each group's recompute, in
+    the same order on both devices), and a choice of its own that differs
+    must be a tie."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import DiffusionDataPipeline, PipelineConfig
     from repro_torch.models import init_opt_state, init_params, make_loss_fn, make_train_step
+    from repro_torch.models import moe as moe_mod
     from repro_torch.optim import AdamWConfig, cosine_schedule
-    from repro_torch.tree import tree_leaves, tree_unflatten
+    from repro_torch.tree import tree_flatten_with_paths, tree_leaves, tree_unflatten
     cfg = get_arch(arch).reduced()
     S, B = 64, 4
     shape = ShapeConfig("t", "train", S, B)
@@ -1257,34 +1271,41 @@ def train_step_check(arch, ops):
     step = make_train_step(cfg, shape, opt, total_steps=1, microbatches=1)
     loss_fn = make_loss_fn(cfg, shape)
     cpu = init_params(cfg, device="cpu", seed=5)
-    p0 = [t.float() for t in tree_leaves(cpu)]
-    flash = ops["flash_attention"]
+    paths, cpu_leaves, _ = tree_flatten_with_paths(cpu)
+    p0 = [t.float() for t in cpu_leaves]
+    dtypes = [t.dtype for t in cpu_leaves]
     res = {}
-    for dev in ("cpu", "cuda"):
-        params = _to(cpu, dev)
-        batch = {"tokens": tokens.to(dev)}
-        before = flash.launches
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        loss, _ = loss_fn(tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
-        new_p, new_o, metrics = step(params, init_opt_state(params, cfg), batch)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        res[dev] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                    "grads": [g.float().cpu() for g in grads],
-                    "params": [t.float().cpu() for t in tree_leaves(new_p)],
-                    "m": [t.cpu() for t in tree_leaves(new_o["m"])],
-                    "v": [t.cpu() for t in tree_leaves(new_o["v"])],
-                    "flash_launches": flash.launches - before}
+    with RoutingReplay(moe_mod) as replay:
+        for dev in ("cpu", "cuda"):
+            replay.mode = "record" if dev == "cpu" else "replay"
+            params = _to(cpu, dev)
+            batch = {"tokens": tokens.to(dev)}
+            _zero(ops)
+            leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+            loss, _ = loss_fn(tree_unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves)
+            new_p, new_o, metrics = step(params, init_opt_state(params, cfg), batch)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            res[dev] = {"loss": float(metrics["loss"]),
+                        "grad_norm": float(metrics["grad_norm"]),
+                        "grads": [g.float().cpu() for g in grads],
+                        "params": [t.float().cpu() for t in tree_leaves(new_p)],
+                        "m": [t.cpu() for t in tree_leaves(new_o["m"])],
+                        "v": [t.cpu() for t in tree_leaves(new_o["v"])],
+                        "launches": {k: fn.launches for k, fn in ops.items()
+                                     if fn.launches}}
     c, h = res["cuda"], res["cpu"]
     lr = opt.lr * float(cosine_schedule(torch.tensor(1), warmup=1, total=1))
     b1c = 1.0 - torch.tensor(opt.b1, dtype=torch.float32)
     b2c = 1.0 - torch.tensor(opt.b2, dtype=torch.float32)
     upd_err, grad_err, m_err, within_ulp, excess = [], [], [], [], []
-    for p, m, v, pc, ph, gc, gh, mh in zip(p0, c["m"], c["v"], c["params"], h["params"],
-                                           c["grads"], h["grads"], h["m"]):
+    for p, dt, m, v, pc, ph, gc, gh, mh in zip(p0, dtypes, c["m"], c["v"], c["params"],
+                                               h["params"], c["grads"], h["grads"], h["m"]):
+        # rounded to the leaf's own type (f32 leaves: the RG-LRU's lam,
+        # RWKV6's w0, decay_b and u, the MoE router)
         want = (p - lr * ((m / b1c) / (torch.sqrt(v / b2c) + opt.eps)
-                          + opt.weight_decay * p)).to(torch.bfloat16).float()
+                          + opt.weight_decay * p)).to(dt).float()
         upd_err.append(_l2_rel(pc - p, want - p))
         grad_err.append(_l2_rel(gc, gh))
         m_err.append(_l2_rel(m, mh))
@@ -1303,18 +1324,29 @@ def train_step_check(arch, ops):
            "worst_grad_l2": max(grad_err), "worst_m_l2": max(m_err),
            "worst_update_l2": max(upd_err), "min_within_ulp": min(within_ulp),
            "max_excess_over_lr": max(excess),
-           "flash_launches": c["flash_launches"], "leaves": len(p0)}
+           "worst_leaves": {k: paths[max(range(len(v)), key=lambda i: sgn * v[i])]
+                            for k, v, sgn in (("grad_l2", grad_err, 1), ("m_l2", m_err, 1),
+                                              ("update_l2", upd_err, 1),
+                                              ("within_ulp", within_ulp, -1))},
+           "kernel_launches": c["launches"],
+           "router_calls": replay.i, "routing_flips_at_ties": len(replay.flips),
+           "leaves": len(p0)}
+    lim = row["limits"] = {**STEP_LIMITS, **STEP_LIMITS_BY_ARCH.get(arch, {})}
     say(f"train step {arch} reduced (card vs cpu): " + json.dumps(row))
     finite = all(bool(torch.isfinite(t).all()) for t in c["params"] + c["grads"])
     problems = [k for k, ok in (
         ("finite", finite and np.isfinite(c["loss"])),
         ("loss", row["loss_rel_err"] < 2e-2),
         ("grad_norm", row["grad_norm_rel_err"] < 2e-2),
-        ("grads", row["worst_grad_l2"] < 2e-2), ("m", row["worst_m_l2"] < 2e-2),
+        ("grads", row["worst_grad_l2"] < lim["grads"]),
+        ("m", row["worst_m_l2"] < lim["m"]),
         ("update", row["worst_update_l2"] < 2e-2),
-        ("params within one ulp", row["min_within_ulp"] >= 0.98),
+        ("params within one ulp", row["min_within_ulp"] >= lim["within_ulp"]),
         ("params within 2 lr + one ulp", row["max_excess_over_lr"] <= 2.0),
-        ("no flash_attention launch", row["flash_launches"] == 0)) if not ok]
+        ("no kernel launch", not c["launches"]),
+        ("router calls replayed", replay.i == len(replay.recorded)),
+        ("routing flips only at ties",
+         all(m < RoutingReplay.TIE for m in replay.flips))) if not ok]
     if problems:
         fail(f"train step {arch}: {problems}")
     return row
@@ -1333,7 +1365,8 @@ def train_full_width(card, args=TRAIN_ARGS, falls=True):
     import tempfile
 
     import numpy as np
-    opt = dict(zip(args[::2], args[1::2]))
+    opt = {a: b for a, b in zip(args, args[1:])
+           if a.startswith("--") and not b.startswith("--")}
     arch, n = opt["--arch"], int(opt["--steps"])
     d = tempfile.mkdtemp(prefix="chip_smoke_train_")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", *args, "--ckpt-dir", d]
@@ -1356,16 +1389,17 @@ def train_full_width(card, args=TRAIN_ARGS, falls=True):
         fail(f"{label}: last line {lines[-1]!r}")
     report = json.loads(next(l for l in lines if l.startswith("train: "))[len("train: "):])
     losses, norms, step_ms = report["losses"], report["grad_norms"], report["step_ms"]
-    med = statistics.median(step_ms[3:n])
-    positions = int(opt["--seq"]) * int(opt["--batch"])
+    first = 4 if n >= 4 else min(2, n)      # a short run: every step after the first
+    med = statistics.median(step_ms[first - 1:n])
+    positions = report["seq"] * report["batch"]
     row = {"arch": arch, "seq": report["seq"], "batch": report["batch"],
            "losses": losses, "grad_norms": norms, "step_ms": step_ms,
-           "median_step_ms": med, f"median_step_ms_4_{n}": med,
+           "median_step_ms": med, f"median_step_ms_{first}_{n}": med,
            "tokens_per_s": positions / (med / 1e3),
            "max_memory_allocated": report["max_memory_allocated"],
            "device_name": report["device_name"], "nvidia_smi": card,
            "command_s": took, "done": lines[-1]}
-    say(f"{label} [{card}]: median step {med:.2f} ms over steps 4-{n}, "
+    say(f"{label} [{card}]: median step {med:.2f} ms over steps {first}-{n}, "
         f"{row['tokens_per_s']:.0f} positions/s, peak "
         f"{row['max_memory_allocated'] / 1e9:.2f} GB allocated; {lines[-1]}")
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
@@ -1378,9 +1412,8 @@ def train_full_width(card, args=TRAIN_ARGS, falls=True):
 def optimizer_timing(arch):
     """The AdamW update alone at ``arch``'s full width on the card (random
     bf16 grads), CUDA events around each of 3 calls after one warm-up; the
-    bound moves 22 bytes a param (read g, p, m, v; write p, m, v).  Also the
-    step's bound: 8 operations a matmul param a token (forward, backward,
-    the group recompute) at the bf16 peak, plus the update's bytes."""
+    bound moves 22 bytes a param (read g, p, m, v; write p, m, v).  Also
+    each leaf's size, for the step's bound (``_step_bound``)."""
     import statistics
 
     import torch
@@ -1396,10 +1429,8 @@ def optimizer_timing(arch):
                      .to(p.dtype), params)
     state = adamw_init(params)
     paths, leaves, _ = tree_flatten_with_paths(params)
-    n = sum(t.numel() for t in leaves)
-    # matmul params: all but the embedding table and the norm scales
-    n_mm = sum(t.numel() for p, t in zip(paths, leaves)
-               if p != "embed" and not p.endswith("scale"))
+    sizes = {p: t.numel() for p, t in zip(paths, leaves)}
+    n = sum(sizes.values())
     adamw_update(grads, state, params, AdamWConfig())
     times = []
     for _ in range(3):
@@ -1414,7 +1445,7 @@ def optimizer_timing(arch):
     del params, grads, state
     gc.collect()
     torch.cuda.empty_cache()
-    return {"params": n, "matmul_params": n_mm, "ms": statistics.median(times),
+    return {"params": n, "sizes": sizes, "ms": statistics.median(times),
             "ms_all": times, "bound_ms": 22.0 * n / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes"}
 
@@ -1473,32 +1504,230 @@ def train_restart_check(ops):
     return row
 
 
-def train_phase(ops, card):
-    """(a) the grad guards, (b) one step card vs CPU for reduced internlm2
-    and gemma3, (c) the launcher at full width, the AdamW update timed
-    alone at the same width, (d) a failure and restart on the card."""
+def _step_bound(leaves, tokens, capacity_rows):
+    """The least time of one train step on the card: 8 operations a matmul
+    param a token (forward, backward, the group recompute) at the bf16 peak,
+    an expert's weights counted on the C rows of its slot in the [E, C, D]
+    buffer (``capacity_rows``; E x C rows in all, as the einsums compute
+    them) instead of the tokens; plus AdamW's 22 bytes a param (read g, p,
+    m, v; write p, m, v) at the memory rate.  ``leaves``: {path: numel};
+    matmul params are all but the embedding table and the norm scales."""
+    n = sum(leaves.values())
+    n_exp = sum(k for p, k in leaves.items() if "experts" in p)
+    n_mm = sum(k for p, k in leaves.items()
+               if p != "embed" and not p.endswith("scale")) - n_exp
+    expert_ops = 8.0 * n_exp * capacity_rows
+    ops = 8.0 * n_mm * tokens + expert_ops
+    adamw_ms = 22.0 * n / HBM_BYTES_PER_S * 1e3
+    return {"params": n, "matmul_params": n_mm, "expert_params": n_exp,
+            "capacity": capacity_rows, "ops": ops, "expert_ops": expert_ops,
+            "expert_ops_f32_ms": expert_ops / PEAK_OPS["f32"] * 1e3,
+            "adamw_bound_ms": adamw_ms,
+            "bound_ms": ops / PEAK_OPS["bf16"] * 1e3 + adamw_ms}
+
+
+def train_family_full_width(arch, layers, card, ops, steps=FAMILY_TRAIN_STEPS):
+    """(b) ``arch`` at full published width with its depth cut to ``layers``,
+    trained on the card by the port's ``Trainer`` in this process: 8 x 256
+    tokens from the data pipeline, the launcher's AdamW (lr 1e-3), no
+    checkpoint.  Finite losses and grad norms, no kernel launch; the median
+    step ms over steps 4 to the last, tokens/s, peak memory (under 80 GB)
+    and the step's bound."""
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
     import torch
-    out = {"guards": grad_guard_check(ops), "refused": kernel_family_refusal()}
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.moe import capacity
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+    from repro_torch.tree import tree_flatten_with_paths
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+    seq, batch = 256, 8
+    d = tempfile.mkdtemp(prefix="chip_smoke_family_")
+    leaves = {}
+    try:
+        tr = Trainer(cfg, ShapeConfig("train", "train", seq, batch),
+                     TrainConfig(total_steps=steps, log_every=steps + 1,
+                                 checkpoint_every=steps + 1, checkpoint_dir=d,
+                                 opt=AdamWConfig(lr=1e-3)), device="cuda")
+        init = tr.init_state
+
+        def counting():
+            params, opt_state = init()
+            paths, xs, _ = tree_flatten_with_paths(params)
+            leaves.update({p: x.numel() for p, x in zip(paths, xs)})
+            return params, opt_state
+
+        tr.init_state = counting
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(ops)
+        t0 = time.perf_counter()
+        res = tr.run(start_fresh=True)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        launched = {k: fn.launches for k, fn in ops.items() if fn.launches}
+        peak = torch.cuda.max_memory_allocated()
+        del tr
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = seq * batch
+    C = capacity(tokens, cfg.moe_top_k, cfg.num_experts, cfg.capacity_factor) \
+        if cfg.num_experts else 0
+    bound = _step_bound(leaves, tokens, C)
+    step_ms = [x * 1e3 for x in res.step_s]
+    med = statistics.median(step_ms[3:])
+    row = {"arch": arch, "layers": layers, "of_layers": get_arch(arch).num_layers,
+           "seq": seq, "batch": batch, "losses": res.losses,
+           "grad_norms": res.grad_norms, "step_ms": step_ms,
+           f"median_step_ms_4_{steps}": med, "median_step_ms": med,
+           "tokens_per_s": tokens / (med / 1e3), "max_memory_allocated": peak,
+           "step_bound_ms": bound["bound_ms"], "bound": bound,
+           "kernel_launches": launched, "seconds": took, "nvidia_smi": card}
+    say(f"train family {arch} full width, {layers} of {row['of_layers']} layers "
+        f"[{card}]: " + json.dumps(row))
+    say(f"train family {arch} [{card}]: median step {med:.2f} ms over steps 4-{steps}, "
+        f"{row['tokens_per_s']:.0f} tokens/s, peak {peak / 1e9:.2f} GB allocated, "
+        f"step bound {bound['bound_ms']:.2f} ms ({bound['ops'] / 1e12:.2f} TFLOP at "
+        f"the bf16 peak + AdamW {bound['adamw_bound_ms']:.2f} ms over "
+        f"{bound['params']} params)")
+    problems = [k for k, ok in (
+        ("finite losses and grad norms", len(res.losses) == steps
+         and np.isfinite(res.losses).all() and np.isfinite(res.grad_norms).all()),
+        ("no kernel launch", not launched),
+        ("peak under 80 GB", peak < 80e9)) if not ok]
+    if problems:
+        fail(f"train family {arch}: {problems}: {row}")
+    return row
+
+
+def _block_grads(cfg, bp, x, cot):
+    """An 'R' block in train mode: (out, grads of every param and of x)
+    for the loss sum(out * cot)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(bp)]
+    xg = x.detach().requires_grad_(True)
+    positions = torch.arange(x.shape[1], device=x.device)
+    out, _, _ = lm.apply_block(tree_unflatten(bp, leaves), "R", xg, cfg=cfg,
+                               positions=positions, mode="train")
+    grads = torch.autograd.grad((out.float() * cot).sum(), leaves + [xg])
+    return out.detach(), grads
+
+
+def rg_block_check(ops, card):
+    """(c) recurrentgemma-9b's 'R' block at full width (d_model 4096,
+    rnn_width 4096, MLP at d_ff 12288; random weights from seed 0) forward
+    and backward in train mode on the card against the same block on the
+    CPU at B = 1, T = 256: output within 2e-2 (max rel.), every grad within
+    3e-2 (L2), no kernel launch.  Then timed on the card at the trainer's
+    microbatch, B = 4, T = 256: host ms (synchronized) and device ms."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_flatten_with_paths, tree_leaves
+    cfg = get_arch("recurrentgemma-9b")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    bp = lm.block_init(gen, "R", cfg)
+    n = sum(t.numel() for t in tree_leaves(bp))
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((1, 256, cfg.d_model)),
+                        dtype=torch.float32).to(torch.bfloat16)
+    cot = torch.as_tensor(rng.standard_normal((1, 256, cfg.d_model)), dtype=torch.float32)
+    t0 = time.perf_counter()
+    out_h, g_h = _block_grads(cfg, bp, x, cot)
+    cpu_s = time.perf_counter() - t0
+    bp_c = _to(bp, "cuda")
+    _zero(ops)
+    out_c, g_c = _block_grads(cfg, bp_c, x.cuda(), cot.cuda())
+    torch.cuda.synchronize()
+    launched = {k: fn.launches for k, fn in ops.items() if fn.launches}
+    out_err = rel_err(out_c.cpu(), out_h)
+    grad_l2 = [_l2_rel(a.float().cpu(), b.float()) for a, b in zip(g_c, g_h)]
+    finite = bool(torch.isfinite(out_c).all()) and all(
+        bool(torch.isfinite(g).all()) for g in g_c)
+    # the trainer's microbatch: 4 sequences of 256 tokens
+    xb = torch.randn((4, 256, cfg.d_model), device="cuda").to(torch.bfloat16)
+    cb = torch.randn((4, 256, cfg.d_model), device="cuda")
+
+    def fwd_bwd():
+        return _block_grads(cfg, bp_c, xb, cb)
+
+    fwd_bwd()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    dev_ms = cuda_ms(fwd_bwd, iters=3, warmup=1)
+    paths, xs, _ = tree_flatten_with_paths(bp)
+    n_mm = sum(t.numel() for p, t in zip(paths, xs) if not p.endswith("scale"))
+    ops_n = 6.0 * n_mm * 4 * 256           # forward and backward, no recompute
+    nbytes = 2.0 * 2 * n + 2 * 2 * xb.numel() + 4 * cb.numel()  # params, grads, x, dx, cot
+    bound, by = bound_ms(nbytes, ops_n, "bf16")
+    row = {"params": n, "out_rel_err": out_err, "worst_grad_l2": max(grad_l2),
+           "grad_l2": grad_l2, "kernel_launches": launched, "cpu_s": cpu_s,
+           "host_ms_b4": statistics.median(walls), "host_ms_b4_all": walls,
+           "device_ms_b4": dev_ms, "bound_ms_b4": bound, "bound_by": by,
+           "nvidia_smi": card}
+    say(f"train rg block full width [{card}]: " + json.dumps(row))
+    del bp_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems = [k for k, ok in (("finite", finite), ("out", out_err < 2e-2),
+                                ("grads", max(grad_l2) < 3e-2),
+                                ("no kernel launch", not launched)) if not ok]
+    if problems:
+        fail(f"train rg block: {problems}: {row}")
+    return row
+
+
+def train_phase(ops, card):
+    """(a) the grad guards, (b) one step card vs CPU for reduced internlm2,
+    gemma3, olmoe, recurrentgemma and rwkv6, (c) the launcher at full
+    width, the AdamW update timed alone at the same width, (d) a failure
+    and restart on the card, (e) olmoe and rwkv6 at full width with cut
+    depth, (f) recurrentgemma's 'R' block at full width and the reduced
+    model through the launcher."""
+    import torch
+    out = {"guards": grad_guard_check(ops)}
     say("train guards: every entry point refused grad inputs; no_grad rel. err "
-        + json.dumps(out["guards"]) + "; families refused at "
-        + json.dumps(out["refused"]))
-    out["step"] = [train_step_check(arch, ops) for arch in (TRAIN_ARCH, "gemma3-1b")]
+        + json.dumps(out["guards"]))
+    out["step"] = [train_step_check(arch, ops) for arch in (TRAIN_ARCH, "gemma3-1b")
+                   + FAMILY_ARCHS]
     gc.collect()
     torch.cuda.empty_cache()
     out["full_width"] = train_full_width(card)
     out["optimizer"] = opt = optimizer_timing(TRAIN_ARCH)
     fw = out["full_width"]
-    tokens = fw["seq"] * fw["batch"]
-    step_bound = 8.0 * opt["matmul_params"] * tokens / PEAK_OPS["bf16"] * 1e3 \
-        + opt["bound_ms"]
-    fw["step_bound_ms"] = step_bound
+    bound = _step_bound(opt.pop("sizes"), fw["seq"] * fw["batch"], 0)
+    step_bound = fw["step_bound_ms"] = bound["bound_ms"]
     fw["optimizer_share"] = opt["ms"] / fw["median_step_ms_4_9"]
     say(f"train optimizer [{card}]: AdamW update {opt['ms']:.2f} ms "
         f"(runs {', '.join(f'{t:.2f}' for t in opt['ms_all'])}) over {opt['params']} "
         f"params, bound {opt['bound_ms']:.2f} ms (bytes); "
         f"{100 * fw['optimizer_share']:.1f}% of the median step; step bound "
-        f"{step_bound:.2f} ms ({opt['matmul_params']} matmul params)")
+        f"{step_bound:.2f} ms ({bound['matmul_params']} matmul params)")
     out["restart"] = train_restart_check(ops)
+    out["families"] = [train_family_full_width(arch, layers, card, ops)
+                       for arch, layers in FAMILY_FULL_WIDTH]
+    out["rg_block"] = rg_block_check(ops, card)
+    out["rg_reduced"] = train_full_width(card, RG_TRAIN_ARGS, falls=False)
     return out
 
 
@@ -1937,6 +2166,8 @@ def main() -> None:
              "dispatch_score_update": "internlm2-1.8b", "moe_gmm": "olmoe-1b-7b",
              "rglru_scan": "recurrentgemma-9b", "wkv6": "rwkv6-3b"}
     launches = {k: served[a][0][k] for k, a in owner.items()}
+    if launches != SERVE_LAUNCHES:
+        fail(f"serve launch counts {launches}, want {SERVE_LAUNCHES}")
     shapes = served["internlm2-1.8b"][1]
 
     # 6. real KV bytes on the card, 7. a checkpoint of the same params
@@ -1957,7 +2188,8 @@ def main() -> None:
     ci = ci_phase()
     say(f"ci: ok in {time.perf_counter() - t0:.1f}s")
 
-    # 9. training: the guards, card vs CPU, full width, a restart
+    # 9. training: the guards, card vs CPU, full width, a restart, the
+    # MoE, RG-LRU and RWKV6 families
     t0 = time.perf_counter()
     train = train_phase(ops, smi_line)
     train["seconds"] = time.perf_counter() - t0

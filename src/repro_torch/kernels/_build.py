@@ -110,13 +110,16 @@ def refuse_grad(kernel: str, *operands) -> None:
     """Raise when grad mode is on and an operand requires grad.  The
     kernels have no backward and their outputs no ``grad_fn``: a launch
     would silently cut the graph.  Called on the CUDA path only; CPU
-    tensors take the plain versions, which autograd differentiates."""
+    tensors take the plain versions, which autograd differentiates.  The
+    models train through their train route (``mode="train"``), which
+    reaches no kernel."""
     if torch.is_grad_enabled() and any(
             isinstance(x, torch.Tensor) and x.requires_grad for x in operands):
         raise RuntimeError(
             f"{kernel}: the CUDA kernel has no backward and an input requires "
-            "grad; call it under torch.no_grad(), or train through its plain "
-            "version on CPU tensors (ROADMAP B5)")
+            "grad; call it under torch.no_grad(), or train through the model's "
+            "train route (mode='train'), which runs the reference's plain ops "
+            "and launches no kernel")
 
 
 def check(err: int, what: str) -> None:

@@ -10,11 +10,13 @@ over that axis.  Three entry points: ``lm_loss`` (train), ``lm_prefill``
 against the caches).
 
 Training runs each group under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint`` of the group body) and its attention through the plain
-``attention_core``, never the flash-attention kernel, which has no
-backward.  The MoE, RG-LRU and RWKV6 blocks call their kernels in training
-too: on CUDA tensors those raise under grad mode (ROADMAP B5), and on CPU
-tensors the plain versions are differentiated.
+``jax.checkpoint`` of the group body) and reaches no kernel, since none
+has a backward: ``apply_block`` passes ``train`` to every block, so
+attention runs the plain ``attention_core``, the MoE FFN the reference's
+expert einsums, the RG-LRU its Python time loop (``rglru_scan``) and the
+WKV6 recurrence ``wkv_chunked`` / ``wkv_scan``, as the reference trains
+them.  The code is the same on the CPU and on the card.  Prefill and
+decode keep their kernels.
 
 Decode writes its new state into the cache it is given, in place (the
 reference returns fresh buffers): the K/V slot of 'A' and 'L' blocks, and
@@ -152,14 +154,14 @@ def _add_aux(total, aux):
     return aux if total is None else (total if aux is None else total + aux)
 
 
-def _ffn_apply(bp, cfg: ArchConfig, h2):
+def _ffn_apply(bp, cfg: ArchConfig, h2, train: bool):
     """Dense or MoE FFN on [B, S, D]; returns (out, aux), aux None when
     dense."""
     if cfg.num_experts:
         B, S, D = h2.shape
         out, aux = moe_ffn(bp["moe"], h2.reshape(B * S, D),
                            n_experts=cfg.num_experts, top_k=cfg.moe_top_k,
-                           capacity_factor=cfg.capacity_factor)
+                           capacity_factor=cfg.capacity_factor, train=train)
         return out.reshape(B, S, D), aux
     return mlp(bp["ffn"], h2), None
 
@@ -191,11 +193,12 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
     training."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
+    train = mode == "train"
     if kind == "R":
         state = cache if cache is not None else rg.rglru_state_init(
             h.shape[0], cfg.rnn_width, cfg.conv_width, h.device)
         hn = rmsnorm(bp["norm1"], h, cfg.norm_eps)
-        out, new_state = rg.rglru_block_apply(bp["rglru"], hn, state)
+        out, new_state = rg.rglru_block_apply(bp["rglru"], hn, state, train=train)
         h = h + out
         h2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
         return h + mlp(bp["ffn"], h2), None, _store(cache, new_state, mode)
@@ -204,7 +207,8 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
             h.shape[0], cfg.d_model, cfg.rwkv_head_dim, h.device)
         hn = rmsnorm(bp["norm1"], h, cfg.norm_eps)
         tm_out, shift_tm, S_new = rw.timemix_apply(bp["tm"], hn, st["shift_tm"],
-                                                   st["S"], cfg.rwkv_head_dim)
+                                                   st["S"], cfg.rwkv_head_dim,
+                                                   train=train)
         h = h + tm_out
         hn2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
         cm_out, shift_cm = rw.channelmix_apply(bp["cm"], hn2, st["shift_cm"])
@@ -232,9 +236,9 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
     else:
         attn_out, (k_full, v_full) = attention_block(
             bp["attn"], hn, cfg=cfg, positions=positions, causal=True,
-            window=window, chunk=chunk, use_kernel=mode != "train")
+            window=window, chunk=chunk, use_kernel=not train)
         S = h.shape[1]
-        if mode == "train":
+        if train:
             new_cache = None
         elif kind == "L":
             w = min(cfg.window_size, S)
@@ -248,7 +252,7 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
             new_cache = {"k": k_full, "v": v_full}
     h = h + attn_out
     h2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
-    ffn_out, aux = _ffn_apply(bp, cfg, h2)
+    ffn_out, aux = _ffn_apply(bp, cfg, h2, train)
     return h + ffn_out, aux, new_cache
 
 

@@ -3,23 +3,32 @@
 A port of ``moe_ffn`` in the reference's ``models/moe.py`` (the mesh-free
 path): the router's softmax with renormalised top-k, the stable rank of
 each assignment within its expert, the k-sliced scatter into an [E, C, D]
-capacity buffer, SwiGLU experts through the grouped-GEMM kernel
-(``kernels.moe_gmm``), and the gated gather back.  Assignments past an
-expert's capacity are dropped (their slot is clipped to C-1 and they add
-zero), so their tokens fall through the residual, as in GShard.
+capacity buffer, SwiGLU experts, and the gated gather back.  Assignments
+past an expert's capacity are dropped (their slot is clipped to C-1 and
+they add zero), so their tokens fall through the residual, as in GShard.
 
 The scatter accumulates (``index_add_``), as the reference's ``.at[].add``
 does: a dropped entry shares its clipped slot with a kept one, and a plain
 index assignment would let its zero overwrite the kept row.
 
-Each expert's fill, ``min(assignments, C)``, goes to the three GEMMs as
-``counts``: rows at and past it are empty, so the kernel skips them and
-reads no weights of an expert that holds no token.  A dropped assignment
-is clipped to slot C-1 only in an expert whose fill is C, so every row the
-gather reads lies below its expert's fill.  The counts are summed on the
-device by ``scatter_add_`` (``torch.bincount`` reads its input's maximum
-back to the host on CUDA), so the FFN makes no host sync for them.
-``moe_ffn_sharded`` (expert parallelism) is not ported (ROADMAP D2).
+Serving (``train=False``) runs the experts through the grouped-GEMM kernel
+(``kernels.moe_gmm``).  Each expert's fill, ``min(assignments, C)``, goes to
+the three GEMMs as ``counts``: rows at and past it are empty, so the kernel
+skips them and reads no weights of an expert that holds no token.  A
+dropped assignment is clipped to slot C-1 only in an expert whose fill is
+C, so every row the gather reads lies below its expert's fill.  The counts
+are summed on the device by ``scatter_add_`` (``torch.bincount`` reads its
+input's maximum back to the host on CUDA), so the FFN makes no host sync
+for them.
+
+Training (``train=True``) follows the reference's train path, which never
+reaches its Pallas kernel: the experts are the three einsums of its
+``_expert_mlp`` with ``preferred_element_type=F32``, written here on
+f32-upcast operands (a bf16 product is exact in f32), so autograd
+differentiates them on the CPU and on the card alike.  The kernel has no
+backward.  No fill mask is needed there: the empty rows of the buffer are
+zero and stay zero through the SwiGLU.  ``moe_ffn_sharded`` (expert
+parallelism) is not ported (ROADMAP D2).
 """
 
 from __future__ import annotations
@@ -81,20 +90,28 @@ def _aux_loss(probs, counts, n_assignments: int):
     return counts.numel() * torch.sum(f_e * probs.mean(dim=0))
 
 
-def _expert_mlp(w, buf, counts=None):
-    """buf: [E, C, D] -> [E, C, D] through SwiGLU experts: three grouped
-    GEMMs, the gate and up products kept in fp32 and the down product
-    rounded to buf's dtype, where the reference's einsums round.  Rows at
-    and past ``counts[e]`` come out 0."""
+def _expert_mlp(w, buf, counts=None, train=False):
+    """buf: [E, C, D] -> [E, C, D] through SwiGLU experts, the gate and up
+    products kept in fp32 and the down product rounded to buf's dtype, where
+    the reference's einsums round.  Serving: three grouped GEMMs, rows at
+    and past ``counts[e]`` come out 0.  Training: the reference's einsums,
+    summed in fp32 on upcast operands."""
+    if train:
+        bf = buf.to(F32)
+        g = torch.einsum("ecd,edf->ecf", bf, w["w1"].to(F32))
+        u = torch.einsum("ecd,edf->ecf", bf, w["w3"].to(F32))
+        h = (F.silu(g) * u).to(buf.dtype)
+        return torch.einsum("ecf,efd->ecd", h.to(F32), w["w2"].to(F32)).to(buf.dtype)
     g = moe_gmm(buf, w["w1"], out_dtype=F32, counts=counts)
     u = moe_gmm(buf, w["w3"], out_dtype=F32, counts=counts)
     h = (F.silu(g) * u).to(buf.dtype)
     return moe_gmm(h, w["w2"], counts=counts)
 
 
-def moe_ffn(p, x2d, *, n_experts: int, top_k: int,
-            capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x2d: [T, D] -> ([T, D], aux)."""
+def moe_ffn(p, x2d, *, n_experts: int, top_k: int, capacity_factor: float,
+            train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2d: [T, D] -> ([T, D], aux).  ``train``: the experts run the
+    reference's einsums instead of the kernel."""
     T, D = x2d.shape
     E, K = n_experts, top_k
     C = capacity(T, K, E, capacity_factor)
@@ -113,7 +130,7 @@ def moe_ffn(p, x2d, *, n_experts: int, top_k: int,
     zero = torch.zeros((), dtype=x2d.dtype, device=x2d.device)
     for k in range(K):      # k-sliced scatters cap the transient at [T, D]
         buf.index_add_(0, row[k::K], torch.where(keep[k::K, None], x2d, zero))
-    y = _expert_mlp(p["experts"], buf.view(E, C, D), fill).view(E * C, D)
+    y = _expert_mlp(p["experts"], buf.view(E, C, D), fill, train).view(E * C, D)
     out = torch.zeros((T, D), dtype=F32, device=x2d.device)
     for k in range(K):
         w = (gate_vals[:, k] * keep[k::K]).to(F32)

@@ -9,11 +9,15 @@ output projection.  RG-LRU per channel:
     log a_t = -c * softplus(Lambda) * r_t          (c = 8)
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * xi_t)
 
-The gate matmuls run as batched products; the two sigmoids, a, b and the
-time recurrence run in one launch of the RG-LRU scan kernel's gated entry
-(``kernels.rglru_scan.ops.rglru_gated_scan``), for a prompt and for a
-single decode token alike.  The GeLU is the tanh approximation, which is
-what ``jax.nn.gelu`` computes by default.
+The gate matmuls run as batched products.  Serving (prefill and decode)
+runs the two sigmoids, a, b and the time recurrence in one launch of the
+RG-LRU scan kernel's gated entry (``kernels.rglru_scan.ops.
+rglru_gated_scan``), which has no backward.  Training follows the
+reference's train path: the sigmoids as separate fp32 ops, then
+``rglru_scan``, the reference's ``lax.scan`` become a Python loop over
+time that autograd differentiates on the CPU and on the card alike.  The
+GeLU is the tanh approximation, which is what ``jax.nn.gelu`` computes by
+default.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import torch.nn.functional as F
 
 from ..kernels.rglru_scan.ops import rglru_gated_scan
 from .layers import BF16, F32, dense_init
+
+RGLRU_C = 8.0
 
 
 def rglru_init(gen, d_model: int, width: int, conv_width: int = 4, lead=()):
@@ -49,12 +55,36 @@ def causal_conv1d(x, kernel, prev):
     return out.to(x.dtype), xp[:, xp.shape[1] - (cw - 1):]
 
 
-def rglru_block_apply(p, x, state):
+def rglru_scan(xi, r, i_gate, lam, h0):
+    """The reference's ``rglru_scan``.  xi, r, i_gate: [B, T, W] (r and
+    i_gate the sigmoid gates); lam: [W]; h0: [B, W].  Returns (y [B, T, W]
+    f32, hT).  The steps are stacked, never written into a preallocated
+    buffer, so autograd sees each one; a and the gated input are unbound
+    once, so backward stacks their step grads once."""
+    log_a = (-RGLRU_C * F.softplus(lam))[None, None, :] * r.to(F32)
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (
+        i_gate.to(F32) * xi.to(F32))
+    h, ys = h0.to(F32), []
+    for a_t, g_t in zip(a.unbind(1), gated.unbind(1)):
+        h = a_t * h + g_t
+        ys.append(h)
+    return torch.stack(ys, 1), h
+
+
+def rglru_block_apply(p, x, state, train=False):
     """x: [B, T, D]; state: {h: [B, W], conv: [B, Cw-1, W]}.
-    Returns (out, new state) with fresh state tensors."""
+    Returns (out, new state) with fresh state tensors.  ``train``: the
+    reference's separate gates and scan instead of the kernel."""
     xi = x @ p["w_in"]
     xi, conv_state = causal_conv1d(xi, p["conv"], state["conv"])
-    y, hT = rglru_gated_scan(xi, xi @ p["w_a"], xi @ p["w_x"], p["lam"], state["h"])
+    if train:
+        r = torch.sigmoid((xi @ p["w_a"]).to(F32))
+        i_gate = torch.sigmoid((xi @ p["w_x"]).to(F32))
+        y, hT = rglru_scan(xi, r, i_gate, p["lam"], state["h"])
+    else:
+        y, hT = rglru_gated_scan(xi, xi @ p["w_a"], xi @ p["w_x"], p["lam"],
+                                 state["h"])
     gate = F.gelu((x @ p["w_gate_branch"]).to(F32), approximate="tanh")
     out = (y * gate).to(x.dtype) @ p["out_proj"]
     return out, {"h": hT, "conv": conv_state}

@@ -6,18 +6,23 @@ dynamic (LoRA) interpolation for r/k/v/w/g, the WKV linear-attention state
 S_t = diag(w_t) S_{t-1} + k_t^T v_t with bonus u, a per-head norm and a silu
 gate.  Channel-mix: token shift + squared-ReLU FFN with a receptance gate.
 
-``timemix_apply`` runs the recurrence in the WKV6 kernel (``kernels.wkv6``)
-for every T: the reference picks its chunked scan for a prompt and the plain
-scan for one token, and both are the exact recurrence, which is what the
-kernel computes.  ``wkv_scan`` and ``wkv_chunked`` are the plain versions of
-those two, kept for the tests.  Dtypes follow the reference: ``mu``,
-``mix_b`` and ``wo`` bf16; ``w0``, ``decay_b`` and ``u`` fp32.
+Serving (``timemix_apply(train=False)``) runs the recurrence in the WKV6
+kernel (``kernels.wkv6``) for every T: the reference picks its chunked scan
+for a prompt and the plain scan for one token, and both are the exact
+recurrence, which is what the kernel computes.  The kernel has no
+backward, so training takes the reference's own route: ``wkv_chunked``
+for T > 1 (each chunk recomputed in backward, as the reference's
+``jax.checkpoint`` of its chunk body does) and ``wkv_scan`` for T = 1,
+Python loops over time that autograd differentiates on the CPU and on the
+card alike.  Dtypes follow the reference: ``mu``, ``mix_b`` and ``wo``
+bf16; ``w0``, ``decay_b`` and ``u`` fp32.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.rwkv6_scan.ops import wkv6
 from .layers import BF16, F32, dense_init, rmsnorm, rmsnorm_init
@@ -72,33 +77,42 @@ def wkv_scan(r, k, v, w, u, s0):
     i, value dim j.
     """
     S = s0.to(F32)
-    r, k, v, w = (a.to(F32) for a in (r, k, v, w))
+    u4 = u[None, :, :, None]
     outs = []
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]             # [B, H, N, N]
-        outs.append(torch.einsum("bhi,bhij->bhj", r[:, t],
-                                 S + u[None, :, :, None] * kv))
-        S = w[:, t, :, :, None] * S + kv
+    # one unbind a tensor: in backward its step grads are stacked once
+    # (indexing step by step would add T full-size grads)
+    for r_t, k_t, v_t, w_t in zip(*(a.to(F32).unbind(1) for a in (r, k, v, w))):
+        kv = k_t[..., :, None] * v_t[..., None, :]                  # [B, H, N, N]
+        outs.append(torch.einsum("bhi,bhij->bhj", r_t, S + u4 * kv))
+        S = w_t[..., :, None] * S + kv
     return torch.stack(outs, 1), S
 
 
 def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128):
     """WKV6 as an outer loop over time chunks of the exact scan: the
-    reference's prompt path, numerically the same as ``wkv_scan``."""
+    reference's prompt path, numerically the same as ``wkv_scan``.  Under
+    grad mode each chunk is recomputed in backward, so only the
+    chunk-boundary states are kept.  Every operand, ``u`` included, goes
+    to the checkpointed call as an argument: the reentrant form would drop
+    the grads of a tensor the chunk only closes over."""
     B, T, H, N = r.shape
     chunk = min(chunk, T)
     assert T % chunk == 0, (T, chunk)
     S = s0.to(F32)
     outs = []
     for start in range(0, T, chunk):
-        sl = slice(start, start + chunk)
-        out, S = wkv_scan(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, S)
+        xs = tuple(a[:, start:start + chunk] for a in (r, k, v, w))
+        if torch.is_grad_enabled():
+            out, S = checkpoint(wkv_scan, *xs, u, S, use_reentrant=False)
+        else:
+            out, S = wkv_scan(*xs, u, S)
         outs.append(out)
     return torch.cat(outs, 1), S
 
 
-def timemix_apply(p, x, shift_prev, s0, head_dim: int):
-    """x: [B, T, D].  Returns (out, new_shift [B, D], sT)."""
+def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False):
+    """x: [B, T, D].  Returns (out, new_shift [B, D], sT).  ``train``: the
+    reference's scans instead of the kernel."""
     B, T, D = x.shape
     H = D // head_dim
     xx = _token_shift(x, shift_prev) - x
@@ -115,7 +129,12 @@ def timemix_apply(p, x, shift_prev, s0, head_dim: int):
     w = torch.exp(-torch.exp(logw)).reshape(B, T, H, head_dim)   # decay in (0, 1)
     u = p["u"].reshape(H, head_dim)
 
-    out, sT = wkv6(r, k, v, w, u, s0)
+    if not train:
+        out, sT = wkv6(r, k, v, w, u, s0)
+    elif T > 1:
+        out, sT = wkv_chunked(r, k, v, w, u, s0)
+    else:
+        out, sT = wkv_scan(r, k, v, w, u, s0)
     out = rmsnorm(p["ln_out"], out.reshape(B, T, D))
     out = (out.to(F32) * g).to(x.dtype) @ p["wo"]
     return out, x[:, -1, :], sT

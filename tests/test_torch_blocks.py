@@ -329,3 +329,122 @@ def test_wkv_chunked_matches_scan_and_reference(T, chunk):
     out_j, s_j = jrw.wkv_scan(*(jnp.asarray(a) for a in arrs))
     assert rel_err(out_s.numpy(), out_j) < 2e-5
     assert rel_err(s_s.numpy(), s_j) < 2e-5
+
+
+# ------------------------------------------------------- the train route
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T", [1, 16, 256])
+def test_rglru_scan_value_and_grads_match_reference(T, dtype):
+    """The train route's scan (a Python loop over time) against the
+    reference's ``lax.scan`` under ``jax.grad``: y, hT and the grads of xi,
+    r, i_gate, lam and h0."""
+    import jax
+    rng = np.random.default_rng(T)
+    B, W = 2, 24
+    xi = rng.standard_normal((B, T, W)).astype(np.float32)
+    r = 1 / (1 + np.exp(-rng.standard_normal((B, T, W)))).astype(np.float32)
+    ig = 1 / (1 + np.exp(-rng.standard_normal((B, T, W)))).astype(np.float32)
+    lam = (0.65 + 0.1 * rng.standard_normal(W)).astype(np.float32)
+    h0 = rng.standard_normal((B, W)).astype(np.float32)
+    cy = rng.standard_normal((B, T, W)).astype(np.float32)
+    ch = rng.standard_normal((B, W)).astype(np.float32)
+    js = [both(a, dtype)[0] for a in (xi, r, ig)] + [jnp.asarray(lam), jnp.asarray(h0)]
+    ts = [both(a, dtype)[1].requires_grad_(True) for a in (xi, r, ig)] + [
+        torch.from_numpy(a).requires_grad_(True) for a in (lam, h0)]
+
+    def jloss(*a):
+        y, hT = jrg.rglru_scan(*a)
+        return jnp.sum(y * cy) + jnp.sum(hT * ch), (y, hT)
+
+    (_, (y_j, h_j)), g_j = jax.value_and_grad(jloss, argnums=tuple(range(5)),
+                                              has_aux=True)(*js)
+    y_t, h_t = trg.rglru_scan(*ts)
+    loss = (y_t * torch.from_numpy(cy)).sum() + (h_t * torch.from_numpy(ch)).sum()
+    g_t = torch.autograd.grad(loss, ts)
+    assert y_t.dtype == h_t.dtype == torch.float32
+    check(y_t.detach(), y_j, dtype, "y")
+    check(h_t.detach(), h_j, dtype, "hT")
+    for name, t, j in zip(("xi", "r", "i_gate", "lam", "h0"), g_t, g_j):
+        assert t.dtype == ts[("xi", "r", "i_gate", "lam", "h0").index(name)].dtype, name
+        check(t, j, dtype, name)
+
+
+def test_wkv_chunked_grads_match_reference():
+    """Under grad mode each 128-step chunk runs checkpointed (two forward
+    scans, two recomputed in backward); out, sT and the grads of r, k, v,
+    w, u and s0 match ``jax.grad`` of the reference's ``wkv_chunked``
+    within 1e-4 (f32).  ``u`` reaches every chunk, so its grad must be
+    there and nonzero."""
+    import jax
+    T, chunk = 256, 128
+    arrs = wkv_inputs(1, T, 2, 16, seed=9)
+    rng = np.random.default_rng(10)
+    co = rng.standard_normal(arrs[0].shape).astype(np.float32)
+    cs = rng.standard_normal(arrs[5].shape).astype(np.float32)
+
+    def jloss(*a):
+        out, sT = jrw.wkv_chunked(*a, chunk=chunk)
+        return jnp.sum(out * co) + jnp.sum(sT * cs), (out, sT)
+
+    (_, (out_j, s_j)), g_j = jax.value_and_grad(
+        jloss, argnums=tuple(range(6)), has_aux=True)(*(jnp.asarray(a) for a in arrs))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    calls, real = [], trw.wkv_scan
+
+    def counting(*a):
+        calls.append(a[0].shape[1])
+        return real(*a)
+
+    trw.wkv_scan = counting
+    try:
+        out_t, s_t = trw.wkv_chunked(*ts, chunk=chunk)
+        loss = (out_t * torch.from_numpy(co)).sum() + (s_t * torch.from_numpy(cs)).sum()
+        g_t = torch.autograd.grad(loss, ts, allow_unused=True)
+    finally:
+        trw.wkv_scan = real
+    assert calls == [chunk] * 4
+    assert rel_err(out_t.detach().numpy(), out_j) < 1e-4
+    assert rel_err(s_t.detach().numpy(), s_j) < 1e-4
+    for name, t, j in zip("r k v w u s0".split(), g_t, g_j):
+        assert t is not None, name
+        assert float(t.abs().max()) > 0, name
+        assert rel_err(t.numpy(), j) < 1e-4, name
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_ffn_train_value_and_grads_match_reference(dtype):
+    """``moe_ffn(train=True)``, the reference's einsum experts, at capacity
+    factor 0.25 (C = 8 slots for 10 assignments an expert: drops): the
+    output, the aux loss and the grads of x, the router and the three
+    expert weights against ``jax.grad`` of the reference's ``moe_ffn``."""
+    import jax
+    T, E, K, factor = 40, 8, 2, 0.25
+    rng = np.random.default_rng(11)
+    D, Fd = 32, 48
+    pj, pt = tree_both(moe_weights(rng, D, Fd, E), dtype, f32_keys=("router",))
+    x = rng.standard_normal((T, D)).astype(np.float32)
+    xj, xt = both(x, dtype)
+    cot = rng.standard_normal((T, D)).astype(np.float32)
+    kw = dict(n_experts=E, top_k=K, capacity_factor=factor)
+    C = tmoe.capacity(T, K, E, factor)
+    _, _, idx = tmoe._router(pt, xt, K)
+    assert (np.bincount(idx.reshape(-1).numpy(), minlength=E) > C).any()
+
+    def jloss(p, x_):
+        out, aux = jmoe.moe_ffn(p, x_, **kw)
+        return jnp.sum(out.astype(jnp.float32) * cot) + aux, (out, aux)
+
+    (_, (out_j, aux_j)), (gp_j, gx_j) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(pj, xj)
+    leaves = [pt["router"]] + [pt["experts"][k] for k in ("w1", "w3", "w2")] + [xt]
+    leaves = [t.clone().requires_grad_(True) for t in leaves]
+    p = {"router": leaves[0], "experts": dict(zip(("w1", "w3", "w2"), leaves[1:4]))}
+    out_t, aux_t = tmoe.moe_ffn(p, leaves[4], train=True, **kw)
+    loss = (out_t.float() * torch.from_numpy(cot)).sum() + aux_t
+    g_t = torch.autograd.grad(loss, leaves)
+    check(out_t.detach(), out_j, dtype, "out")
+    assert abs(float(aux_t.detach()) - float(aux_j)) < 1e-5 * max(1.0, abs(float(aux_j)))
+    want = [gp_j["router"]] + [gp_j["experts"][k] for k in ("w1", "w3", "w2")] + [gx_j]
+    for name, t, j in zip(("router", "w1", "w3", "w2", "x"), g_t, want):
+        assert t.dtype == leaves[("router", "w1", "w3", "w2", "x").index(name)].dtype
+        check(t, j, dtype, name)

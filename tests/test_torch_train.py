@@ -197,9 +197,44 @@ def test_train_mode_never_calls_flash_attention(monkeypatch):
         make_prefill_step(cfg, shape)(params, {"tokens": tokens})  # the patch bites
 
 
+KERNEL_FAMILIES = ["olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-3b"]
+
+
+@pytest.mark.parametrize("name", KERNEL_FAMILIES, ids=[m.split("-")[0] for m in KERNEL_FAMILIES])
+def test_train_mode_never_calls_the_block_kernels(monkeypatch, name):
+    """Training takes the reference's route through the MoE, RG-LRU and
+    RWKV6 blocks: with every entry of K4, K5 and K6 patched to raise (in the
+    kernel modules and where the blocks bound them), the loss and a train
+    step run; a prefill of the same model raises, so the patch bites."""
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import rglru as trg
+    from repro_torch.models import rwkv as trw
+
+    def refuse(*a, **k):
+        raise AssertionError("kernel called")
+
+    for mod, attr in ((gmm_ops, "moe_gmm"), (tmoe, "moe_gmm"), (rg_ops, "rglru_scan"),
+                      (rg_ops, "rglru_gated_scan"), (trg, "rglru_gated_scan"),
+                      (wkv_ops, "wkv6"), (trw, "wkv6")):
+        monkeypatch.setattr(mod, attr, refuse)
+    _, cfg, _, params = _bridged(name)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16)))
+    shape = ShapeConfig("t", "train", 16, 2)
+    loss, _ = make_loss_fn(cfg, shape)(params, {"tokens": tokens})
+    assert torch.isfinite(loss)
+    step = make_train_step(cfg, shape, microbatches=1)
+    _, _, metrics = step(params, init_opt_state(params, cfg), {"tokens": tokens})
+    assert np.isfinite(float(metrics["loss"]))
+    with pytest.raises(AssertionError, match="kernel called"):
+        make_prefill_step(cfg, shape)(params, {"tokens": tokens})
+
+
 def test_refuse_grad_raises_only_under_grad_mode_with_grad_inputs():
     x = torch.ones(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward.*ROADMAP B5"):
+    with pytest.raises(RuntimeError, match="no backward.*train route"):
         _build.refuse_grad("k", x, None)
     with torch.no_grad():
         _build.refuse_grad("k", x)

@@ -3,7 +3,9 @@
 ``make_train_step`` (one and two microbatches) runs two steps beside the
 reference's on bridged reduced internlm2, whisper (32 audio frames, 8
 tokens) and llava (8 patches before 32 tokens) weights, the reference
-evaluated op by op (``jax.disable_jit()``).  The loss, total loss and grad
+evaluated op by op (``jax.disable_jit()``); olmoe, recurrentgemma and
+rwkv6 run one such step, and two on f32 params (see
+``KERNEL_FAMILIES``).  The loss, total loss and grad
 norm of each step agree within 1e-3 relative (whisper 3e-3); the f32
 moments after two steps within 3e-2 (m) and 5e-2 (v, which squares the
 grads) in L2 relative to the reference's (measured on internlm2: 2.2e-2
@@ -65,13 +67,17 @@ def _ulp_bf16(a):
     return np.spacing(np.abs(a).astype(np.float32)) * 65536.0
 
 
-def _two_steps_match(arch, microbatches, make_batch, metric_tol=1e-3):
-    """Two train steps of reduced ``arch`` beside the reference's on the same
-    numpy batches (``make_batch(rng)``: tokens int, float arrays go in as
-    bf16)."""
+def _two_steps_match(arch, microbatches, make_batch, metric_tol=1e-3, steps=2,
+                     f32_params=False):
+    """``steps`` (two by default) train steps of reduced ``arch`` beside the
+    reference's on the same numpy batches (``make_batch(rng)``: tokens int,
+    float arrays go in as bf16), from the reference's params (every leaf
+    cast to f32 with ``f32_params``)."""
     cfg_j = jax_get_arch(arch).reduced()
     cfg_t = get_arch(arch).reduced()
     pj = jax_init_params(cfg_j, jax.random.PRNGKey(0))
+    if f32_params:
+        pj = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), pj)
     pt = bridge.params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), device="cpu")
     lr, total = 1e-3, 4
     step_j = jax_make_train_step(cfg_j, JaxShapeConfig("t", "train", 32, 4),
@@ -83,7 +89,7 @@ def _two_steps_match(arch, microbatches, make_batch, metric_tol=1e-3):
     sj, st = jax_init_opt_state(pj, cfg_j), init_opt_state(pt, cfg_t)
     p0 = [_np(x) for x in tree_leaves(pt)]
     rng = np.random.default_rng(0)
-    for _ in range(2):
+    for _ in range(steps):
         batch = make_batch(rng, cfg_t)
         bj = {k: jnp.asarray(v, jnp.int32) if k == "tokens" else
               jnp.asarray(v).astype(jnp.bfloat16) for k, v in batch.items()}
@@ -97,13 +103,13 @@ def _two_steps_match(arch, microbatches, make_batch, metric_tol=1e-3):
         assert all(torch.equal(a, b) for a, b in zip(in_bits, tree_leaves((pt_in, st_in))))
         for k in ("loss", "total_loss", "grad_norm"):
             assert rel_err(mt[k], mj[k]) < metric_tol, k
-    assert int(st["step"]) == int(sj["step"]) == 2
+    assert int(st["step"]) == int(sj["step"]) == steps
     for k, tol in (("m", 3e-2), ("v", 5e-2)):
         for t, j in zip(tree_leaves(st[k]), jax.tree_util.tree_leaves(sj[k])):
             t, j = _np(t), _np(j)
             assert np.linalg.norm(t - j) <= tol * np.linalg.norm(j), k
     for t, j in zip(tree_leaves(pt), jax.tree_util.tree_leaves(pj)):
-        assert t.dtype == torch.bfloat16
+        assert str(t.dtype).removeprefix("torch.") == str(j.dtype)
         t, j = _np(t), _np(j)
         diff = np.abs(t - j)
         assert (diff <= _ulp_bf16(j)).mean() >= 0.98
@@ -142,6 +148,31 @@ def test_train_step_matches_reference_for_two_steps(microbatches):
 def test_train_step_matches_reference_with_frontends(arch, make_batch, metric_tol,
                                                      microbatches):
     _two_steps_match(arch, microbatches, make_batch, metric_tol)
+
+
+# The MoE, RG-LRU and RWKV6 families train through the reference's plain
+# ops (einsum experts, the scans as loops over time).  In bf16 these three
+# are chaotic over two steps: AdamW's first update is close to lr * sign(g),
+# and the second step's grads are taken at params that already differ where
+# the two sides' bf16 grads disagreed in sign.  The reference does not hold
+# the checks against itself: its jitted step moves from its op-by-op step by
+# up to 0.28 (m) and 0.45 (v) in L2, with 86% of a leaf's params within one
+# ulp (rwkv6 at one microbatch; olmoe at two: 0.16, 0.23, 91%).  So bf16 is
+# held to every check over one step, and two steps run on f32 params, where
+# rounding cannot move them apart (the jitted reference does not take f32
+# params, so both are op by op).
+KERNEL_FAMILIES = ["olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-3b"]
+
+
+@pytest.mark.parametrize("arch", KERNEL_FAMILIES, ids=["olmoe", "recurrentgemma", "rwkv6"])
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_matches_reference_for_the_kernel_families(arch, microbatches):
+    _two_steps_match(arch, microbatches, _tokens, steps=1)
+
+
+@pytest.mark.parametrize("arch", KERNEL_FAMILIES, ids=["olmoe", "recurrentgemma", "rwkv6"])
+def test_two_f32_train_steps_match_reference_for_the_kernel_families(arch):
+    _two_steps_match(arch, 2, _tokens, f32_params=True)
 
 
 def _host_copy(tree):
@@ -224,6 +255,17 @@ def test_launcher_in_process_on_cpu(tmp_path):
     assert len(report["losses"]) == len(report["grad_norms"]) == len(report["step_ms"]) == 3
     assert all(np.isfinite(report["losses"])) and all(g > 0 for g in report["grad_norms"])
     assert f"final loss {report['losses'][-1]:.4f}" in lines[-1]
+
+
+@pytest.mark.parametrize("arch", KERNEL_FAMILIES)
+def test_launcher_trains_the_kernel_families_on_cpu(tmp_path, arch):
+    lines = _launch(["--arch", arch, "--reduced", "--steps", "2", "--device", "cpu",
+                     "--ckpt-dir", str(tmp_path)])
+    assert lines[-1].startswith("done: 2 steps, final loss ")
+    report = json.loads(lines[-2].removeprefix("train: "))
+    assert report["arch"] == arch and report["device"] == "cpu"
+    assert len(report["losses"]) == len(report["grad_norms"]) == 2
+    assert all(np.isfinite(report["losses"])) and all(g > 0 for g in report["grad_norms"])
 
 
 def test_launcher_runs_whisper_as_the_reference_does(tmp_path, monkeypatch):
