@@ -88,7 +88,19 @@ Phases (any failure exits non-zero before the result line):
                256: output 2e-2, every grad 3e-2 L2), timed at B = 4, then
                ``python -m repro_torch.launch.train --arch recurrentgemma-9b
                --reduced --steps 3`` on the card;
- 10. encdec  - whisper-medium at full width and depth (24 + 24 layers,
+ 10. mesh    - (a) ``--mesh host`` at world size 1 over NCCL: olmoe-1b-7b
+               at full width, 4 of 16 layers, trained 6 steps by the
+               ``Trainer`` under ``make_ctx(make_host_mesh())`` on the
+               tokens, seed and optimizer of phase 9's ``--mesh none`` run:
+               all 48 MoE calls through ``moe_ffn_sharded``, the first loss
+               within 2e-3 of that run's and the others within 2e-2, no
+               kernel launch; step ms, tokens/s and peak memory beside that
+               run's; (b) ``topk_compress`` and ``compressed_psum`` on the
+               full-width grads, bit-equal to their plain forms, the mean
+               within scale / 2; (c) the trained params saved as DTensors
+               and restored under ``shardings=``, bit-exact; (d) every
+               kernel entry point refuses DTensor operands;
+ 11. encdec  - whisper-medium at full width and depth (24 + 24 layers,
                random weights from seed 0): a prefill of 1,024 seeded audio
                frames and 128 tokens with exactly 72 flash-attention
                launches, 32 greedy decode steps (self caches of 448, cross
@@ -96,12 +108,12 @@ Phases (any failure exits non-zero before the result line):
                memory; then ``python -m repro_torch.launch.train --arch
                whisper-medium --seq 1024 --batch 8 --steps 6`` in a
                subprocess (finite losses, step ms, peak memory);
- 11. vision  - llava-next-34b at full width with its depth cut to 8 of 60
+ 12. vision  - llava-next-34b at full width with its depth cut to 8 of 60
                layers: a prefill of 2,304 seeded patch embeddings and 2,304
                tokens (one flash-attention launch a layer), 16 greedy decode
                steps, finite logits; then the same config served text-only
                as in phase 5 (4 sessions, 16 requests);
- 12. timing  - each kernel at the main path's shapes: CUDA-event times of
+ 13. timing  - each kernel at the main path's shapes: CUDA-event times of
                the kernel, its plain version and one library call where one
                computes the same function, beside the card's bound (bytes
                over 3.35 TB/s or operations over the type's peak, whichever
@@ -1397,7 +1409,8 @@ def train_full_width(card, args=TRAIN_ARGS, falls=True):
            "median_step_ms": med, f"median_step_ms_{first}_{n}": med,
            "tokens_per_s": positions / (med / 1e3),
            "max_memory_allocated": report["max_memory_allocated"],
-           "device_name": report["device_name"], "nvidia_smi": card,
+           "device_name": report["device_name"], "device": report["device"],
+           "mesh": report["mesh"], "nvidia_smi": card,
            "command_s": took, "done": lines[-1]}
     say(f"{label} [{card}]: median step {med:.2f} ms over steps {first}-{n}, "
         f"{row['tokens_per_s']:.0f} positions/s, peak "
@@ -1526,13 +1539,16 @@ def _step_bound(leaves, tokens, capacity_rows):
             "bound_ms": ops / PEAK_OPS["bf16"] * 1e3 + adamw_ms}
 
 
-def train_family_full_width(arch, layers, card, ops, steps=FAMILY_TRAIN_STEPS):
+def train_family_full_width(arch, layers, card, ops, steps=FAMILY_TRAIN_STEPS,
+                            ctx=None, keep=None):
     """(b) ``arch`` at full published width with its depth cut to ``layers``,
     trained on the card by the port's ``Trainer`` in this process: 8 x 256
     tokens from the data pipeline, the launcher's AdamW (lr 1e-3), no
     checkpoint.  Finite losses and grad norms, no kernel launch; the median
     step ms over steps 4 to the last, tokens/s, peak memory (under 80 GB)
-    and the step's bound."""
+    and the step's bound.  ``ctx``: under that sharding context (the
+    launcher's ``--mesh host``); ``keep``: a dict that receives the last
+    step's params and batch."""
     import dataclasses
     import shutil
     import statistics
@@ -1551,11 +1567,21 @@ def train_family_full_width(arch, layers, card, ops, steps=FAMILY_TRAIN_STEPS):
     d = tempfile.mkdtemp(prefix="chip_smoke_family_")
     leaves = {}
     try:
+        kw = {} if ctx is None else {"ctx": ctx}
         tr = Trainer(cfg, ShapeConfig("train", "train", seq, batch),
                      TrainConfig(total_steps=steps, log_every=steps + 1,
                                  checkpoint_every=steps + 1, checkpoint_dir=d,
-                                 opt=AdamWConfig(lr=1e-3)), device="cuda")
+                                 opt=AdamWConfig(lr=1e-3)), device="cuda", **kw)
         init = tr.init_state
+        if keep is not None:
+            step_fn = tr.step_fn
+
+            def keeping(params, opt_state, batch):
+                out = step_fn(params, opt_state, batch)
+                keep.update(params=out[0], batch=batch)
+                return out
+
+            tr.step_fn = keeping
 
         def counting():
             params, opt_state = init()
@@ -1592,9 +1618,11 @@ def train_family_full_width(arch, layers, card, ops, steps=FAMILY_TRAIN_STEPS):
            "tokens_per_s": tokens / (med / 1e3), "max_memory_allocated": peak,
            "step_bound_ms": bound["bound_ms"], "bound": bound,
            "kernel_launches": launched, "seconds": took, "nvidia_smi": card}
-    say(f"train family {arch} full width, {layers} of {row['of_layers']} layers "
+    label = arch if ctx is None else f"{arch} --mesh host {[ctx.dp, ctx.tp]}"
+    row["mesh"] = None if ctx is None else [ctx.dp, ctx.tp]
+    say(f"train family {label} full width, {layers} of {row['of_layers']} layers "
         f"[{card}]: " + json.dumps(row))
-    say(f"train family {arch} [{card}]: median step {med:.2f} ms over steps 4-{steps}, "
+    say(f"train family {label} [{card}]: median step {med:.2f} ms over steps 4-{steps}, "
         f"{row['tokens_per_s']:.0f} tokens/s, peak {peak / 1e9:.2f} GB allocated, "
         f"step bound {bound['bound_ms']:.2f} ms ({bound['ops'] / 1e12:.2f} TFLOP at "
         f"the bf16 peak + AdamW {bound['adamw_bound_ms']:.2f} ms over "
@@ -1728,6 +1756,234 @@ def train_phase(ops, card):
                        for arch, layers in FAMILY_FULL_WIDTH]
     out["rg_block"] = rg_block_check(ops, card)
     out["rg_reduced"] = train_full_width(card, RG_TRAIN_ARGS, falls=False)
+    return out
+
+
+# --------------------------------------------------------------------- mesh
+MESH_ARCH, MESH_LAYERS = "olmoe-1b-7b", 4
+MESH_LAUNCH_ARGS = ("--arch", MESH_ARCH, "--reduced", "--steps", "3", "--mesh", "host")
+MESH_FIRST_LOSS_TOL, MESH_LOSS_TOL = 2e-3, 2e-2
+TOPK_RATIO = 0.01
+
+
+def _plain_topk(g, e, k_ratio):
+    """``topk_compress`` of one leaf the plain way: the k-th largest
+    magnitude read off a full descending sort."""
+    import torch
+    acc = g.float() + e
+    flat = torch.abs(acc).reshape(-1)
+    k = max(1, int(flat.numel() * k_ratio))
+    thresh = torch.sort(flat, descending=True).values[k - 1]
+    mask = torch.abs(acc) >= thresh
+    zero = torch.zeros((), device=acc.device)
+    return torch.where(mask, acc, zero).to(g.dtype), torch.where(mask, zero, acc)
+
+
+def _plain_int8_mean(g):
+    """``compressed_psum`` of one leaf over one rank, the plain way: the
+    leaf's int8 codes times its scale (half to even, clipped at 127).
+    Returns (that mean in g's dtype, in f32, the scale)."""
+    import torch
+    scale = (torch.clamp(g.abs().max(), min=1e-12) / 127.0).float()
+    mean = torch.clamp(torch.round(g.float() / scale), -127, 127) * scale
+    return mean.to(g.dtype), mean, scale
+
+
+def dtensor_guard_check(ops, ctx):
+    """Each kernel entry point given DTensor operands on the card raises
+    before it launches (a kernel would read the local shard alone)."""
+    import torch
+    from repro_torch.models.sharding import P, distribute
+    for name in GUARDED:
+        fn, xs = _guard_inputs(name, ops)
+        before = ops[name].launches
+        try:
+            with torch.no_grad():
+                fn(*[distribute(ctx, x, P(*[None] * x.ndim)) for x in xs])
+        except TypeError as e:
+            if "DTensor" not in str(e):
+                fail(f"mesh guard {name}: unexpected error {e}")
+        else:
+            fail(f"mesh guard {name}: launched on DTensor operands")
+        if ops[name].launches != before:
+            fail(f"mesh guard {name}: counted a launch it refused")
+    return sorted(GUARDED)
+
+
+def mesh_phase(ops, card, none_row):
+    """(a) ``--mesh host`` at world size 1 over NCCL: olmoe-1b-7b at full
+    width, 4 of 16 layers, trained 6 steps by the ``Trainer`` under
+    ``make_ctx(make_host_mesh())`` with the seed, tokens and optimizer of
+    the train phase's ``--mesh none`` run of the same configuration
+    (``none_row``): every MoE layer through ``moe_ffn_sharded`` and none
+    through ``moe_ffn``, the first loss within 2e-3 of ``none_row``'s and
+    every later one within 2e-2 (bf16 steps drift apart), no kernel launch;
+    median step ms, tokens/s and peak GB beside ``none_row``'s.  (b)
+    ``topk_compress`` and ``compressed_psum`` (world 1, NCCL) on that run's
+    full-width grad tree against their plain forms: every leaf of the sent
+    grads and residuals bit-equal, the mean bit-equal to the dequantized
+    codes and within scale / 2 of the grads; each one's ms.  (c) the
+    trained params saved as DTensors and restored under ``shardings=`` on
+    the card, bit-exact.  (d) every kernel entry point refuses DTensor
+    operands.  (e) ``python -m repro_torch.launch.train --mesh host`` on
+    reduced olmoe with ``--device`` left at its default: on the card, on a
+    (1, 1) mesh."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import init_process_group, make_ctx, make_host_mesh
+    from repro_torch.models import lm, make_loss_fn
+    from repro_torch.models.sharding import full, local, tree_shardings
+    from repro_torch.runtime import compressed_psum, init_error_state, topk_compress
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = init_process_group("cuda")
+    if not started or dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+        fail("mesh: wanted a fresh NCCL process group of one rank")
+    calls = {"moe_ffn_sharded": 0, "moe_ffn": 0}
+
+    def counting(name):
+        fn = getattr(lm, name)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return fn, wrapped
+
+    real = {}
+    for name in calls:
+        real[name], wrapped = counting(name)
+        setattr(lm, name, wrapped)
+    out = {}
+    try:
+        ctx = make_ctx(make_host_mesh())
+        keep = {}
+        try:
+            row = train_family_full_width(MESH_ARCH, MESH_LAYERS, card, ops, ctx=ctx,
+                                          keep=keep)
+        finally:
+            for name, fn in real.items():
+                setattr(lm, name, fn)
+        want_calls = 2 * MESH_LAYERS * FAMILY_TRAIN_STEPS   # forward + recompute
+        d_first = abs(row["losses"][0] - none_row["losses"][0])
+        d_later = max(abs(a - b) for a, b in zip(row["losses"][1:],
+                                                 none_row["losses"][1:]))
+        cmp = {"mesh": row["mesh"], "calls": dict(calls), "want_sharded_calls": want_calls,
+               "first_loss_diff": d_first, "later_loss_diff_max": d_later,
+               "losses": row["losses"], "none_losses": none_row["losses"],
+               "median_step_ms": row["median_step_ms"],
+               "none_median_step_ms": none_row["median_step_ms"],
+               "tokens_per_s": row["tokens_per_s"],
+               "none_tokens_per_s": none_row["tokens_per_s"],
+               "peak_gb": row["max_memory_allocated"] / 1e9,
+               "none_peak_gb": none_row["max_memory_allocated"] / 1e9,
+               "step_ms": row["step_ms"], "nvidia_smi": card}
+        out["train"] = cmp
+        say(f"mesh train {MESH_ARCH} [{card}]: " + json.dumps(cmp))
+        say(f"mesh train {MESH_ARCH} [{card}]: --mesh host {row['mesh']} median step "
+            f"{row['median_step_ms']:.2f} ms vs --mesh none "
+            f"{none_row['median_step_ms']:.2f} ms ("
+            f"{row['median_step_ms'] / none_row['median_step_ms']:.3f}x), "
+            f"{row['tokens_per_s']:.0f} vs {none_row['tokens_per_s']:.0f} tokens/s, "
+            f"peak {cmp['peak_gb']:.2f} vs {cmp['none_peak_gb']:.2f} GB")
+        problems = [k for k, ok in (
+            ("every MoE layer through moe_ffn_sharded",
+             calls["moe_ffn_sharded"] == want_calls and calls["moe_ffn"] == 0),
+            (f"first loss within {MESH_FIRST_LOSS_TOL}", d_first < MESH_FIRST_LOSS_TOL),
+            (f"later losses within {MESH_LOSS_TOL}", d_later < MESH_LOSS_TOL),
+            ("a (1, 1) mesh", row["mesh"] == [1, 1])) if not ok]
+        if problems:
+            fail(f"mesh train: {problems}: {cmp}")
+
+        # (b) one more grad tree at the last step's params and batch
+        cfg = dataclasses.replace(get_arch(MESH_ARCH), num_layers=MESH_LAYERS)
+        loss_fn = make_loss_fn(cfg, ShapeConfig("train", "train", 256, 8), ctx=ctx)
+        params = keep.pop("params")
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        with torch.enable_grad(), ctx.scope():
+            loss, _ = loss_fn(tree_unflatten(params, leaves), keep.pop("batch"))
+            grads = torch.autograd.grad(loss, leaves)
+        grads = [local(g) for g in grads]
+        del leaves, loss
+        err = init_error_state(grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sent, resid = topk_compress(grads, err, TOPK_RATIO)
+        torch.cuda.synchronize()
+        topk_ms = (time.perf_counter() - t0) * 1e3
+        same = True
+        for g, e, s1, r1 in zip(grads, err, sent, resid):
+            s2, r2 = _plain_topk(g, e, TOPK_RATIO)
+            same &= torch.equal(s1, s2) and torch.equal(r1, r2)
+            del s2, r2
+        del sent, resid, err
+        pod = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean = compressed_psum(grads, pod, axis="pod")
+        torch.cuda.synchronize()
+        psum_ms = (time.perf_counter() - t0) * 1e3
+        psum_same, worst = True, 0.0
+        for g, m in zip(grads, mean):
+            m2, m32, scale = _plain_int8_mean(g)
+            psum_same &= torch.equal(m, m2)
+            # the codes' bound, before the mean is rounded to the leaf's dtype
+            worst = max(worst, float((m32 - g.float()).abs().max() / scale))
+        n = sum(g.numel() for g in grads)
+        comp = {"leaves": len(grads), "elements": n, "k_ratio": TOPK_RATIO,
+                "topk_ms": topk_ms, "topk_equal": same, "psum_ms": psum_ms,
+                "psum_equal": psum_same, "psum_err_over_scale": worst,
+                "nvidia_smi": card}
+        out["compression"] = comp
+        say(f"mesh compression [{card}]: " + json.dumps(comp))
+        if not (same and psum_same and worst <= 0.5 + 1e-6):
+            fail(f"mesh compression: {comp}")
+        del grads, mean
+        gc.collect()
+
+        # (c) the trained params through the checkpointer and back under the mesh
+        d = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        try:
+            t0 = time.perf_counter()
+            save_checkpoint(d, FAMILY_TRAIN_STEPS, {"params": params})
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = restore_checkpoint(d, FAMILY_TRAIN_STEPS, {"params": params},
+                                      shardings={"params": tree_shardings(ctx, params)})
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        pairs = list(zip(tree_leaves(params), tree_leaves(back["params"])))
+        exact = all(type(b).__name__ == "DTensor" and b.placements == a.placements
+                    and local(b).is_cuda and _same_bits(local(a), local(b))
+                    for a, b in pairs)
+        nbytes = sum(full(a).numel() * full(a).element_size() for a, _ in pairs)
+        ck = {"bytes": nbytes, "save_s": t_save, "restore_s": t_restore,
+              "exact": exact, "leaves": len(pairs)}
+        out["checkpoint"] = ck
+        say(f"mesh checkpoint [{card}]: " + json.dumps(ck))
+        if not exact:
+            fail(f"mesh checkpoint: restore under shardings= not bit-exact: {ck}")
+        del params, back, pairs
+        out["dtensor_guards"] = dtensor_guard_check(ops, ctx)
+        say("mesh guards: every kernel entry point refused DTensor operands: "
+            + ", ".join(out["dtensor_guards"]))
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launcher"] = row = train_full_width(card, MESH_LAUNCH_ARGS, falls=False)
+    if not (row["mesh"] == [1, 1] and row["device"].startswith("cuda")):
+        fail(f"mesh launcher: wanted a (1, 1) mesh on the card: {row}")
     return out
 
 
@@ -2195,7 +2451,14 @@ def main() -> None:
     train["seconds"] = time.perf_counter() - t0
     say(f"train: ok in {train['seconds']:.1f}s")
 
-    # 10. whisper-medium whole; 11. llava at full width, 8 layers
+    # 10. the same MoE training under --mesh host, compression, elastic restore
+    t0 = time.perf_counter()
+    none_row = next(r for r in train["families"] if r["arch"] == MESH_ARCH)
+    mesh = mesh_phase(ops, smi_line, none_row)
+    mesh["seconds"] = time.perf_counter() - t0
+    say(f"mesh: ok in {mesh['seconds']:.1f}s")
+
+    # 11. whisper-medium whole; 12. llava at full width, 8 layers
     t0 = time.perf_counter()
     encdec = encdec_phase(ops, smi_line)
     encdec["seconds"] = time.perf_counter() - t0
@@ -2205,7 +2468,7 @@ def main() -> None:
     vision["seconds"] = time.perf_counter() - t0
     say(f"vision: ok in {vision['seconds']:.1f}s")
 
-    # 12. timing at the main path's shapes (decode shapes for the scans,
+    # 13. timing at the main path's shapes (decode shapes for the scans,
     # whose decode launches outnumber their prefill launches eightfold)
     main_rows = {
         "flash_attention": flash_case(shapes["flash_attention"], True, 0, "bf16",
@@ -2282,7 +2545,7 @@ def main() -> None:
          "main_rows": main_rows, "more_rows": more_rows,
          "serve": {a: v[2] for a, v in served.items()}, "launches": launches,
          "shapes": shapes, "payload": payload, "checkpoint": ckpt, "ci": ci,
-         "train": train, "encdec": encdec, "vision": vision},
+         "train": train, "mesh": mesh, "encdec": encdec, "vision": vision},
         indent=1))
     say(f"nvidia-smi: {smi_line}")
     say(json.dumps({"kernels": kernels}))

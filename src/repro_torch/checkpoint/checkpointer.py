@@ -16,7 +16,13 @@ directions:
     writer thread writes the files;
   * integrity: a sha256 per file in the manifest, verified on restore;
   * restore lands each leaf on the device of the matching leaf of the
-    target tree, cast to its dtype.
+    target tree, cast to its dtype, or, given ``shardings``, places it
+    under the current mesh: elastic resharding, a checkpoint saved under
+    one mesh shape restored under another;
+  * sharded trees: each DTensor leaf is gathered whole on every rank
+    (``full_tensor``), rank 0 writes, and every rank meets at a barrier
+    once the write is committed, so the files are those of an unsharded
+    save.
 
 Leaves are stored as raw bytes with numpy's dtype names (``"bfloat16"``,
 ``"float32"``, ``"int32"`` ...); bfloat16 travels as its bit pattern, so no
@@ -37,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.sharding import full, is_dtensor
 from ..tree import tree_flatten_with_paths
 
 MAX_FILE_BYTES = 1 << 28  # 256 MiB per npz member group
@@ -75,11 +82,13 @@ def from_raw_bytes(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
 # -- save ---------------------------------------------------------------------
 
 class _Writer(threading.Thread):
-    """The async writer; ``join()`` re-raises what the write raised."""
+    """The async writer; ``join()`` re-raises what the write raised, and,
+    for a sharded save, then meets the other ranks at the barrier."""
 
-    def __init__(self, write: Callable[[], str]):
+    def __init__(self, write: Callable[[], str], barrier: bool = False):
         super().__init__(daemon=True)
         self._write = write
+        self._barrier = barrier
         self.error: Optional[BaseException] = None
 
     def run(self) -> None:
@@ -92,25 +101,54 @@ class _Writer(threading.Thread):
         super().join(timeout)
         if self.error is not None:
             raise self.error
+        if self._barrier:
+            _Barrier().join()
 
 
 def _host_snapshot(leaf: Any) -> Tuple[str, List[int], np.ndarray]:
-    """(dtype name, shape, raw bytes) of a private host copy of ``leaf``."""
+    """(dtype name, shape, raw bytes) of a private host copy of ``leaf``
+    (a DTensor gathered whole first: a collective)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = full(leaf.detach())
         copy = torch.empty(t.shape, dtype=t.dtype, device="cpu").copy_(t)
         return dtype_name(copy), list(copy.shape), to_raw_bytes(copy)
     arr = np.array(leaf, copy=True)
     return dtype_name(arr), list(arr.shape), to_raw_bytes(arr)
 
 
+def _sharded(leaves) -> bool:
+    return any(is_dtensor(l) for l in leaves)
+
+
+class _Barrier:
+    """What a rank other than 0 holds for a sharded save: nothing to write;
+    ``join`` meets rank 0 at the barrier after its commit."""
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
 def save_checkpoint(directory: str, step: int, tree, *, blocking: bool = True):
     """Write checkpoint for ``step``.  Returns the checkpoint path, or the
-    started writer thread when ``blocking=False``."""
+    started writer thread when ``blocking=False``.  A tree with DTensor
+    leaves is saved by every rank of their mesh together: all gather, rank
+    0 writes, and all meet at a barrier when it has committed (on return
+    when blocking, else on ``join`` of what this returns)."""
     paths, leaves, _ = tree_flatten_with_paths(tree)
+    sharded = _sharded(leaves)
     # Snapshot now: the caller may change its tensors in place (the next
     # optimizer step, a decode step) as soon as this returns.
     host_leaves = [_host_snapshot(l) for l in leaves]
+    if sharded:
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            if blocking:
+                _Barrier().join()
+                return os.path.join(directory, f"step_{step:08d}")
+            return _Barrier()
 
     def write() -> str:
         final = os.path.join(directory, f"step_{step:08d}")
@@ -154,8 +192,11 @@ def save_checkpoint(directory: str, step: int, tree, *, blocking: bool = True):
         return final
 
     if blocking:
-        return write()
-    t = _Writer(write)
+        path = write()
+        if sharded:
+            _Barrier().join()
+        return path
+    t = _Writer(write, barrier=sharded)
     t.start()
     return t
 
@@ -167,7 +208,7 @@ class AsyncCheckpointer:
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
         self.keep = keep
-        self._inflight: Optional[_Writer] = None
+        self._inflight: Optional[Any] = None
         os.makedirs(directory, exist_ok=True)
 
     def save(self, step: int, tree) -> None:
@@ -181,6 +222,8 @@ class AsyncCheckpointer:
             inflight.join()
 
     def _gc(self) -> None:
+        if isinstance(self._inflight, _Barrier):
+            return                      # a sharded save: rank 0 collects
         steps = sorted(list_checkpoints(self.directory))
         for s in steps[: -self.keep] if len(steps) > self.keep else []:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
@@ -216,15 +259,33 @@ def _target_dtype(leaf: Any, stored: torch.dtype) -> torch.dtype:
     return stored
 
 
+def _sharding_by_path(shardings) -> Dict[str, Any]:
+    """{path: NamedSharding or None} of a shardings tree, whose None
+    leaves (replicate / leave as is) the tree walkers would drop."""
+    out: Dict[str, Any] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k in node:
+                walk(node[k], prefix + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, prefix + (str(i),))
+        else:
+            out["/".join(prefix)] = node
+
+    walk(shardings, ())
+    return out
+
+
 def restore_checkpoint(directory: str, step: int, target_tree,
                        shardings=None, verify: bool = True):
     """Restore into the structure of ``target_tree``: each leaf lands on the
     device of its target leaf (CPU for non-tensors), cast to the target
-    leaf's dtype.  Resharding restore (``shardings``) is not ported."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=...) needs the sharding context, "
-            "which is not ported")
+    leaf's dtype.  ``shardings`` (a tree of the target's structure, of
+    ``NamedSharding`` or None) re-places each leaf under the current mesh:
+    the elastic-resharding path, where the mesh differs from the one the
+    checkpoint was saved under."""
     ckpt = os.path.join(directory, f"step_{step:08d}")
     if not os.path.exists(os.path.join(ckpt, "_COMMITTED")):
         raise FileNotFoundError(f"no committed checkpoint at {ckpt}")
@@ -248,11 +309,16 @@ def restore_checkpoint(directory: str, step: int, target_tree,
                                                       e["shape"])
 
     paths, leaves, unflatten = tree_flatten_with_paths(target_tree)
+    placed = _sharding_by_path(shardings) if shardings is not None else {}
     out = []
     for path, leaf in zip(paths, leaves):
         if path not in path_to_t:
             raise KeyError(f"checkpoint missing leaf {path}")
-        t = path_to_t[path]
-        dev = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
-        out.append(t.to(device=dev, dtype=_target_dtype(leaf, t.dtype)))
+        t = path_to_t[path].to(dtype=_target_dtype(leaf, path_to_t[path].dtype))
+        sh = placed.get(path)
+        if sh is not None:
+            out.append(sh.place(t.to(sh.mesh.device_type)))
+        else:
+            dev = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
+            out.append(t.to(device=dev))
     return unflatten(out)

@@ -122,6 +122,19 @@ def refuse_grad(kernel: str, *operands) -> None:
             "and launches no kernel")
 
 
+def refuse_dtensor(kernel: str, *operands) -> None:
+    """Raise on a DTensor operand.  A kernel reads one device's memory:
+    given a sharded tensor it would run on the local shard alone.  Called
+    on the CUDA path only, beside ``refuse_grad``; the sharded train route
+    reaches no kernel."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(x, DTensor) for x in operands):
+        raise TypeError(
+            f"{kernel}: the CUDA kernel takes plain tensors, and an input is a "
+            "DTensor; kernels on the local shards of a mesh are not ported")
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")

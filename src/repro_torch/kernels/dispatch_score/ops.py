@@ -44,6 +44,7 @@ def dispatch_scores(demand, presence):
     if demand.device.type == "cpu":
         return dispatch_scores_ref(demand, presence)
     _build.refuse_grad("dispatch_scores", demand, presence)
+    _build.refuse_dtensor("dispatch_scores", demand, presence)
     d, p = _cuda_operands(demand, presence)
     W, O = d.shape
     E = p.shape[0]
@@ -75,6 +76,7 @@ def dispatch_score_update(scores, mult, delta):
     if scores.device.type == "cpu":
         return dispatch_score_update_ref(scores, mult, delta)
     _build.refuse_grad("dispatch_score_update", scores, mult, delta)
+    _build.refuse_dtensor("dispatch_score_update", scores, mult, delta)
     s, m, d = _cuda_operands(scores, mult, delta)
     W, E = s.shape
     K = m.shape[1]

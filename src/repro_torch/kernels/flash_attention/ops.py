@@ -39,6 +39,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     _build.refuse_grad("flash_attention", q, k, v)
+    _build.refuse_dtensor("flash_attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if not (q.device == k.device == v.device):

@@ -47,6 +47,7 @@ def moe_gmm(x, w, out_dtype=None, counts=None):
     if x.device.type == "cpu":
         return gmm_ref(x, w, out_dtype, counts)
     _build.refuse_grad("moe_gmm", x, w)
+    _build.refuse_dtensor("moe_gmm", x, w)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"unsupported devices {x.device}, {w.device}")
     if x.dtype not in _DTYPES or w.dtype != x.dtype or out_dtype not in _DTYPES:

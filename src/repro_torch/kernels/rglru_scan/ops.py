@@ -73,6 +73,7 @@ def rglru_scan(a, b, h0=None):
         return rglru_ref(a, b, h0)
     _cuda_only(a, b, h0)
     _build.refuse_grad("rglru_scan", a, b, h0)
+    _build.refuse_dtensor("rglru_scan", a, b, h0)
     y, hT, n = _launch("rglru_scan_fwd", (_f32(a), _f32(b)), _f32(h0), B, T, W)
     rglru_scan.launches += n
     return y, hT
@@ -94,6 +95,7 @@ def rglru_gated_scan(xi, r_logit, i_logit, lam, h0=None):
         return rglru_gated_ref(xi, r_logit, i_logit, lam, h0)
     _cuda_only(xi, r_logit, i_logit, lam, h0)
     _build.refuse_grad("rglru_gated_scan", xi, r_logit, i_logit, lam, h0)
+    _build.refuse_dtensor("rglru_gated_scan", xi, r_logit, i_logit, lam, h0)
     gates = (xi, r_logit, i_logit)
     bf16 = all(x.dtype == torch.bfloat16 for x in gates)
     gates = tuple(x.contiguous() if bf16 else _f32(x) for x in gates)

@@ -46,6 +46,7 @@ def wkv6(r, k, v, w, u, s0=None):
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, w, u, s0)
     _build.refuse_grad("wkv6", r, k, v, w, u, s0)
+    _build.refuse_dtensor("wkv6", r, k, v, w, u, s0)
     dev = r.device
     if dev.type != "cuda" or any(x.device != dev for x in (k, v, w, u)) \
             or (s0 is not None and s0.device != dev):

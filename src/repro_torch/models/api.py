@@ -28,6 +28,7 @@ from ..optim.adamw import (
 )
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from . import encdec, lm
+from .sharding import ShardCtx, laid_like
 
 OPT8BIT_PARAM_THRESHOLD = 100e9  # >100B params: 8-bit AdamW moments
 
@@ -66,41 +67,48 @@ def cache_init(cfg: ArchConfig, batch: int, cap: int, device="cuda"):
     return lm.lm_cache_init(cfg, batch, cap, device)
 
 
-def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig):
+def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, *,
+                      ctx: ShardCtx = ShardCtx()):
     fn = encdec.encdec_prefill if is_encdec(cfg) else lm.lm_prefill
-    return functools.partial(fn, cfg=cfg, chunk=attn_chunk(shape.seq_len))
+    return functools.partial(fn, cfg=cfg, ctx=ctx, chunk=attn_chunk(shape.seq_len))
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, *, ctx: ShardCtx = ShardCtx()):
     fn = encdec.encdec_decode if is_encdec(cfg) else lm.lm_decode
-    return functools.partial(fn, cfg=cfg)
+    return functools.partial(fn, cfg=cfg, ctx=ctx)
 
 
-def make_loss_fn(cfg: ArchConfig, shape: ShapeConfig):
+def make_loss_fn(cfg: ArchConfig, shape: ShapeConfig, *, ctx: ShardCtx = ShardCtx()):
     fn = encdec.encdec_loss if is_encdec(cfg) else lm.lm_loss
-    return functools.partial(fn, cfg=cfg, chunk=attn_chunk(shape.seq_len))
+    return functools.partial(fn, cfg=cfg, ctx=ctx, chunk=attn_chunk(shape.seq_len))
 
 
 def make_train_step(cfg: ArchConfig, shape: ShapeConfig,
                     opt: AdamWConfig = AdamWConfig(), total_steps: int = 10_000,
-                    microbatches: Optional[int] = None):
+                    microbatches: Optional[int] = None, *,
+                    ctx: ShardCtx = ShardCtx()):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``microbatches`` > 1 accumulates grads: the batch is split along dim 0,
     each slice runs forward and backward in turn, and its grads are added
     into an f32 accumulator, each divided by the slice count.  Returns new
     trees; the caller's params, optimizer state and batch stay as they were.
+    Under a mesh (``ctx``) the params, optimizer state and batch are
+    DTensors, and so are the grads, the new trees and the metrics.
     """
-    loss_fn = make_loss_fn(cfg, shape)
+    loss_fn = make_loss_fn(cfg, shape, ctx=ctx)
     n_mb = microbatches if microbatches is not None else cfg.train_microbatches(
         shape.global_batch)
 
     def grad_of(params, mb):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        with torch.enable_grad():
+        # backward recomputes checkpointed chunks: it runs in the scope too
+        with torch.enable_grad(), ctx.scope():
             loss, extras = loss_fn(tree_unflatten(params, leaves), mb)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        # each grad in its param's layout (partial sums reduced), so the
+        # update keeps every param and moment where the mesh placed it
+        grads = [torch.zeros_like(p) if g is None else laid_like(g, p)
                  for p, g in zip(leaves, grads)]
         extras = {k: v.detach() for k, v in extras.items()}
         return (loss.detach(), extras), tree_unflatten(params, grads)
@@ -113,11 +121,12 @@ def make_train_step(cfg: ArchConfig, shape: ShapeConfig,
             size = tree_leaves(batch)[0].shape[0] // n_mb
             mbs = [tree_map(lambda x: x[i * size:(i + 1) * size], batch)
                    for i in range(n_mb)]
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            # zeros_like keeps a DTensor param's placements
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                             params)
             dev = tree_leaves(params)[0].device
-            loss_m = torch.zeros((), dtype=torch.float32, device=dev)
-            aux_m = torch.zeros((), dtype=torch.float32, device=dev)
+            loss_m = ctx.replicate(torch.zeros((), dtype=torch.float32, device=dev))
+            aux_m = ctx.replicate(torch.zeros((), dtype=torch.float32, device=dev))
             for mb in mbs:
                 (_, ex), g = grad_of(params, mb)
                 grads = tree_map(lambda a, gg: a + gg.to(torch.float32) / n_mb,
@@ -130,7 +139,8 @@ def make_train_step(cfg: ArchConfig, shape: ShapeConfig,
             opt_state["step"] + 1, warmup=min(100, max(1, total_steps // 10)),
             total=total_steps)
         update = adamw8bit_update if eightbit else adamw_update
-        params, opt_state, om = update(grads, opt_state, params, opt, lr_scale)
+        with ctx.scope():
+            params, opt_state, om = update(grads, opt_state, params, opt, lr_scale)
         metrics = {"loss": extras["loss"], "total_loss": loss, **om}
         return params, opt_state, metrics
 

@@ -37,6 +37,7 @@ from .layers import (
     rmsnorm_init,
 )
 from .lm import _index, _stack, _unbind
+from .sharding import ShardCtx, reshape
 
 TEXT_RATIO = 8  # decoder text length = audio frames // 8 (train/prefill)
 
@@ -97,36 +98,38 @@ def encdec_cache_init(cfg: ArchConfig, batch: int, cap: int, enc_len: int,
 
 
 # ---------------------------------------------------------------- encoder
-def _enc_layer(bp, h, cfg: ArchConfig, positions, chunk: int, use_kernel: bool):
+def _enc_layer(bp, h, cfg: ArchConfig, positions, chunk: int, use_kernel: bool,
+               ctx: ShardCtx = ShardCtx()):
     hn = rmsnorm(bp["norm1"], h, cfg.norm_eps)
     attn_out, _ = attention_block(bp["attn"], hn, cfg=cfg, positions=positions,
                                   causal=False, use_rope=False, chunk=chunk,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, ctx=ctx)
     h = h + attn_out
     h2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
-    return h + mlp(bp["ffn"], h2)
+    return ctx.cstr(h + mlp(bp["ffn"], h2, ctx=ctx), "dp", "tp", None)
 
 
 def encode(params, audio_embeds, cfg: ArchConfig, chunk: int = 1024,
-           train: bool = False):
+           train: bool = False, ctx: ShardCtx = ShardCtx()):
     """[B, S, D] frame embeddings -> encoder output [B, S, D].  ``train``
     recomputes each layer in backward and keeps attention off the kernel."""
     S = audio_embeds.shape[1]
     h = audio_embeds.to(BF16) + params["pos_embed_enc"][:S][None]
+    h = ctx.cstr(h, "dp", "tp", None)
     positions = torch.arange(S, device=h.device)
     for bp in _unbind(params["enc"], cfg.encoder_layers):
         if train:
             h = checkpoint(lambda h, bp=bp: _enc_layer(bp, h, cfg, positions, chunk,
-                                                       False),
+                                                       False, ctx),
                            h, use_reentrant=False)
         else:
-            h = _enc_layer(bp, h, cfg, positions, chunk, True)
+            h = _enc_layer(bp, h, cfg, positions, chunk, True, ctx)
     return rmsnorm(params["enc_norm"], h, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------- decoder
 def _dec_layer(bp, h, *, cfg: ArchConfig, positions, mode: str, enc_out=None,
-               cache=None, pos=None, chunk: int = 1024):
+               cache=None, pos=None, chunk: int = 1024, ctx: ShardCtx = ShardCtx()):
     """One decoder layer.  Returns (h, new_cache): the layer's self and
     cross K/V in prefill, ``cache`` (written in place) in decode, None in
     training."""
@@ -144,16 +147,16 @@ def _dec_layer(bp, h, *, cfg: ArchConfig, positions, mode: str, enc_out=None,
         attn_out, _ = attention_block(
             bp["self_attn"], hn, cfg=cfg, positions=positions, causal=True,
             use_rope=False, kv_override=(k_buf, v_buf, torch.arange(cap, device=h.device)),
-            chunk=chunk)
+            chunk=chunk, ctx=ctx)
         ck, cv = cache["ck"], cache["cv"]
         new_cache = cache
     else:
         attn_out, (k_self, v_self) = attention_block(
             bp["self_attn"], hn, cfg=cfg, positions=positions, causal=True,
-            use_rope=False, chunk=chunk, use_kernel=use_kernel)
+            use_rope=False, chunk=chunk, use_kernel=use_kernel, ctx=ctx)
         Se = enc_out.shape[1]
-        ck = (enc_out @ bp["cross_attn"]["wk"]).reshape(B, Se, Hkv, Dh)
-        cv = (enc_out @ bp["cross_attn"]["wv"]).reshape(B, Se, Hkv, Dh)
+        ck = reshape(enc_out @ bp["cross_attn"]["wk"], B, Se, Hkv, Dh)
+        cv = reshape(enc_out @ bp["cross_attn"]["wv"], B, Se, Hkv, Dh)
         if mode == "prefill":
             new_cache = {"k": k_self, "v": v_self, "ck": ck, "cv": cv}
     h = h + attn_out
@@ -162,14 +165,14 @@ def _dec_layer(bp, h, *, cfg: ArchConfig, positions, mode: str, enc_out=None,
     cross_out, _ = attention_block(
         bp["cross_attn"], h2, cfg=cfg, positions=positions, causal=False,
         use_rope=False, kv_override=(ck, cv, torch.arange(ck.shape[1], device=h.device)),
-        full_kv=True, chunk=chunk, use_kernel=use_kernel)
+        full_kv=True, chunk=chunk, use_kernel=use_kernel, ctx=ctx)
     h = h + cross_out
     h3 = rmsnorm(bp["norm3"], h, cfg.norm_eps)
-    return h + mlp(bp["ffn"], h3), new_cache
+    return ctx.cstr(h + mlp(bp["ffn"], h3, ctx=ctx), "dp", "tp", None), new_cache
 
 
 def _decoder_stack(params, h, enc_out, cfg: ArchConfig, mode: str, caches=None,
-                   pos=None, chunk: int = 1024):
+                   pos=None, chunk: int = 1024, ctx: ShardCtx = ShardCtx()):
     """Loop over the stacked decoder layers.  caches (decode): {'k', 'v'
     self [L, B, cap, ..], 'ck', 'cv' cross [L, B, enc_len, ..]}.  Returns
     (h, caches): fresh stacked caches in prefill, ``caches`` updated in
@@ -186,12 +189,13 @@ def _decoder_stack(params, h, enc_out, cfg: ArchConfig, mode: str, caches=None,
             h = checkpoint(
                 lambda h, enc_out, bp=bp: _dec_layer(
                     bp, h, cfg=cfg, positions=positions, mode="train",
-                    enc_out=enc_out, chunk=chunk)[0],
+                    enc_out=enc_out, chunk=chunk, ctx=ctx)[0],
                 h, enc_out, use_reentrant=False)
             continue
         cache = _index(caches, i) if caches is not None else None
         h, new = _dec_layer(bp, h, cfg=cfg, positions=positions, mode=mode,
-                            enc_out=enc_out, cache=cache, pos=pos, chunk=chunk)
+                            enc_out=enc_out, cache=cache, pos=pos, chunk=chunk,
+                            ctx=ctx)
         built.append(new)
     if mode == "prefill":
         return h, _stack(built)
@@ -204,37 +208,42 @@ def _embed_text(params, tokens):
 
 
 # ---------------------------------------------------------------- entry points
-def encdec_loss(params, batch, cfg: ArchConfig, chunk: int = 1024):
+def encdec_loss(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx(),
+                chunk: int = 1024):
     """Next-token loss.  batch: {audio_embeds [B, Sa, D], tokens [B, St]}.
     Returns (loss, {"loss"})."""
-    enc_out = encode(params, batch["audio_embeds"], cfg, chunk, train=True)
-    tok = batch["tokens"]
-    h, _ = _decoder_stack(params, _embed_text(params, tok), enc_out, cfg, "train",
-                          chunk=chunk)
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    loss = chunked_lm_loss(params, h[:, :-1, :], tok[:, 1:], cfg.vocab_size)
-    return loss, {"loss": loss}
+    with ctx.scope():
+        enc_out = encode(params, batch["audio_embeds"], cfg, chunk, train=True,
+                         ctx=ctx)
+        tok = batch["tokens"]
+        h, _ = _decoder_stack(params, _embed_text(params, tok), enc_out, cfg,
+                              "train", chunk=chunk, ctx=ctx)
+        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        loss = chunked_lm_loss(params, h[:, :-1, :], tok[:, 1:], cfg.vocab_size,
+                               ctx=ctx)
+        return loss, {"loss": loss}
 
 
-def encdec_prefill(params, batch, cfg: ArchConfig, chunk: int = 1024):
+def encdec_prefill(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx(),
+                   chunk: int = 1024):
     """Encoder plus decoder over the prompt.  batch: {audio_embeds, tokens}.
     Returns (logits_last [B, V], caches): self K/V of length St, cross K/V
     of length Sa, each [L, B, .., Hkv, Dh]."""
-    enc_out = encode(params, batch["audio_embeds"], cfg, chunk)
+    enc_out = encode(params, batch["audio_embeds"], cfg, chunk, ctx=ctx)
     h, caches = _decoder_stack(params, _embed_text(params, batch["tokens"]), enc_out,
-                               cfg, "prefill", chunk=chunk)
+                               cfg, "prefill", chunk=chunk, ctx=ctx)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = logits_head(params, h[:, -1:, :], cfg.vocab_size)
     return logits[:, 0, :], caches
 
 
-def encdec_decode(params, batch, cfg: ArchConfig):
+def encdec_decode(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx()):
     """One decode step.  batch: {token [B], pos int, caches {k, v, ck, cv}}.
     Returns (logits [B, V], caches) with the caches updated in place."""
     tok = batch["token"]
     pos = int(batch["pos"])
     h = params["embed"][tok][:, None, :].to(BF16) + params["pos_embed_dec"][pos][None, None]
     h, caches = _decoder_stack(params, h, None, cfg, "decode",
-                               caches=batch["caches"], pos=pos)
+                               caches=batch["caches"], pos=pos, ctx=ctx)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return logits_head(params, h[:, 0, :], cfg.vocab_size), caches

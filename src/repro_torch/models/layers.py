@@ -1,9 +1,11 @@
 """Shared model layers on torch: norms, RoPE, GQA attention (direct and
 chunked online-softmax), SwiGLU MLP, embeddings, LM head.
 
-A port of the reference's ``models/layers.py`` for one device: the
-``ShardCtx`` layout constraints are dropped.  Layouts are the reference's
-(``[B, S, H, D]`` for attention).  Attention accumulates in fp32 from bf16
+A port of the reference's ``models/layers.py``, with its ``ShardCtx``
+layout constraints (``ctx.cstr``) where the reference places them: under a
+mesh the tensors are DTensors and each constraint redistributes one, a
+no-op on one device.  Layouts are the reference's (``[B, S, H, D]`` for
+attention).  Attention accumulates in fp32 from bf16
 operands, as the reference's ``preferred_element_type=f32`` einsums do: the
 operands are upcast (bf16 products are exact in fp32) and summed in fp32.
 Prefill attention, and cross-attention over a whole encoder output, goes
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import flash_attention
+from .sharding import ShardCtx, reshape, unshard_dim
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -100,7 +103,8 @@ def _repeat_kv(x, rep: int):
 
 
 def attention_core(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
-                   chunk: int = 1024):
+                   chunk: int = 1024, ctx: ShardCtx = ShardCtx(),
+                   head_sharded: bool = True):
     """q: [B, Sq, H, Dh]; k, v: [B, Skv, Hkv, Dh]; qpos: [Sq]; kpos: [Skv].
 
     Direct path for Sq == 1 (decode) or Skv <= chunk; otherwise the chunked
@@ -112,6 +116,13 @@ def attention_core(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
     _, Skv, Hkv, _ = k.shape
     rep = H // Hkv
     scale = Dh ** -0.5
+
+    q_l = ("dp", None, "tp", None) if head_sharded else ("dp", "tp", None, None)
+    q = ctx.cstr(q, *q_l)
+    if Sq > 1 and Skv > chunk:
+        # K/V replicated over 'tp', so each chunk's slice is local
+        k = ctx.cstr(k, "dp", None, None, None)
+        v = ctx.cstr(v, "dp", None, None, None)
 
     if Sq == 1 or Skv <= chunk:
         kk, vv = _repeat_kv(k, rep), _repeat_kv(v, rep)
@@ -150,7 +161,8 @@ def attention_core(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
 
 def attention_block(p, x, *, cfg, positions, causal=True, window=0,
                     kv_override: Optional[Tuple] = None, use_rope: bool = True,
-                    full_kv: bool = False, chunk=1024, use_kernel: bool = True):
+                    full_kv: bool = False, chunk=1024, use_kernel: bool = True,
+                    ctx: ShardCtx = ShardCtx()):
     """Projections + RoPE + attention + output proj.  x: [B, S, D].
 
     With ``use_kernel`` and S > 1 the flash-attention kernel runs two
@@ -164,14 +176,17 @@ def attention_block(p, x, *, cfg, positions, causal=True, window=0,
     """
     B, S, D = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, Dh)
+    head_sharded_q = (H % max(1, ctx.tp) == 0) and S > 1
+    q_layout = ("dp", None, "tp", None) if head_sharded_q else ("dp", "tp", None, None)
+    # reshard before RoPE, so the boundary moves bf16 (RoPE upcasts to f32)
+    q = ctx.cstr(reshape(x @ p["wq"], B, S, H, Dh), *q_layout)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
     if kv_override is None:
-        k = (x @ p["wk"]).reshape(B, S, Hkv, Dh)
+        k = ctx.cstr(reshape(x @ p["wk"], B, S, Hkv, Dh), "dp", None, None, None)
+        v = ctx.cstr(reshape(x @ p["wv"], B, S, Hkv, Dh), "dp", None, None, None)
         if use_rope:
             k = rope(k, positions, cfg.rope_theta)
-        v = (x @ p["wv"]).reshape(B, S, Hkv, Dh)
         kpos = positions
     else:
         k, v, kpos = kv_override
@@ -181,8 +196,9 @@ def attention_block(p, x, *, cfg, positions, causal=True, window=0,
                             causal=causal, window=window)
     else:
         o = attention_core(q, k, v, positions, kpos, causal=causal,
-                           window=window, chunk=chunk)
-    out = o.reshape(B, S, H * Dh) @ p["wo"]
+                           window=window, chunk=chunk, ctx=ctx,
+                           head_sharded=H % max(1, ctx.tp) == 0)
+    out = reshape(o, B, S, H * Dh) @ p["wo"]
     return out, (k, v)
 
 
@@ -195,10 +211,11 @@ def mlp_init(gen, d_model: int, d_ff: int, lead=()):
     }
 
 
-def mlp(p, x):
+def mlp(p, x, ctx: ShardCtx = ShardCtx()):
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     h = F.silu(g.to(F32)).to(x.dtype) * u
+    h = ctx.cstr(h, "dp", None, "tp")
     return h @ p["w_down"]
 
 
@@ -231,13 +248,15 @@ def softmax_xent(logits, labels, vocab_size: int):
 
 
 def _xent_sum(lm_head, h, labels, vocab_size: int):
-    logits = logits_head({"lm_head": lm_head}, h, vocab_size)
+    # the gather below reads each label's logit: it needs the vocab dim whole
+    logits = unshard_dim(logits_head({"lm_head": lm_head}, h, vocab_size), -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.sum(logz - gold)
 
 
-def chunked_lm_loss(params, h, labels, vocab_size: int, *, chunk: int = 256):
+def chunked_lm_loss(params, h, labels, vocab_size: int, *, chunk: int = 256,
+                    ctx=None):
     """Next-token xent without materializing full [B, S, V] logits.
 
     Sequence chunks of ``chunk`` positions, each chunk's logits -> xent ->

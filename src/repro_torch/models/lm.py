@@ -24,7 +24,12 @@ the whole state of 'R' and 'W' blocks (copied into the cache views).  Each
 session owns its cache, so the copy the functional version makes would only
 cost memory.  A block with a MoE FFN returns its auxiliary loss (every
 other block None, so serving adds nothing); ``lm_loss`` sums it, prefill
-and decode drop it.  The vision frontend is the reference's stub: a batch
+and decode drop it.  Every entry point takes the reference's ``ctx``:
+under a mesh the params and batch are DTensors, its layout constraints
+sit where the reference's do, a MoE FFN runs ``moe_ffn_sharded``, and the
+loss runs in ``ctx.scope()``, where the plain tensors every rank makes
+alike (positions, masks, fresh buffers) meet DTensors as replicated ones.
+The vision frontend is the reference's stub: a batch
 may carry precomputed ``patch_embeds`` [B, P, D], projected by
 ``patch_proj`` and put before the text; the loss is taken over the text,
 and prefill's caches hold P + S_text positions.
@@ -56,7 +61,8 @@ from .layers import (
     rmsnorm_init,
     rope,
 )
-from .moe import moe_ffn, moe_init
+from .moe import moe_ffn, moe_ffn_sharded, moe_init
+from .sharding import ShardCtx, reshape, unshard_dim
 
 _KINDS = ("A", "L", "R", "W")
 
@@ -154,16 +160,24 @@ def _add_aux(total, aux):
     return aux if total is None else (total if aux is None else total + aux)
 
 
-def _ffn_apply(bp, cfg: ArchConfig, h2, train: bool):
+def _ffn_apply(bp, cfg: ArchConfig, h2, train: bool, ctx: ShardCtx = ShardCtx()):
     """Dense or MoE FFN on [B, S, D]; returns (out, aux), aux None when
-    dense."""
+    dense.  Under a mesh whose model axis divides the sequence and the
+    experts, a MoE FFN runs expert-parallel (``moe_ffn_sharded``)."""
     if cfg.num_experts:
         B, S, D = h2.shape
-        out, aux = moe_ffn(bp["moe"], h2.reshape(B * S, D),
-                           n_experts=cfg.num_experts, top_k=cfg.moe_top_k,
-                           capacity_factor=cfg.capacity_factor, train=train)
-        return out.reshape(B, S, D), aux
-    return mlp(bp["ffn"], h2), None
+        kw = dict(n_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                  capacity_factor=cfg.capacity_factor)
+        use_smap = (
+            ctx.mesh is not None
+            and S % max(1, ctx.tp) == 0 and S >= ctx.tp
+            and cfg.num_experts % max(1, ctx.tp) == 0
+        )
+        if use_smap:
+            return moe_ffn_sharded(bp["moe"], h2, ctx=ctx, **kw)
+        out, aux = moe_ffn(bp["moe"], reshape(h2, B * S, D), train=train, **kw)
+        return reshape(out, B, S, D), aux
+    return mlp(bp["ffn"], h2, ctx=ctx), None
 
 
 def _store(cache, new, mode: str):
@@ -187,7 +201,7 @@ def _ring_positions(pos: int, cap: int, device=None):
 
 
 def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
-                cache=None, pos=None, chunk: int = 1024):
+                cache=None, pos=None, chunk: int = 1024, ctx: ShardCtx = ShardCtx()):
     """One block.  Returns (h, aux, new_cache): aux is the MoE FFN's
     auxiliary loss (None for any other block), ``new_cache`` None in
     training."""
@@ -198,24 +212,28 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
         state = cache if cache is not None else rg.rglru_state_init(
             h.shape[0], cfg.rnn_width, cfg.conv_width, h.device)
         hn = rmsnorm(bp["norm1"], h, cfg.norm_eps)
-        out, new_state = rg.rglru_block_apply(bp["rglru"], hn, state, train=train)
+        out, new_state = rg.rglru_block_apply(bp["rglru"], hn, state, train=train,
+                                              ctx=ctx)
         h = h + out
         h2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
-        return h + mlp(bp["ffn"], h2), None, _store(cache, new_state, mode)
+        h = ctx.cstr(h + mlp(bp["ffn"], h2, ctx=ctx), "dp", "tp", None)
+        return h, None, _store(cache, new_state, mode)
     if kind == "W":
         st = cache if cache is not None else rw.rwkv_state_init(
             h.shape[0], cfg.d_model, cfg.rwkv_head_dim, h.device)
         hn = rmsnorm(bp["norm1"], h, cfg.norm_eps)
         tm_out, shift_tm, S_new = rw.timemix_apply(bp["tm"], hn, st["shift_tm"],
                                                    st["S"], cfg.rwkv_head_dim,
-                                                   train=train)
+                                                   train=train, ctx=ctx)
         h = h + tm_out
         hn2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
         cm_out, shift_cm = rw.channelmix_apply(bp["cm"], hn2, st["shift_cm"])
         new_state = {"S": S_new, "shift_tm": shift_tm, "shift_cm": shift_cm}
-        return h + cm_out, None, _store(cache, new_state, mode)
+        h = ctx.cstr(h + cm_out, "dp", "tp", None)
+        return h, None, _store(cache, new_state, mode)
     window = cfg.window_size if kind == "L" else 0
-    hn = rmsnorm(bp["norm1"], h, cfg.norm_eps)
+    # the norm output in the seq-sharded layout, as the reference has it
+    hn = ctx.cstr(rmsnorm(bp["norm1"], h, cfg.norm_eps), "dp", "tp", None)
     if mode == "decode":
         B = h.shape[0]
         Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
@@ -227,16 +245,18 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
         slot = pos % cap if kind == "L" else min(pos, cap - 1)
         k_buf[:, slot] = k_new[:, 0]
         v_buf[:, slot] = v_new[:, 0]
+        k_buf = ctx.cstr(k_buf, "dp", "tp", None, None)
+        v_buf = ctx.cstr(v_buf, "dp", "tp", None, None)
         kpos = (_ring_positions(pos, cap, h.device) if kind == "L"
                 else torch.arange(cap, device=h.device))
         attn_out, _ = attention_block(
             bp["attn"], hn, cfg=cfg, positions=positions, causal=True,
-            window=window, kv_override=(k_buf, v_buf, kpos), chunk=chunk)
+            window=window, kv_override=(k_buf, v_buf, kpos), chunk=chunk, ctx=ctx)
         new_cache = cache
     else:
         attn_out, (k_full, v_full) = attention_block(
             bp["attn"], hn, cfg=cfg, positions=positions, causal=True,
-            window=window, chunk=chunk, use_kernel=not train)
+            window=window, chunk=chunk, use_kernel=not train, ctx=ctx)
         S = h.shape[1]
         if train:
             new_cache = None
@@ -249,11 +269,12 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
             v_ring[:, slots] = v_full[:, S - w:]
             new_cache = {"k": k_ring, "v": v_ring}
         else:
-            new_cache = {"k": k_full, "v": v_full}
-    h = h + attn_out
-    h2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
-    ffn_out, aux = _ffn_apply(bp, cfg, h2, train)
-    return h + ffn_out, aux, new_cache
+            new_cache = {"k": ctx.cstr(k_full, "dp", "tp", None, None),
+                         "v": ctx.cstr(v_full, "dp", "tp", None, None)}
+    h = ctx.cstr(h + attn_out, "dp", "tp", None)
+    h2 = ctx.cstr(rmsnorm(bp["norm2"], h, cfg.norm_eps), "dp", "tp", None)
+    ffn_out, aux = _ffn_apply(bp, cfg, h2, train, ctx)
+    return ctx.cstr(h + ffn_out, "dp", "tp", None), aux, new_cache
 
 
 def _index(tree, i: int):
@@ -269,7 +290,7 @@ def _unbind(tree, n: int):
     if isinstance(tree, dict):
         per = {k: _unbind(v, n) for k, v in tree.items()}
         return [{k: per[k][i] for k in tree} for i in range(n)]
-    return torch.unbind(tree, 0)
+    return torch.unbind(unshard_dim(tree, 0), 0)
 
 
 def _stack(trees):
@@ -281,7 +302,7 @@ def _stack(trees):
 
 # ---------------------------------------------------------------- forward
 def _run_stack(params, h, *, cfg, positions, mode, caches=None, pos=None,
-               chunk=1024):
+               chunk=1024, ctx: ShardCtx = ShardCtx()):
     """Loop over the stacked groups, then the unrolled remainder.
     Returns (h, aux, caches): the MoE aux summed block by block in layer
     order (None without MoE blocks); fresh caches in prefill, ``caches``
@@ -296,7 +317,7 @@ def _run_stack(params, h, *, cfg, positions, mode, caches=None, pos=None,
             bcache = gcache[f"b{j}"] if gcache is not None else None
             h, a, new[f"b{j}"] = apply_block(
                 gp[f"b{j}"], kind, h, cfg=cfg, positions=positions, mode=mode,
-                cache=bcache, pos=pos, chunk=chunk)
+                cache=bcache, pos=pos, chunk=chunk, ctx=ctx)
             aux = _add_aux(aux, a)
         return h, aux, new
 
@@ -317,7 +338,7 @@ def _run_stack(params, h, *, cfg, positions, mode, caches=None, pos=None,
         bcache = caches["rem"][i] if caches is not None else None
         h, a, nc = apply_block(params["rem"][i], pat[i], h, cfg=cfg,
                                positions=positions, mode=mode, cache=bcache,
-                               pos=pos, chunk=chunk)
+                               pos=pos, chunk=chunk, ctx=ctx)
         aux = _add_aux(aux, a)
         rem_caches.append(nc)
     if mode == "train":
@@ -332,49 +353,55 @@ def _embed(params, tokens):
     return embed_lookup(params, tokens).to(BF16)
 
 
-def _embed_input(params, batch, cfg: ArchConfig):
+def _embed_input(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx()):
     """Tokens (after the projected ``patch_embeds`` of a vision config, when
     the batch has them) -> ([B, S, D], offset of the first text position)."""
     tok_h = _embed(params, batch["tokens"])
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         patches = batch["patch_embeds"]
         patch_h = patches.to(BF16) @ params["patch_proj"]
-        return torch.cat([patch_h, tok_h], dim=1), patches.shape[1]
-    return tok_h, 0
+        h, off = torch.cat([patch_h, tok_h], dim=1), patches.shape[1]
+    else:
+        h, off = tok_h, 0
+    return ctx.cstr(h, "dp", "tp", None), off
 
 
-def lm_loss(params, batch, cfg: ArchConfig, chunk: int = 1024):
+def lm_loss(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx(),
+            chunk: int = 1024):
     """Next-token loss over the text.  batch: {tokens [B, S_text]
     (+ patch_embeds [B, P, D])}.  Returns (loss + 0.01 * aux,
     {"loss", "aux"})."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    h, off = _embed_input(params, batch, cfg)
-    positions = torch.arange(h.shape[1], device=h.device)
-    h, aux, _ = _run_stack(params, h, cfg=cfg, positions=positions,
-                           mode="train", chunk=chunk)
-    if aux is None:
-        aux = torch.zeros((), dtype=F32, device=h.device)
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)[:, off:, :]
-    loss = chunked_lm_loss(params, h[:, :-1, :], tokens[:, 1:], cfg.vocab_size)
-    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
+    with ctx.scope():
+        tokens = batch["tokens"]
+        h, off = _embed_input(params, batch, cfg, ctx)
+        positions = torch.arange(h.shape[1], device=h.device)
+        h, aux, _ = _run_stack(params, h, cfg=cfg, positions=positions,
+                               mode="train", chunk=chunk, ctx=ctx)
+        if aux is None:
+            aux = ctx.replicate(torch.zeros((), dtype=F32, device=h.device))
+        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)[:, off:, :]
+        loss = chunked_lm_loss(params, h[:, :-1, :], tokens[:, 1:], cfg.vocab_size,
+                               ctx=ctx)
+        return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
-def lm_prefill(params, batch, cfg: ArchConfig, chunk: int = 1024):
+def lm_prefill(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx(),
+               chunk: int = 1024):
     """Full-sequence forward building decode caches.  batch: {tokens [B, S]
     (+ patch_embeds [B, P, D]: the caches then hold P + S positions)}.
     Returns (logits_last [B, V], caches)."""
     check_supported(cfg)
-    h, _ = _embed_input(params, batch, cfg)
+    h, _ = _embed_input(params, batch, cfg, ctx)
     positions = torch.arange(h.shape[1], device=h.device)
     h, _, caches = _run_stack(params, h, cfg=cfg, positions=positions,
-                              mode="prefill", chunk=chunk)
+                              mode="prefill", chunk=chunk, ctx=ctx)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = logits_head(params, h[:, -1:, :], cfg.vocab_size)
     return logits[:, 0, :], caches
 
 
-def lm_decode(params, batch, cfg: ArchConfig):
+def lm_decode(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx()):
     """One decode step.  batch: {token [B], pos int, caches}.  Returns
     (logits [B, V], caches) with the caches updated in place."""
     check_supported(cfg)
@@ -383,7 +410,8 @@ def lm_decode(params, batch, cfg: ArchConfig):
     h = _embed(params, tok)[:, None, :]
     positions = torch.full((1,), pos, dtype=torch.int64, device=h.device)
     h, _, caches = _run_stack(params, h, cfg=cfg, positions=positions,
-                              mode="decode", caches=batch["caches"], pos=pos)
+                              mode="decode", caches=batch["caches"], pos=pos,
+                              ctx=ctx)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = logits_head(params, h[:, 0, :], cfg.vocab_size)
     return logits, caches

@@ -27,8 +27,28 @@ reaches its Pallas kernel: the experts are the three einsums of its
 f32-upcast operands (a bf16 product is exact in f32), so autograd
 differentiates them on the CPU and on the card alike.  The kernel has no
 backward.  No fill mask is needed there: the empty rows of the buffer are
-zero and stay zero through the SwiGLU.  ``moe_ffn_sharded`` (expert
-parallelism) is not ported (ROADMAP D2).
+zero and stay zero through the SwiGLU.
+
+``moe_ffn_sharded`` is the reference's row x column expert parallelism
+(its ``shard_map`` path), written as explicit per-rank code on the local
+shards of DTensors: rank (i, j) of a ("data", "model") mesh takes data-row
+i's tokens and model-column j's E/tp experts, ranks only its local
+assignments (the rest go to overflow slot C of a C+1-wide buffer, with C
+from the *local* token count), runs the reference's three einsums in f32,
+and the partial outputs are reduce-scattered over "model" along the
+sequence dim (``dist.reduce_scatter_tensor``).  Routing and the aux term
+run on the local rows; aux is averaged over "model" and then over "data".
+The gated sum of the K expert outputs runs in f32 and is rounded once to
+the tokens' dtype, as in ``moe_ffn``: the reference writes it as a bf16
+sum, which its jitted step (XLA keeps the fused chain in f32 by default)
+does not round K times either; op by op in bf16 it moved the first loss
+of olmoe-1b-7b at full width 3.7e-3 from the unsharded path (an NVIDIA
+H100, ``chip_smoke.py``'s mesh phase).
+The partial outputs cross ranks in the tokens' dtype, as the reference's
+``psum_scatter`` does.  Like the reference's sharded path it reaches no
+kernel.  The gradients of
+the replicated operands (the row's tokens, the router, the experts over
+"data") are partial sums on each rank, summed by DTensor.
 """
 
 from __future__ import annotations
@@ -41,6 +61,8 @@ import torch.nn.functional as F
 
 from ..kernels.moe_gmm.ops import moe_gmm
 from .layers import F32, dense_init
+from ..tree import tree_map
+from .sharding import P, ShardCtx, is_dtensor
 
 
 def moe_init(gen, d_model: int, d_ff: int, n_experts: int, lead=()):
@@ -111,7 +133,13 @@ def _expert_mlp(w, buf, counts=None, train=False):
 def moe_ffn(p, x2d, *, n_experts: int, top_k: int, capacity_factor: float,
             train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x2d: [T, D] -> ([T, D], aux).  ``train``: the experts run the
-    reference's einsums instead of the kernel."""
+    reference's einsums instead of the kernel.  Given DTensors (a mesh
+    whose model axis ``moe_ffn_sharded`` cannot split the tokens over),
+    every rank runs the whole dispatch on replicated operands, the global
+    math of the reference's GSPMD path."""
+    if is_dtensor(x2d):
+        return _replicated(moe_ffn, p, x2d, n_experts=n_experts, top_k=top_k,
+                           capacity_factor=capacity_factor, train=train)
     T, D = x2d.shape
     E, K = n_experts, top_k
     C = capacity(T, K, E, capacity_factor)
@@ -136,3 +164,152 @@ def moe_ffn(p, x2d, *, n_experts: int, top_k: int, capacity_factor: float,
         w = (gate_vals[:, k] * keep[k::K]).to(F32)
         out = out + y[row[k::K]].to(F32) * w[:, None]
     return out.to(x2d.dtype), aux
+
+
+def _replicated(fn, p, x, **kw):
+    """``fn`` on the whole values of DTensors ``p`` and ``x``, the same on
+    every rank; its outputs as replicated DTensors.  Every rank's grad is
+    then the whole grad, as ``Replicate`` says."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def whole(t):
+        return t.redistribute(mesh, rep).to_local() if is_dtensor(t) else t
+
+    outs = fn(tree_map(whole, p), whole(x), **kw)
+    return tuple(DTensor.from_local(o, mesh, rep, run_check=False) for o in outs)
+
+
+# ------------------------------------------------- row x column expert parallelism
+class _ReduceScatterDim1(torch.autograd.Function):
+    """Sum over ``group``, each rank keeping its 1/n slice of dim 1 (the
+    reference's ``psum_scatter(scatter_dimension=1, tiled=True)``); the
+    backward all-gathers that slice."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        n = dist.get_world_size(group)
+        xt = x.transpose(0, 1).contiguous()                  # scatter on dim 0
+        out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, xt, group=group)
+        return out.transpose(0, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        n = dist.get_world_size(ctx.group)
+        gt = g.transpose(0, 1).contiguous()
+        full = torch.empty((gt.shape[0] * n,) + tuple(gt.shape[1:]),
+                           dtype=g.dtype, device=g.device)
+        dist.all_gather_into_tensor(full, gt, group=ctx.group)
+        return full.transpose(0, 1).contiguous(), None
+
+
+class _MeanOver(torch.autograd.Function):
+    """The mean of a per-rank value over ``groups`` in turn (the reference's
+    ``pmean``).  The result is the same on every rank, and so is its
+    cotangent, so each rank's input gets 1/n of it."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        import torch.distributed as dist
+
+        out = x.clone()
+        n = 1
+        for g in groups:
+            dist.all_reduce(out, group=g)
+            n *= dist.get_world_size(g)
+        ctx.n = n
+        return out / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def _local_in(ctx: ShardCtx, x, spec, grad_spec):
+    """The local shard of DTensor ``x`` laid out by ``spec``; its grad comes
+    back laid out by ``grad_spec`` (Partial on the mesh axes the shard is
+    replicated over but the per-rank code reads only part of)."""
+    from torch.distributed.tensor import Partial
+
+    x = x.redistribute(ctx.mesh, ctx.placements(spec))
+    grad = [Partial() if a in grad_spec else p
+            for a, p in zip(ctx.mesh.mesh_dim_names, x.placements)]
+    return x.to_local(grad_placements=grad)
+
+
+def moe_ffn_sharded(p, x, *, n_experts: int, top_k: int, capacity_factor: float,
+                    ctx: ShardCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] DTensor.  Returns ([B, S, D] DTensor sharded (dp, tp,
+    None), replicated f32 aux).
+
+    Row x column EP: rank (i, j) processes dp-row i's tokens for tp-column
+    j's experts; the partial outputs reduce-scatter over 'tp'.
+    """
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ctx.mesh
+    E, K = n_experts, top_k
+    tp = ctx.tp_axis
+    tp_size = ctx.tp
+    assert E % tp_size == 0, (E, tp_size)
+    E_loc = E // tp_size
+    dp_spec = ctx._resolve("dp", x.shape[0])
+    dp_names = (() if dp_spec is None else
+                (dp_spec,) if isinstance(dp_spec, str) else tuple(dp_spec))
+    every = tuple(mesh.mesh_dim_names)
+
+    xl = _local_in(ctx, x, P(dp_spec, None, None), (tp,))           # row tokens
+    router_w = _local_in(ctx, p["router"], P(None, None), every)
+    w = {k: _local_in(ctx, p["experts"][k], P(tp, None, None),
+                      tuple(a for a in every if a != tp))
+         for k in ("w1", "w3", "w2")}
+
+    B_loc, S, D = xl.shape
+    T = B_loc * S
+    x2 = xl.reshape(T, D)
+    probs, gate_vals, gate_idx = _router({"router": router_w}, x2, K)
+    aux = _aux_loss(probs, _expert_counts(gate_idx.reshape(T * K), E), T * K)
+    aux = _MeanOver.apply(aux, [mesh.get_group(tp)]
+                          + [mesh.get_group(a) for a in dp_names])
+
+    e_lo = mesh.get_local_rank(tp) * E_loc
+    local = (gate_idx >= e_lo) & (gate_idx < e_lo + E_loc)           # [T, K]
+    C = capacity(T, K, E, capacity_factor)
+    # rank only local assignments; non-local entries go to bucket E_loc
+    flat_e = torch.where(local, gate_idx - e_lo,
+                         torch.full_like(gate_idx, E_loc)).reshape(T * K)
+    pos = _rank_positions(flat_e)
+    keep = (flat_e < E_loc) & (pos < C)
+    # dropped and non-local entries land in overflow slot C of a C+1-wide
+    # buffer, sliced off before the GEMMs
+    slot = torch.where(keep, torch.clamp(pos, 0, C - 1), torch.full_like(pos, C))
+    eid = torch.clamp(flat_e, 0, E_loc - 1)
+    row = eid * (C + 1) + slot                                       # into [E_loc*(C+1)]
+
+    buf = torch.zeros((E_loc * (C + 1), D), dtype=x2.dtype, device=x2.device)
+    for k in range(K):
+        buf = buf.index_add(0, row[k::K], x2)
+    y = _expert_mlp(w, buf.view(E_loc, C + 1, D)[:, :C], train=True)
+    # the gated sum in f32, rounded once (``moe_ffn``'s sum, and what XLA's
+    # fusion makes of the reference's bf16 one)
+    out = torch.zeros((T, D), dtype=F32, device=x2.device)
+    for k in range(K):
+        wk = (gate_vals[:, k] * keep[k::K]).to(F32)
+        yk = y[eid[k::K], torch.clamp(slot[k::K], 0, C - 1)]
+        out = out + yk.to(F32) * wk[:, None]
+    out = out.to(x2.dtype).reshape(B_loc, S, D)
+    # partial sums over expert columns -> the seq-sharded residual
+    out = _ReduceScatterDim1.apply(out, mesh.get_group(tp))
+    out = DTensor.from_local(out, mesh, ctx.placements(P(dp_spec, tp, None)),
+                             run_check=False)
+    aux = DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return out, aux

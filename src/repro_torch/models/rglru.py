@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels.rglru_scan.ops import rglru_gated_scan
 from .layers import BF16, F32, dense_init
+from .sharding import ShardCtx
 
 RGLRU_C = 8.0
 
@@ -72,11 +73,11 @@ def rglru_scan(xi, r, i_gate, lam, h0):
     return torch.stack(ys, 1), h
 
 
-def rglru_block_apply(p, x, state, train=False):
+def rglru_block_apply(p, x, state, train=False, ctx: ShardCtx = ShardCtx()):
     """x: [B, T, D]; state: {h: [B, W], conv: [B, Cw-1, W]}.
     Returns (out, new state) with fresh state tensors.  ``train``: the
     reference's separate gates and scan instead of the kernel."""
-    xi = x @ p["w_in"]
+    xi = ctx.cstr(x @ p["w_in"], "dp", None, "tp")
     xi, conv_state = causal_conv1d(xi, p["conv"], state["conv"])
     if train:
         r = torch.sigmoid((xi @ p["w_a"]).to(F32))

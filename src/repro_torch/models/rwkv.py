@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.rwkv6_scan.ops import wkv6
 from .layers import BF16, F32, dense_init, rmsnorm, rmsnorm_init
+from .sharding import ShardCtx, reshape
 
 LORA_MIX = 32
 LORA_DECAY = 64
@@ -88,7 +89,7 @@ def wkv_scan(r, k, v, w, u, s0):
     return torch.stack(outs, 1), S
 
 
-def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128):
+def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128, ctx: ShardCtx = ShardCtx()):
     """WKV6 as an outer loop over time chunks of the exact scan: the
     reference's prompt path, numerically the same as ``wkv_scan``.  Under
     grad mode each chunk is recomputed in backward, so only the
@@ -106,36 +107,39 @@ def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128):
             out, S = checkpoint(wkv_scan, *xs, u, S, use_reentrant=False)
         else:
             out, S = wkv_scan(*xs, u, S)
+        S = ctx.cstr(S, "dp", None, None, None)
         outs.append(out)
     return torch.cat(outs, 1), S
 
 
-def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False):
+def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False,
+                  ctx: ShardCtx = ShardCtx()):
     """x: [B, T, D].  Returns (out, new_shift [B, D], sT).  ``train``: the
     reference's scans instead of the kernel."""
     B, T, D = x.shape
     H = D // head_dim
     xx = _token_shift(x, shift_prev) - x
     mixed = x + xx * p["mu"][0]  # base for the dynamic mix coefficients
-    dyn = torch.tanh(mixed @ p["mix_a"]).reshape(B, T, 5, LORA_MIX)
+    dyn = reshape(torch.tanh(mixed @ p["mix_a"]), B, T, 5, LORA_MIX)
     dyn = torch.einsum("btzl,zld->btzd", dyn, p["mix_b"])
     x_r, x_k, x_v, x_w, x_g = (x + xx * (p["mu"][z] + dyn[:, :, z]) for z in range(5))
 
-    r = (x_r @ p["wr"]).reshape(B, T, H, head_dim)
-    k = (x_k @ p["wk"]).reshape(B, T, H, head_dim)
-    v = (x_v @ p["wv"]).reshape(B, T, H, head_dim)
+    r = ctx.cstr(reshape(x_r @ p["wr"], B, T, H, head_dim), "dp", None, None, None)
+    k = ctx.cstr(reshape(x_k @ p["wk"], B, T, H, head_dim), "dp", None, None, None)
+    v = ctx.cstr(reshape(x_v @ p["wv"], B, T, H, head_dim), "dp", None, None, None)
     g = F.silu((x_g @ p["wg"]).to(F32))
     logw = p["w0"] + torch.tanh(x_w.to(F32) @ p["decay_a"].to(F32)) @ p["decay_b"]
-    w = torch.exp(-torch.exp(logw)).reshape(B, T, H, head_dim)   # decay in (0, 1)
-    u = p["u"].reshape(H, head_dim)
+    w = reshape(torch.exp(-torch.exp(logw)), B, T, H, head_dim)  # decay in (0, 1)
+    w = ctx.cstr(w, "dp", None, None, None)
+    u = reshape(p["u"], H, head_dim)
 
     if not train:
         out, sT = wkv6(r, k, v, w, u, s0)
     elif T > 1:
-        out, sT = wkv_chunked(r, k, v, w, u, s0)
+        out, sT = wkv_chunked(r, k, v, w, u, s0, ctx=ctx)
     else:
         out, sT = wkv_scan(r, k, v, w, u, s0)
-    out = rmsnorm(p["ln_out"], out.reshape(B, T, D))
+    out = rmsnorm(p["ln_out"], reshape(out, B, T, D))
     out = (out.to(F32) * g).to(x.dtype) @ p["wo"]
     return out, x[:, -1, :], sT
 

@@ -1,6 +1,14 @@
 """Runtime of the port: the copied router/admission/chaos/fault/elastic
-planes, the torch serving loop and the training loop."""
+planes, gradient compression, the torch serving loop and the training
+loop."""
 
+from .compression import (
+    compressed_psum,
+    init_error_state,
+    int8_dequantize,
+    int8_quantize,
+    topk_compress,
+)
 from .elastic import ElasticController, ScaleEvent
 from .fault_tolerance import (
     FailureInjector,
@@ -19,6 +27,8 @@ from .serve_loop import DiffusionServer, Replica, Request, ServeStats
 from .train_loop import TrainConfig, Trainer, TrainResult
 
 __all__ = [
+    "compressed_psum", "init_error_state", "int8_dequantize", "int8_quantize",
+    "topk_compress",
     "ElasticController", "ScaleEvent",
     "FailureInjector", "HeartbeatMonitor", "RecoveryActions", "recover",
     "Assignment", "CacheAffinityRouter", "ReplicaStore", "RoutedRequest",

@@ -1,11 +1,15 @@
 """Training loop of the port: diffusion data pipeline + train step +
 checkpoints + heartbeats/straggler watch + failure injection and restart.
 
-A port of the reference's ``runtime/train_loop.py`` on one device: the
-step is ``models.make_train_step`` (a plain function, no ``jit``), state is
-drawn on ``device`` (the card unless the caller asks for ``"cpu"``), and
+A port of the reference's ``runtime/train_loop.py``: the step is
+``models.make_train_step`` (a plain function, no ``jit``), state is drawn
+on ``device`` (the card unless the caller asks for ``"cpu"``), and
 checkpoints go through the port's ``AsyncCheckpointer`` in the reference's
-on-disk format, ``{"params", "opt"}`` with ``opt.step`` included.  The
+on-disk format, ``{"params", "opt"}`` with ``opt.step`` included.  Under a
+mesh (``ctx``) the params are placed by ``tree_shardings``, the optimizer
+state by ``opt_state_specs`` and each batch by ``batch_specs``, as DTensors
+(every rank draws the same params and batch, then keeps its shards), and a
+checkpoint restores under the current mesh.  The
 failure-injection and restart logic is the reference's.  The result also
 carries each step's grad norm and wall time (host clock after the step's
 loss reached the host, which waits for the device).
@@ -26,7 +30,9 @@ from ..checkpoint import AsyncCheckpointer, latest_checkpoint, restore_checkpoin
 from ..configs.base import ArchConfig, ShapeConfig
 from ..data.pipeline import DiffusionDataPipeline, PipelineConfig
 from ..models import init_opt_state, init_params, make_train_step
+from ..launch.shardings import batch_specs, opt_state_specs, with_shardings
 from ..models.encdec import text_len
+from ..models.sharding import ShardCtx, full, map_specs, tree_param_specs
 from ..optim.adamw import AdamWConfig
 from .fault_tolerance import FailureInjector, HeartbeatMonitor
 
@@ -65,8 +71,9 @@ class Trainer:
         pipeline: Optional[DiffusionDataPipeline] = None,
         failure_injector: Optional[FailureInjector] = None,
         device="cuda",
+        ctx: ShardCtx = ShardCtx(),
     ):
-        self.cfg, self.shape, self.tcfg = cfg, shape, tcfg
+        self.cfg, self.shape, self.tcfg, self.ctx = cfg, shape, tcfg, ctx
         self.device = torch.device(device)
         self.pipeline = pipeline or DiffusionDataPipeline(
             PipelineConfig(
@@ -83,22 +90,34 @@ class Trainer:
         self.injector = failure_injector
         self.ckpt = AsyncCheckpointer(tcfg.checkpoint_dir)
         self.step_fn = make_train_step(cfg, shape, tcfg.opt, tcfg.total_steps,
-                                       microbatches=tcfg.microbatches)
+                                       microbatches=tcfg.microbatches, ctx=ctx)
         self.restarts = 0
 
     # ------------------------------------------------------------ state
+    def _specs(self, params, opt_state):
+        return {"params": tree_param_specs(self.ctx, params),
+                "opt": opt_state_specs(self.ctx, params, opt_state)}
+
     def init_state(self):
         params = init_params(self.cfg, device=self.device, seed=self.tcfg.seed)
         opt_state = init_opt_state(params, self.cfg)
-        return params, opt_state
+        if self.ctx.mesh is None:
+            return params, opt_state
+        specs = self._specs(params, opt_state)
+        return (with_shardings(self.ctx, params, specs["params"]),
+                with_shardings(self.ctx, opt_state, specs["opt"]))
 
     def restore_or_init(self):
         step = latest_checkpoint(self.tcfg.checkpoint_dir)
         params, opt_state = self.init_state()
         if step is None:
             return params, opt_state, 0
+        shardings = None
+        if self.ctx.mesh is not None:
+            shardings = map_specs(self.ctx.named, self._specs(params, opt_state))
         state = restore_checkpoint(
-            self.tcfg.checkpoint_dir, step, {"params": params, "opt": opt_state}
+            self.tcfg.checkpoint_dir, step, {"params": params, "opt": opt_state},
+            shardings=shardings,
         )
         return state["params"], state["opt"], int(step)
 
@@ -119,7 +138,10 @@ class Trainer:
             batch = {"audio_embeds": torch.zeros((B, S, D), dtype=torch.bfloat16,
                                                  device=self.device),
                      "tokens": tokens[:, : text_len(S)]}
-        return batch
+        if self.ctx.mesh is None:
+            return batch
+        return with_shardings(self.ctx, batch,
+                              batch_specs(self.ctx, self.cfg, self.shape, batch))
 
     # --------------------------------------------------------------- run
     def run(self, start_fresh: bool = False) -> TrainResult:
@@ -146,10 +168,10 @@ class Trainer:
             tokens, info = self.pipeline.next_batch()
             batch = self._batch_for(tokens)
             params, opt_state, metrics = self.step_fn(params, opt_state, batch)
-            loss = float(metrics["loss"])
+            loss = float(full(metrics["loss"]))
             step_s.append(time.time() - ts)
             losses.append(loss)
-            grad_norms.append(float(metrics["grad_norm"]))
+            grad_norms.append(float(full(metrics["grad_norm"])))
             self.monitor.heartbeat(info["host"], step_time_s=time.time() - ts)
             step += 1
             if step % self.tcfg.checkpoint_every == 0:

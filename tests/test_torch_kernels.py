@@ -930,3 +930,45 @@ def test_cuda_entry_points_refuse_grad(cuda_device, name):
     assert counter.launches == before + 1
     want = _first(fn(*[x.cpu() for x in xs]))
     assert rel_err(_np(got), _np(want)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_entries_refuse_dtensors_on_card(cuda_device):
+    """Each kernel entry point given DTensor operands on the card raises
+    before it launches (a kernel would read the local shard alone); world
+    size 1 over NCCL."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_ctx, make_host_mesh
+    from repro_torch.models.sharding import P, distribute
+
+    started = init_process_group(cuda_device)
+    try:
+        ctx = make_ctx(make_host_mesh())
+
+        def d(*shape, dtype=torch.float32):
+            x = torch.rand(shape, device=cuda_device).to(dtype)
+            return distribute(ctx, x, P(*[None] * len(shape)))
+
+        bf = torch.bfloat16
+        calls = {
+            dispatch_scores: lambda: dispatch_scores(d(8, 16), d(4, 16)),
+            dispatch_score_update: lambda: dispatch_score_update(d(8, 4), d(8, 2), d(2, 4)),
+            flash_attention: lambda: flash_attention(d(1, 16, 2, 16, dtype=bf),
+                                                     d(1, 16, 2, 16, dtype=bf),
+                                                     d(1, 16, 2, 16, dtype=bf)),
+            moe_gmm: lambda: moe_gmm(d(2, 8, 16, dtype=bf), d(2, 16, 8, dtype=bf)),
+            rglru_scan: lambda: rglru_scan(d(1, 4, 8), d(1, 4, 8)),
+            rglru_gated_scan: lambda: rglru_gated_scan(d(1, 4, 8), d(1, 4, 8),
+                                                       d(1, 4, 8), d(8)),
+            wkv6: lambda: wkv6(d(1, 4, 2, 16), d(1, 4, 2, 16), d(1, 4, 2, 16),
+                               d(1, 4, 2, 16), d(2, 16)),
+        }
+        for fn, call in calls.items():
+            before = fn.launches
+            with pytest.raises(TypeError, match="DTensor"):
+                call()
+            assert fn.launches == before
+    finally:
+        if started:
+            dist.destroy_process_group()
