@@ -5,6 +5,16 @@
 
 Phases (any failure exits non-zero before the result line):
   1. device  - the card's name and power limit (nvidia-smi);
+     gloo4   - started here, read after phase 4: the multi-rank jobs of
+               ``tests/_torch_sharded_jobs.py`` (no JAX) on 4 gloo ranks on
+               this machine's CPU, a (2, 2) mesh, the card hidden from them,
+               on inputs from the port's own init: ``moe_ffn_sharded``, the
+               sharded loss and grads, two ``Trainer`` steps and a
+               microbatch step, checkpoints across meshes, the sharded
+               ``DiffusionServer`` (reduced internlm2, olmoe,
+               recurrentgemma, rwkv6; modeled and real payload) and K3's
+               GQA heads at tp = 2, each held to the port on one device by
+               ``port_checks`` (the bounds of ``test_torch_sharding.py``);
   2. build   - nvcc builds every kernel in src/repro_torch/csrc, in parallel;
   3. parity  - each kernel against its plain PyTorch version on the card:
                flash attention (bf16, rel. err < 2e-2, head dims up to 256,
@@ -27,8 +37,9 @@ Phases (any failure exits non-zero before the result line):
                from T = 1 to 2,048, short and windowed; finite and 1e-3 under
                strong decay, w down to 1e-5), the two scans with a
                carried-in state and on their final state;
-  4. model   - the reduced internlm2, gemma3, olmoe, recurrentgemma and
-               rwkv6 decoders, prefill and eight decode steps on the card
+  4. model   - the reduced internlm2, gemma3, olmoe, recurrentgemma,
+               rwkv6, llama3-8b, llama3.2-3b and qwen3-moe-235b-a22b
+               decoders, prefill and eight decode steps on the card
                against the same weights on the CPU (plain versions): logits
                rel. err < 2e-2, equal greedy tokens; the same for reduced
                whisper (64 audio frames, 8 text tokens; 6 flash-attention
@@ -45,6 +56,13 @@ Phases (any failure exits non-zero before the result line):
                Kernel launch counters are zeroed just before each and read
                just after, and every RG-LRU launch of recurrentgemma's run
                must come from the gated entry;
+     mesh_serve - the same four at full width and the same streams under
+               ``make_ctx(make_host_mesh())``, world size 1 over NCCL (params,
+               caches, prompts and tokens DTensors, every kernel on the local
+               shards): counters, greedy tokens and every kernel's launches
+               equal to the unsharded run's (so to ``SERVE_LAUNCHES``),
+               decode ms/token of both runs; every kernel entry point given
+               an empty batch launches nothing;
   6. payload - internlm2-1.8b at full width served twice on the launcher's
                stream with two HBM session slots over eight sessions and a
                host tier of eight, payload modeled and then real: equal
@@ -78,7 +96,7 @@ Phases (any failure exits non-zero before the result line):
                update timed alone at that width (its share of a step); (d) a
                failure at step 12 and a restart from the step-10 checkpoint
                on the card, the restored state bit-equal to the saved one;
-               (e) olmoe-1b-7b at 4 of 16 layers and rwkv6-3b at 16 of 32,
+               (e) olmoe-1b-7b at 2 of 16 layers and rwkv6-3b at 4 of 32,
                full width, trained by the port's ``Trainer`` in this process
                (8 x 256 tokens, 6 steps, the launcher's AdamW): finite
                losses and grad norms, no kernel launch, the median step ms
@@ -89,10 +107,10 @@ Phases (any failure exits non-zero before the result line):
                ``python -m repro_torch.launch.train --arch recurrentgemma-9b
                --reduced --steps 3`` on the card;
  10. mesh    - (a) ``--mesh host`` at world size 1 over NCCL: olmoe-1b-7b
-               at full width, 4 of 16 layers, trained 6 steps by the
+               at full width, 2 of 16 layers, trained 6 steps by the
                ``Trainer`` under ``make_ctx(make_host_mesh())`` on the
                tokens, seed and optimizer of phase 9's ``--mesh none`` run:
-               all 48 MoE calls through ``moe_ffn_sharded``, the first loss
+               all 24 MoE calls through ``moe_ffn_sharded``, the first loss
                within 2e-3 of that run's and the others within 2e-2, no
                kernel launch; step ms, tokens/s and peak memory beside that
                run's; (b) ``topk_compress`` and ``compressed_psum`` on the
@@ -113,6 +131,12 @@ Phases (any failure exits non-zero before the result line):
                tokens (one flash-attention launch a layer), 16 greedy decode
                steps, finite logits; then the same config served text-only
                as in phase 5 (4 sessions, 16 requests);
+     archs   - llama3-8b and llama3.2-3b at full width and depth, and
+               qwen3-moe-235b-a22b at full width with 2 of its 94 layers
+               (random weights from seed 0): a 16-token prefill (one K3
+               launch a layer; qwen3 also 3 K4 launches a layer, E = 128,
+               D = 4,096, F = 1,536) and 8 greedy decode steps, finite
+               logits, decode ms/token beside its weight-read floor;
  13. timing  - each kernel at the main path's shapes: CUDA-event times of
                the kernel, its plain version and one library call where one
                computes the same function, beside the card's bound (bytes
@@ -127,7 +151,9 @@ Phases (any failure exits non-zero before the result line):
                encoder's and cross-attention's shapes and at llava's
                prefill, window scoring at
                (W, O, E) = (256, 512, 64), the rank-K update at (256, 64,
-               64), WKV6 at T = 16 and 2,048.  The RG-LRU's row is the gated
+               64), WKV6 at T = 16 and 2,048, K4 at qwen3-moe-235b-a22b's
+               down product at one decode token's routing (E = 128, top 8).
+               The RG-LRU's row is the gated
                entry at one decode token; rows for the plain entry at T = 1
                (beside one ``addcmul``) and for both entries at T = 16 and
                2,048 follow.
@@ -741,15 +767,17 @@ def drive_stream(srv, n_sessions, n_req, ops, label):
     return wall, {k: fn.launches for k, fn in ops.items()}, verify_checks
 
 
-def serve_full_width(arch, n_sessions, n_req, needs, ops, cfg=None):
+def serve_full_width(arch, n_sessions, n_req, needs, ops, cfg=None, ctx=None):
     """Serve ``arch`` at full width (``cfg``, when given: the config with its
-    depth cut) on the launcher's kind of stream; the launch counters cover
-    this run alone.  Frees the model before returning."""
+    depth cut) on the launcher's kind of stream, under the mesh of ``ctx``
+    when given; the launch counters cover this run alone.  Frees the model
+    before returning."""
     from dataclasses import asdict
 
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.models.sharding import ShardCtx, local
     from repro_torch.runtime.serve_loop import DiffusionServer
 
     cfg = cfg or get_arch(arch)
@@ -760,7 +788,7 @@ def serve_full_width(arch, n_sessions, n_req, needs, ops, cfg=None):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     srv = DiffusionServer(cfg, device="cuda", dispatcher_impl="vectorized",
-                          batch_drain=True, seed=0)
+                          batch_drain=True, seed=0, ctx=ctx or ShardCtx())
     torch.cuda.synchronize()
     say(f"serve: init {time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
@@ -771,6 +799,7 @@ def serve_full_width(arch, n_sessions, n_req, needs, ops, cfg=None):
 
     timing = {"prefill": [], "decode": []}
     finite = torch.ones((), dtype=torch.bool, device="cuda")
+    tokens = []
 
     def timed(kind, fn):
         def call(params, batch):
@@ -779,12 +808,20 @@ def serve_full_width(arch, n_sessions, n_req, needs, ops, cfg=None):
             logits, caches = fn(params, batch)
             torch.cuda.synchronize()
             timing[kind].append(time.perf_counter() - t)
-            finite = finite & torch.isfinite(logits[..., :cfg.vocab_size]).all()
+            finite = finite & torch.isfinite(local(logits)[..., :cfg.vocab_size]).all()
             return logits, caches
+        return call
+
+    def recorded(greedy):
+        def call(logits):
+            tok = greedy(logits)
+            tokens.append(local(tok))
+            return tok
         return call
 
     srv.prefill_fn = timed("prefill", srv.prefill_fn)
     srv.decode_fn = timed("decode", srv.decode_fn)
+    srv._greedy = recorded(srv._greedy)
 
     wall, launches, verify_checks = drive_stream(srv, n_sessions, n_req, ops, arch)
 
@@ -823,6 +860,8 @@ def serve_full_width(arch, n_sessions, n_req, needs, ops, cfg=None):
         "wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "mirror": mirror.stats.snapshot(), "scores": asdict(sc),
         "verify_checks": verify_checks, "launches": launches,
+        "swap_ins": s.swap_ins, "mesh": [srv.ctx.dp, srv.ctx.tp],
+        "greedy_tokens": torch.cat(tokens).tolist(),
     }
     say(f"serve perf {arch}: " + json.dumps(perf))
     say(f"kernels {arch}: " + " ".join(f"{k}={v}" for k, v in launches.items()))
@@ -1162,7 +1201,8 @@ TRAIN_ARGS = ("--arch", TRAIN_ARCH, "--seq", "256", "--batch", "8", "--steps", "
 # cut, recurrentgemma (whose smallest whole group is 2.754 B params) as one
 # full-width 'R' block and as the reduced model through the launcher
 FAMILY_ARCHS = ("olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-3b")
-FAMILY_FULL_WIDTH = (("olmoe-1b-7b", 4), ("rwkv6-3b", 16))
+# depths cut (olmoe from 4, rwkv6 from 16 layers) to keep the script's time
+FAMILY_FULL_WIDTH = (("olmoe-1b-7b", 2), ("rwkv6-3b", 4))
 FAMILY_TRAIN_STEPS = 6
 RG_TRAIN_ARGS = ("--arch", "recurrentgemma-9b", "--reduced", "--steps", "3")
 GUARDED = ("flash_attention", "moe_gmm", "rglru_scan", "rglru_gated_scan", "wkv6",
@@ -1760,7 +1800,7 @@ def train_phase(ops, card):
 
 
 # --------------------------------------------------------------------- mesh
-MESH_ARCH, MESH_LAYERS = "olmoe-1b-7b", 4
+MESH_ARCH, MESH_LAYERS = "olmoe-1b-7b", 2
 MESH_LAUNCH_ARGS = ("--arch", MESH_ARCH, "--reduced", "--steps", "3", "--mesh", "host")
 MESH_FIRST_LOSS_TOL, MESH_LOSS_TOL = 2e-3, 2e-2
 TOPK_RATIO = 0.01
@@ -1812,7 +1852,7 @@ def dtensor_guard_check(ops, ctx):
 
 def mesh_phase(ops, card, none_row):
     """(a) ``--mesh host`` at world size 1 over NCCL: olmoe-1b-7b at full
-    width, 4 of 16 layers, trained 6 steps by the ``Trainer`` under
+    width, 2 of 16 layers, trained 6 steps by the ``Trainer`` under
     ``make_ctx(make_host_mesh())`` with the seed, tokens and optimizer of
     the train phase's ``--mesh none`` run of the same configuration
     (``none_row``): every MoE layer through ``moe_ffn_sharded`` and none
@@ -2094,13 +2134,29 @@ def _nbytes(tree, skip=()):
                for x in _flat(v))
 
 
+def _decode_weight_bytes(params, cfg, batch):
+    """The weights a decode step of ``batch`` tokens reads: all but the
+    tables and the encoder, and of each MoE layer's experts only the
+    min(E, batch x top_k) its tokens route to (K4 reads no other)."""
+    from repro_torch.tree import tree_flatten_with_paths
+    total = _nbytes(params, _NOT_IN_DECODE)
+    if cfg.num_experts:
+        paths, leaves, _ = tree_flatten_with_paths(params)
+        experts = sum(x.numel() * x.element_size() for p, x in zip(paths, leaves)
+                      if "/experts/" in p)
+        live = min(cfg.num_experts, batch * cfg.moe_top_k) / cfg.num_experts
+        total -= experts * (1.0 - live)
+    return total
+
+
 def _prefill_decode(cfg, batch, seq, new_caches, pos, steps, ops, label):
     """Params from seed 0, a counted and timed prefill of ``batch`` (shape
     seq_len ``seq``), its caches copied into ``new_caches()``, then
     ``steps`` greedy decode steps from ``pos``.  Returns the phase's row,
     with the prefill's bound (its forward operations at the bf16 peak, or
     its weights' bytes) and the decode floor: every weight a step reads
-    and the whole decode caches, once, at 3.35 TB/s."""
+    (``_decode_weight_bytes``) and the whole decode caches, once, at
+    3.35 TB/s."""
     import statistics
 
     import torch
@@ -2127,7 +2183,7 @@ def _prefill_decode(cfg, batch, seq, new_caches, pos, steps, ops, label):
         P = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
         fwd = forward_ops(cfg, 1, P + batch["tokens"].shape[1], P)
     pre_bound, pre_by = bound_ms(_nbytes(params, _TABLES), fwd, "bf16")
-    dec_bytes = _nbytes(params, _NOT_IN_DECODE) + _nbytes(caches)
+    dec_bytes = _decode_weight_bytes(params, cfg, logits.shape[0]) + _nbytes(caches)
     row = {"arch": cfg.name, "layers": cfg.num_layers or cfg.decoder_layers,
            "params": n_params, "init_s": init_s, "prefill_ms": pre_ms,
            "prefill_ms_median_after_first": statistics.median(pre_ms[1:]),
@@ -2242,6 +2298,250 @@ def vision_phase(ops, card):
     return row
 
 
+# ------------------------------------------------------------------- gloo4
+GLOO4_RANKS = 4
+GLOO4_TIMEOUT_S = 420
+TESTS = ROOT / "tests"
+
+
+def gloo4_start():
+    """Start the ``sharding`` jobs of ``tests/_torch_sharded_jobs.py`` on 4
+    gloo ranks of this machine's CPU, a (2, 2) mesh, with the card hidden
+    from them, on inputs the port's own init draws (``make_inputs``).
+    Returns the handle ``gloo4_finish`` reads."""
+    import os
+    import tempfile
+    jobs = TESTS / "_torch_sharded_jobs.py"
+    if not jobs.is_file():
+        fail(f"{jobs} not found: run from a checkout of the repository")
+    sys.path.insert(0, str(TESTS))
+    import _torch_sharded_jobs as J
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gloo4_"))
+    J.make_inputs(tmp / "inputs.npz")
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1",
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for r in range(GLOO4_RANKS):
+        with open(tmp / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(jobs), str(r), str(GLOO4_RANKS), str(tmp / "store"),
+                 str(tmp / "inputs.npz"), str(tmp), "sharding"],
+                stdout=log, stderr=subprocess.STDOUT, env=env))
+    return {"tmp": tmp, "procs": procs, "t0": time.perf_counter(), "jobs": J}
+
+
+def gloo4_finish(h, card):
+    """Wait for the 4 ranks (every one stopped on a failure or at the time
+    limit), then hold their results to the port on one device."""
+    import shutil
+
+    import numpy as np
+    import torch
+    tmp, procs = h["tmp"], h["procs"]
+    deadline = h["t0"] + GLOO4_TIMEOUT_S
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                pass
+        late = [r for r, p in enumerate(procs) if p.poll() is None]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if late or bad:
+            tails = "\n".join(f"--- rank {r}:\n" + (tmp / f"rank{r}.log").read_text()[-2500:]
+                              for r in sorted(set(bad) | set(late)))
+            fail(f"gloo4: ranks {late} still running after {GLOO4_TIMEOUT_S} s, "
+                 f"ranks {bad} failed\n{tails}")
+        wall = time.perf_counter() - h["t0"]
+        out = dict(np.load(tmp / "result.npz"))
+        flags = json.loads((tmp / "flags.json").read_text())
+        checks = h["jobs"].port_checks(out, flags)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"torch": torch.__version__, "ranks": GLOO4_RANKS, "mesh": [2, 2],
+           "wall_s": wall, "job_seconds": flags.get("seconds"),
+           "checks": len(checks), "failed": [k for k, ok in checks.items() if not ok],
+           "serve": {a: {k: v for k, v in flags[f"serve/{a}"]["modeled"].items()
+                         if k != "tokens"} for a in h["jobs"].SERVE_ARCHS}}
+    say(f"gloo4 [{card}] torch {torch.__version__}: " + json.dumps(row))
+    if row["failed"]:
+        fail(f"gloo4: checks failed: {row['failed']}")
+    return row
+
+
+# -------------------------------------------------------------- mesh_serve
+def empty_batch_check(ops):
+    """Each kernel entry point given an empty batch on the card (a rank's
+    batch shard when dp exceeds the batch) returns an empty result and
+    launches nothing."""
+    import torch
+    z = dict(device="cuda", dtype=torch.bfloat16)
+    f = dict(device="cuda", dtype=torch.float32)
+    cases = {
+        "flash_attention": lambda: ops["flash_attention"](
+            torch.zeros((0, 16, 4, 64), **z), torch.zeros((0, 16, 2, 64), **z),
+            torch.zeros((0, 16, 2, 64), **z)),
+        "moe_gmm": lambda: ops["moe_gmm"](torch.zeros((4, 0, 64), **z),
+                                          torch.zeros((4, 64, 32), **z)),
+        "rglru_gated_scan": lambda: ops["rglru_gated_scan"](
+            *(torch.zeros((0, 3, 64), **z) for _ in range(3)), torch.zeros(64, **f),
+            torch.zeros((0, 64), **f)),
+        "wkv6": lambda: ops["wkv6"](*(torch.zeros((0, 3, 2, 64), **z) for _ in range(3)),
+                                    torch.zeros((0, 3, 2, 64), **f),
+                                    torch.zeros((2, 64), **f),
+                                    torch.zeros((0, 2, 64, 64), **f)),
+    }
+    for name, call in cases.items():
+        before = {k: fn.launches for k, fn in ops.items()}
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        if any(o.numel() for o in outs) or any(
+                fn.launches != before[k] for k, fn in ops.items()):
+            fail(f"empty batch: {name} launched or returned data")
+    return sorted(cases)
+
+
+def moe_gather_bytes(cfg, tp: int) -> float:
+    """Bytes each rank receives a decode token when a MoE layer at tp > 1
+    runs ``moe_ffn`` on DTensors: every expert weight gathered whole onto
+    every rank, the (tp - 1) / tp it does not hold crossing the links."""
+    experts = 3 * cfg.num_experts * cfg.d_model * cfg.d_ff * 2       # bf16
+    return cfg.num_layers * experts * (tp - 1) / tp
+
+
+def mesh_serve_phase(ops, card, served):
+    """The four served families again, at full width on the same streams,
+    under ``make_ctx(make_host_mesh())`` at world size 1 over NCCL: the
+    params, caches, prompts and tokens are DTensors and every kernel runs on
+    the local shards.  Counters, greedy tokens and every kernel's launches
+    must equal the unsharded run's (``served``); decode ms/token of both."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import init_process_group, make_ctx, make_host_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = init_process_group("cuda")
+    if not started or dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+        fail("mesh_serve: wanted a fresh NCCL process group of one rank")
+    rows = {}
+    try:
+        ctx = make_ctx(make_host_mesh())
+        for arch, sessions, n_req, needs in FAMILIES:
+            t0 = time.perf_counter()
+            launches, _, perf = serve_full_width(arch, sessions, n_req, needs, ops,
+                                                 ctx=ctx)
+            base = served[arch][2]
+            cmp = {k: (perf[k], base[k]) for k in SERVE_COUNTERS}
+            problems = [k for k, (a, b) in cmp.items() if a != b]
+            if perf["greedy_tokens"] != base["greedy_tokens"]:
+                problems.append("greedy tokens")
+            if launches != served[arch][0]:
+                problems.append(f"launches {launches} != {served[arch][0]}")
+            if perf["mesh"] != [1, 1]:
+                problems.append(f"mesh {perf['mesh']}")
+            row = {"arch": arch, "mesh": perf["mesh"], "counters": cmp,
+                   "tokens_equal": perf["greedy_tokens"] == base["greedy_tokens"],
+                   "launches": launches,
+                   "decode_ms_per_token_after_first": perf[
+                       "decode_ms_per_token_after_first"],
+                   "unsharded_decode_ms_per_token_after_first": base[
+                       "decode_ms_per_token_after_first"],
+                   "prefill_ms_per_request_after_first": perf[
+                       "prefill_ms_per_request_after_first"],
+                   "unsharded_prefill_ms_per_request_after_first": base[
+                       "prefill_ms_per_request_after_first"],
+                   "peak_gb": perf["peak_gb"], "unsharded_peak_gb": base["peak_gb"],
+                   "seconds": time.perf_counter() - t0, "nvidia_smi": card}
+            if get_arch(arch).num_experts:
+                row["moe_decode_gather_gb_per_token_tp2"] = moe_gather_bytes(
+                    get_arch(arch), 2) / 1e9
+            rows[arch] = row
+            say(f"mesh_serve {arch} [{card}]: " + json.dumps(row))
+            say(f"mesh_serve {arch}: decode {row['decode_ms_per_token_after_first']:.2f} "
+                f"ms/token under the mesh vs "
+                f"{row['unsharded_decode_ms_per_token_after_first']:.2f} without")
+            if problems:
+                fail(f"mesh_serve {arch}: {problems}")
+        owner = {"flash_attention": "internlm2-1.8b", "dispatch_scores": "internlm2-1.8b",
+                 "dispatch_score_update": "internlm2-1.8b", "moe_gmm": "olmoe-1b-7b",
+                 "rglru_scan": "recurrentgemma-9b", "wkv6": "rwkv6-3b"}
+        got = {k: rows[a]["launches"][k] for k, a in owner.items()}
+        if got != SERVE_LAUNCHES:
+            fail(f"mesh_serve launch counts {got}, want {SERVE_LAUNCHES}")
+        rows["launches"] = got
+        rows["empty_batch"] = empty_batch_check(ops)
+        say("mesh_serve: on an empty batch every kernel entry launched nothing: "
+            + ", ".join(rows["empty_batch"]))
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -------------------------------------------------------------------- archs
+# (arch, layers kept: None for all), each a 16-token prefill and 8 greedy
+# decode steps against caches of 64
+ARCHS_RUN = (("llama3-8b", None), ("llama3.2-3b", None), ("qwen3-moe-235b-a22b", 2))
+ARCHS_PROMPT, ARCHS_STEPS, ARCHS_CAP = 16, 8, 64
+
+
+def archs_phase(ops, card):
+    """llama3-8b and llama3.2-3b whole, qwen3-moe-235b-a22b at full width
+    with 2 of its 94 layers (all 94 are 470 GB of bf16): a counted 16-token
+    prefill (one K3 launch a layer; qwen3 three K4 launches a layer at E =
+    128, D = 4,096, F = 1,536), 8 greedy decode steps (qwen3: 3 K4 launches
+    a layer a step), finite logits, decode ms/token beside its floor."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import cache_init
+    rows = []
+    for arch, layers in ARCHS_RUN:
+        cfg = get_arch(arch)
+        if layers:
+            cfg = replace(cfg, num_layers=layers)
+        say(f"archs: {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
+            f"heads={cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff} "
+            f"experts={cfg.num_experts} top_k={cfg.moe_top_k} vocab={cfg.vocab_size} "
+            f"params={cfg.param_count() / 1e9:.3f}e9 [{card}]")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (1, ARCHS_PROMPT), generator=g,
+                               device="cuda")
+        row = _prefill_decode(cfg, {"tokens": tokens}, ARCHS_CAP,
+                              lambda: cache_init(cfg, 1, ARCHS_CAP, device="cuda"),
+                              ARCHS_PROMPT, ARCHS_STEPS, ops, f"archs {arch}")
+        row["layers_of"] = get_arch(arch).num_layers
+        pre, dec = row["prefill_launches"], row["decode_launches"]
+        checks = {f"{cfg.num_layers} flash_attention launches a prefill":
+                      pre.get("flash_attention", 0) == cfg.num_layers,
+                  "no flash_attention launch in decode": "flash_attention" not in dec,
+                  "finite logits": row["finite"]}
+        if cfg.num_experts:
+            checks[f"{3 * cfg.num_layers} moe_gmm launches a prefill"] = (
+                pre.get("moe_gmm", 0) == 3 * cfg.num_layers)
+            checks[f"{3 * cfg.num_layers * ARCHS_STEPS} moe_gmm launches in decode"] = (
+                dec.get("moe_gmm", 0) == 3 * cfg.num_layers * ARCHS_STEPS)
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"archs {arch}: {bad} (prefill {pre}, decode {dec})")
+        _report(row, card, f"archs {arch}")
+        rows.append(row)
+    return rows
+
+
 def main() -> None:
     try:
         import torch
@@ -2264,6 +2564,8 @@ def main() -> None:
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "n/a"
     say(f"device: {name} count={torch.cuda.device_count()} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
+    # the CPU ranks run beside the build, the parity and the model phases
+    gloo = gloo4_start()
 
     # 2. build
     from repro_torch.kernels import _build
@@ -2392,7 +2694,8 @@ def main() -> None:
     problems = []
     for arch, plen in (("internlm2-1.8b", 16), ("gemma3-1b", 40),
                        ("olmoe-1b-7b", 16), ("recurrentgemma-9b", 40),
-                       ("rwkv6-3b", 16)):
+                       ("rwkv6-3b", 16), ("llama3-8b", 16), ("llama3.2-3b", 16),
+                       ("qwen3-moe-235b-a22b", 16)):
         worst, _, found, _ = model_check(arch, plen)
         problems += found
         say(f"model {arch} reduced: card vs cpu logits rel. err {worst:.3e}")
@@ -2410,6 +2713,12 @@ def main() -> None:
         fail("model checks failed: " + "; ".join(problems))
     say(f"model: ok in {time.perf_counter() - t0:.1f}s")
 
+    # the (2, 2) mesh on 4 gloo ranks of this machine's torch
+    t0 = time.perf_counter()
+    gloo4 = gloo4_finish(gloo, smi_line)
+    say(f"gloo4: ok, {gloo4['checks']} checks, {gloo4['wall_s']:.1f}s since its start "
+        f"({time.perf_counter() - t0:.1f}s waited)")
+
     # 5. serve at full width, one family at a time
     served = {}
     for arch, sessions, n_req, needs in FAMILIES:
@@ -2425,6 +2734,12 @@ def main() -> None:
     if launches != SERVE_LAUNCHES:
         fail(f"serve launch counts {launches}, want {SERVE_LAUNCHES}")
     shapes = served["internlm2-1.8b"][1]
+
+    # 5b. the same four under a mesh at world size 1, kernels on local shards
+    t0 = time.perf_counter()
+    mesh_serve = mesh_serve_phase(ops, smi_line, served)
+    mesh_serve["seconds"] = time.perf_counter() - t0
+    say(f"mesh_serve: ok in {mesh_serve['seconds']:.1f}s")
 
     # 6. real KV bytes on the card, 7. a checkpoint of the same params
     t0 = time.perf_counter()
@@ -2468,6 +2783,11 @@ def main() -> None:
     vision["seconds"] = time.perf_counter() - t0
     say(f"vision: ok in {vision['seconds']:.1f}s")
 
+    # llama3-8b, llama3.2-3b whole; qwen3-moe-235b-a22b at 2 of 94 layers
+    t0 = time.perf_counter()
+    archs = archs_phase(ops, smi_line)
+    say(f"archs: ok in {time.perf_counter() - t0:.1f}s")
+
     # 13. timing at the main path's shapes (decode shapes for the scans,
     # whose decode launches outnumber their prefill launches eightfold)
     main_rows = {
@@ -2481,6 +2801,8 @@ def main() -> None:
         "rglru_scan": rglru_gated_case(1, 1, rg.rnn_width, timed=True),
         "wkv6": wkv6_case(1, 1, H, N, rkv="bf16", timed=True),
     }
+    q3 = get_arch("qwen3-moe-235b-a22b")
+    q3_C = capacity(1, q3.moe_top_k, q3.num_experts, q3.capacity_factor)
     long_prompt = {(1, 2048, 2048, 16, 8, 128): "flash_attention S=2048 D=128 (causal)",
                    (1, 512, 512, 16, 1, 256): "flash_attention S=512 D=256 (window 2048)",
                    (1, 1024, 1024, 16, 16, 64):
@@ -2504,6 +2826,9 @@ def main() -> None:
         "moe_gmm w1/w3 (f32 out), C=320 all rows live": gmm_case(
             E, 320, D, F, out_dtype=torch.float32, timed=True),
         "moe_gmm w2, C=320 all rows live": gmm_case(E, 320, F, D, timed=True),
+        "moe_gmm qwen3 w2, decode routing (E=128, D=4096, F=1536)": gmm_case(
+            q3.num_experts, q3_C, q3.d_ff, q3.d_model, timed=True,
+            counts=routed_counts(1, q3.num_experts, q3.moe_top_k, q3_C, q3.d_model)),
         "rglru_scan plain entry T=1": rglru_case(1, 1, rg.rnn_width, timed=True),
         "rglru_scan plain entry T=16 (prefill)": rglru_case(1, 16, rg.rnn_width,
                                                             timed=True),
@@ -2545,7 +2870,8 @@ def main() -> None:
          "main_rows": main_rows, "more_rows": more_rows,
          "serve": {a: v[2] for a, v in served.items()}, "launches": launches,
          "shapes": shapes, "payload": payload, "checkpoint": ckpt, "ci": ci,
-         "train": train, "mesh": mesh, "encdec": encdec, "vision": vision},
+         "train": train, "mesh": mesh, "encdec": encdec, "vision": vision,
+         "gloo4": gloo4, "mesh_serve": mesh_serve, "archs": archs},
         indent=1))
     say(f"nvidia-smi: {smi_line}")
     say(json.dumps({"kernels": kernels}))

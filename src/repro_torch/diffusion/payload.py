@@ -24,7 +24,11 @@ Three backends share the interface:
     copy host bytes and record *modeled* seconds (size / roofline), so
     measured rows are reproducible without an accelerator.
   * ``RealPayload`` — the physical homes above, timed with
-    ``time.perf_counter``.
+    ``time.perf_counter``.  A payload whose leaves are DTensors (a server
+    under a mesh) moves each rank's local shard alone: the byte counts and
+    the measured bandwidth are per rank, and ``value`` rebuilds each leaf
+    as a DTensor with its mesh, placements and global shape; ``get`` hands
+    out the local shards.
 
 The decision plane never reads the payload plane: a backend with no bytes
 registered for an object (a placeholder — e.g. the DES, or a peer fetch of
@@ -281,6 +285,26 @@ def _copy_to(leaf: Any, device: torch.device) -> torch.Tensor:
     return torch.empty(src.shape, dtype=src.dtype, device=device).copy_(src)
 
 
+def _layout(leaf: Any):
+    """(mesh, placements, shape, stride) of a DTensor leaf, else None."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        return (leaf.device_mesh, tuple(leaf.placements), leaf.shape, leaf.stride())
+    return None
+
+
+def _rebuild(local: torch.Tensor, layout) -> Any:
+    """``local`` as the DTensor ``layout`` describes (or itself)."""
+    if layout is None:
+        return local
+    from torch.distributed.tensor import DTensor
+    mesh, placements, shape, stride = layout
+    if local.device.type != mesh.device_type:
+        local = local.to(mesh.device_type)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
 class RealPayload(PayloadBackend):
     """Physical KV homes: torch tensors on ``device`` (hbm), CPU tensors
     (everything else), chunked spill files with verified digests (disk).
@@ -318,6 +342,7 @@ class RealPayload(PayloadBackend):
         self.corruptions_recovered = 0
         self._tiers: Dict[str, str] = {}
         self._templates: Dict[str, Any] = {}
+        self._layouts: Dict[str, List[Any]] = {}   # DTensor leaves' layouts
         # leaves: in-memory tensors (device or CPU), or _SpilledLeaf on disk
         self._leaves: Dict[str, List[Any]] = {}
         self._nbytes: Dict[str, float] = {}
@@ -402,6 +427,10 @@ class RealPayload(PayloadBackend):
         self.dropped(obj)               # re-put replaces (frees old spill)
         leaves: List[Any] = []
         template = _tree_leaves(value, leaves)
+        layouts = [_layout(l) for l in leaves]
+        if any(layouts):                # a rank holds and moves its shards
+            self._layouts[obj] = layouts
+            leaves = [l.to_local() if lay else l for l, lay in zip(leaves, layouts)]
         self._nbytes[obj] = _leaf_nbytes(leaves)
         self._templates[obj] = template
         if tier == "hbm":
@@ -449,6 +478,9 @@ class RealPayload(PayloadBackend):
                 return None
         else:
             leaves = [l.clone() for l in leaves]
+        layouts = self._layouts.get(obj)
+        if layouts:
+            leaves = [_rebuild(l, lay) for l, lay in zip(leaves, layouts)]
         return _tree_rebuild(self._templates[obj], leaves)
 
     def has(self, obj: str) -> bool:
@@ -493,4 +525,5 @@ class RealPayload(PayloadBackend):
             self._free_spill(leaves)
         self._tiers.pop(obj, None)
         self._templates.pop(obj, None)
+        self._layouts.pop(obj, None)
         self._nbytes.pop(obj, None)

@@ -10,7 +10,10 @@ ranks the group has (tests, examples, the launcher's ``--mesh host``).
 
 ``init_process_group`` starts a group when none exists: from ``torchrun``'s
 environment when it is set, else a world of one on a TCP store of a free
-local port; NCCL for the card, gloo for the CPU.
+local port; NCCL for the card, gloo for the CPU.  ``torchrun
+--master-port 0`` binds its own store to a free port but hands every worker
+``MASTER_PORT=0``, on which ``env://`` then waits for ever; that
+environment is refused with a message instead.
 """
 
 from __future__ import annotations
@@ -35,6 +38,11 @@ def init_process_group(device="cuda") -> bool:
     if device.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", device.index or 0)))
     if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
+        if os.environ.get("MASTER_PORT", "").strip() == "0":
+            raise RuntimeError(
+                "MASTER_PORT is 0: torchrun --master-port 0 gives its workers "
+                "port 0, not the port its store bound, and joining it would "
+                "hang; pass a fixed free port (--master-port 29533)")
         dist.init_process_group(backend)                 # torchrun's env://
     else:
         store = dist.TCPStore("localhost", 0, 1, is_master=True)

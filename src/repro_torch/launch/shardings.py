@@ -53,6 +53,11 @@ def _map_with_paths(fn, tree):
     return unflatten([fn(p, tuple(l.shape)) for p, l in zip(paths, leaves)])
 
 
+def cache_specs(ctx: ShardCtx, caches):
+    """P tree for a decode-cache tree, one ``cache_leaf_spec`` a leaf."""
+    return _map_with_paths(lambda p, s: cache_leaf_spec(ctx, p, s), caches)
+
+
 def batch_specs(ctx: ShardCtx, cfg: ArchConfig, shape: ShapeConfig,
                 specs: Dict[str, Any]):
     """P tree for a batch (leaves: anything with a shape)."""
@@ -103,7 +108,7 @@ def step_out_specs(ctx: ShardCtx, kind: str, out_shapes):
     logits_s, caches_s = out_shapes
     return (
         ctx.spec(["dp", "tp"], logits_s.shape),
-        _map_with_paths(lambda p, s: cache_leaf_spec(ctx, p, s), caches_s),
+        cache_specs(ctx, caches_s),
     )
 
 

@@ -3,7 +3,7 @@
   python -m repro_torch.launch.train --arch internlm2-1.8b --seq 256 --batch 8
   python -m repro_torch.launch.train --arch internlm2-1.8b --reduced --steps 3 --device cpu
   python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced --steps 2 --mesh host
-  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch ... --mesh host
+  torchrun --nproc-per-node 4 --master-port 29533 -m repro_torch.launch.train --arch ... --mesh host
 
 The reference launcher's flags and defaults, plus ``--device`` (default
 ``cuda``): the diffusion-scheduled data pipeline, the train step, async
@@ -15,7 +15,9 @@ CPU): params FSDP x tensor-parallel, batches on 'data', and every MoE layer
 through ``moe_ffn_sharded``.  Before the reference's ``done:`` line, a
 ``train:`` line gives each step's loss, grad norm and wall ms as JSON, with
 the device, the mesh's [data, model] sizes and, on CUDA, the peak memory
-allocated.  With several ranks, rank 0 prints.
+allocated.  With several ranks, rank 0 prints.  Give ``torchrun`` a fixed
+``--master-port``: with 0 it hands its workers port 0, which the launcher
+refuses.
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ from .mesh import init_process_group, make_ctx, make_host_mesh
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        epilog="Under torchrun, pass a fixed --master-port (e.g. 29533): "
+               "torchrun --master-port 0 hands its workers MASTER_PORT=0, not "
+               "the port its store bound, and --mesh host refuses it.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-test dims (CPU)")

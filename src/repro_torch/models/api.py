@@ -1,19 +1,27 @@
-"""Model API of the port: init / caches / loss / train, prefill and decode
-steps.
+"""Model API of the port: init / input specs / caches / loss / train,
+prefill and decode steps.
 
 A port of the reference's ``models/api.py``, dispatching on the
 architecture family (decoder-only LM, with or without the vision stub, vs
-encoder-decoder); the dry run's ``input_specs`` belongs with the cost
-model (ROADMAP D3).  Params are drawn on the target device from an
-explicit ``torch.Generator``.  The train step is a plain function (there
-is no ``jit``) that returns new param and optimizer trees and changes none
-of its arguments.
+encoder-decoder).  Params are drawn on the target device from an explicit
+``torch.Generator``.  The train step is a plain function (there is no
+``jit``) that returns new param and optimizer trees and changes none of its
+arguments.
+
+The dry run's inputs: ``param_specs`` and ``input_specs`` give a tree of
+``Spec`` (shape and dtype, the reference's ``jax.ShapeDtypeStruct``) for
+the full-size model and for every input of an (arch x shape) cell, built
+by the real init and cache code under ``FakeTensorMode``, so nothing is
+allocated (qwen3-moe-235b-a22b's 235 B params included); ``synth_inputs``
+makes concrete inputs of those specs and ``make_step`` the step function a
+cell runs.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -26,9 +34,9 @@ from ..optim.adamw import (
     adamw_update,
     cosine_schedule,
 )
-from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..tree import tree_flatten_with_paths, tree_leaves, tree_map, tree_unflatten
 from . import encdec, lm
-from .sharding import ShardCtx, laid_like
+from .sharding import ShardCtx, distribute_tree, laid_like
 
 OPT8BIT_PARAM_THRESHOLD = 100e9  # >100B params: 8-bit AdamW moments
 
@@ -59,12 +67,97 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None, *,
     return lm.lm_init(gen, cfg)
 
 
-def cache_init(cfg: ArchConfig, batch: int, cap: int, device="cuda"):
+def cache_init(cfg: ArchConfig, batch: int, cap: int, device="cuda", *,
+               ctx: ShardCtx = ShardCtx()):
     """Decode caches of capacity ``cap``; an encoder-decoder's cross caches
-    hold ``cap`` encoder positions too, as the reference's do."""
+    hold ``cap`` encoder positions too, as the reference's do.  Under a
+    mesh each leaf is a DTensor placed by ``cache_leaf_spec`` (K/V: batch
+    on 'dp', capacity on 'tp')."""
     if is_encdec(cfg):
-        return encdec.encdec_cache_init(cfg, batch, cap, cap, device)
-    return lm.lm_cache_init(cfg, batch, cap, device)
+        caches = encdec.encdec_cache_init(cfg, batch, cap, cap, device)
+    else:
+        caches = lm.lm_cache_init(cfg, batch, cap, device)
+    if ctx.mesh is None:
+        return caches
+    from ..launch.shardings import cache_specs
+
+    return distribute_tree(ctx, caches, cache_specs(ctx, caches))
+
+
+# ------------------------------------------------------------ dry-run inputs
+@dataclass(frozen=True)
+class Spec:
+    """Shape and dtype of a tensor that is not allocated (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _specs_of(build):
+    """``build()`` run under ``FakeTensorMode`` (its tensors carry shapes
+    and dtypes, no storage), as a tree of ``Spec``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        tree = build()
+    return tree_map(lambda t: Spec(tuple(t.shape), t.dtype), tree)
+
+
+def param_specs(cfg: ArchConfig):
+    """Tree of ``Spec`` for the full-size model's params, allocating
+    nothing."""
+    return _specs_of(lambda: init_params(cfg, torch.Generator("cpu")))
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """``Spec`` stand-ins for every input of this (arch, shape) cell.
+
+    train:   {tokens} (+audio_embeds / patch_embeds for stub frontends)
+    prefill: same as train inputs
+    decode:  {token, pos, caches}: one new token against a seq_len cache.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    decode = shape.kind not in ("train", "prefill")
+    if is_encdec(cfg):
+        if not decode:
+            return {"audio_embeds": Spec((B, S, cfg.d_model), bf16),
+                    "tokens": Spec((B, encdec.text_len(S)), i32)}
+    elif not decode:
+        if cfg.frontend == "vision":
+            P = min(cfg.num_patches, S // 2)
+            return {"patch_embeds": Spec((B, P, cfg.d_model), bf16),
+                    "tokens": Spec((B, S - P), i32)}
+        return {"tokens": Spec((B, S), i32)}
+    return {"token": Spec((B,), i32), "pos": Spec((), i32),
+            "caches": _specs_of(lambda: cache_init(cfg, B, S, device="cpu"))}
+
+
+def synth_inputs(cfg: ArchConfig, shape: ShapeConfig,
+                 gen: Optional[torch.Generator] = None, *,
+                 device="cuda") -> Dict[str, Any]:
+    """Concrete inputs of ``input_specs``' shapes and dtypes (smoke tests):
+    token ids drawn from ``gen`` (default: one on ``device`` seeded with 1,
+    as the reference defaults to ``PRNGKey(1)``), ``pos`` min(seq_len - 1,
+    7), every float input and cache zero (valid: decode masks a cache by
+    position)."""
+    if gen is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1)
+    specs = input_specs(cfg, shape)
+    paths, leaves, unflatten = tree_flatten_with_paths(specs)
+
+    def make(path, s):
+        if s.dtype != torch.int32:
+            return torch.zeros(s.shape, dtype=s.dtype, device=gen.device)
+        if path == "pos":
+            return torch.tensor(min(shape.seq_len - 1, 7), dtype=torch.int32,
+                                device=gen.device)
+        return torch.randint(0, cfg.vocab_size, s.shape, generator=gen,
+                             dtype=torch.int32, device=gen.device)
+
+    return unflatten([make(p, s) for p, s in zip(paths, leaves)])
 
 
 def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, *,
@@ -76,6 +169,15 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, *,
 def make_decode_step(cfg: ArchConfig, *, ctx: ShardCtx = ShardCtx()):
     fn = encdec.encdec_decode if is_encdec(cfg) else lm.lm_decode
     return functools.partial(fn, cfg=cfg, ctx=ctx)
+
+
+def make_step(cfg: ArchConfig, shape: ShapeConfig, *, ctx: ShardCtx = ShardCtx()):
+    """The step function a dry-run cell runs, by shape kind."""
+    if shape.kind == "train":
+        return make_train_step(cfg, shape, ctx=ctx)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, shape, ctx=ctx)
+    return make_decode_step(cfg, ctx=ctx)
 
 
 def make_loss_fn(cfg: ArchConfig, shape: ShapeConfig, *, ctx: ShardCtx = ShardCtx()):

@@ -30,6 +30,7 @@ from .layers import (
     attn_init,
     chunked_lm_loss,
     dense_init,
+    embed_lookup,
     logits_head,
     mlp,
     mlp_init,
@@ -37,7 +38,7 @@ from .layers import (
     rmsnorm_init,
 )
 from .lm import _index, _stack, _unbind
-from .sharding import ShardCtx, reshape
+from .sharding import ShardCtx, gather_inner, mm, reshape, write_slot
 
 TEXT_RATIO = 8  # decoder text length = audio frames // 8 (train/prefill)
 
@@ -142,8 +143,8 @@ def _dec_layer(bp, h, *, cfg: ArchConfig, positions, mode: str, enc_out=None,
         k_buf, v_buf = cache["k"], cache["v"]
         cap = k_buf.shape[1]
         slot = min(pos, cap - 1)
-        k_buf[:, slot] = (hn @ bp["self_attn"]["wk"]).reshape(B, Hkv, Dh)
-        v_buf[:, slot] = (hn @ bp["self_attn"]["wv"]).reshape(B, Hkv, Dh)
+        write_slot(k_buf, 1, slot, reshape(mm(hn, bp["self_attn"]["wk"]), B, Hkv, Dh))
+        write_slot(v_buf, 1, slot, reshape(mm(hn, bp["self_attn"]["wv"]), B, Hkv, Dh))
         attn_out, _ = attention_block(
             bp["self_attn"], hn, cfg=cfg, positions=positions, causal=True,
             use_rope=False, kv_override=(k_buf, v_buf, torch.arange(cap, device=h.device)),
@@ -155,8 +156,9 @@ def _dec_layer(bp, h, *, cfg: ArchConfig, positions, mode: str, enc_out=None,
             bp["self_attn"], hn, cfg=cfg, positions=positions, causal=True,
             use_rope=False, chunk=chunk, use_kernel=use_kernel, ctx=ctx)
         Se = enc_out.shape[1]
-        ck = reshape(enc_out @ bp["cross_attn"]["wk"], B, Se, Hkv, Dh)
-        cv = reshape(enc_out @ bp["cross_attn"]["wv"], B, Se, Hkv, Dh)
+        enc_out = gather_inner(enc_out)     # read by both cross projections
+        ck = reshape(mm(enc_out, bp["cross_attn"]["wk"]), B, Se, Hkv, Dh)
+        cv = reshape(mm(enc_out, bp["cross_attn"]["wv"]), B, Se, Hkv, Dh)
         if mode == "prefill":
             new_cache = {"k": k_self, "v": v_self, "ck": ck, "cv": cv}
     h = h + attn_out
@@ -204,7 +206,7 @@ def _decoder_stack(params, h, enc_out, cfg: ArchConfig, mode: str, caches=None,
 
 def _embed_text(params, tokens):
     S = tokens.shape[1]
-    return params["embed"][tokens].to(BF16) + params["pos_embed_dec"][:S][None]
+    return embed_lookup(params, tokens).to(BF16) + params["pos_embed_dec"][:S][None]
 
 
 # ---------------------------------------------------------------- entry points
@@ -229,12 +231,13 @@ def encdec_prefill(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx(),
     """Encoder plus decoder over the prompt.  batch: {audio_embeds, tokens}.
     Returns (logits_last [B, V], caches): self K/V of length St, cross K/V
     of length Sa, each [L, B, .., Hkv, Dh]."""
-    enc_out = encode(params, batch["audio_embeds"], cfg, chunk, ctx=ctx)
-    h, caches = _decoder_stack(params, _embed_text(params, batch["tokens"]), enc_out,
-                               cfg, "prefill", chunk=chunk, ctx=ctx)
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = logits_head(params, h[:, -1:, :], cfg.vocab_size)
-    return logits[:, 0, :], caches
+    with ctx.scope():
+        enc_out = encode(params, batch["audio_embeds"], cfg, chunk, ctx=ctx)
+        h, caches = _decoder_stack(params, _embed_text(params, batch["tokens"]),
+                                   enc_out, cfg, "prefill", chunk=chunk, ctx=ctx)
+        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        logits = logits_head(params, h[:, -1:, :], cfg.vocab_size)
+        return logits[:, 0, :], caches
 
 
 def encdec_decode(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx()):
@@ -242,8 +245,10 @@ def encdec_decode(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx()):
     Returns (logits [B, V], caches) with the caches updated in place."""
     tok = batch["token"]
     pos = int(batch["pos"])
-    h = params["embed"][tok][:, None, :].to(BF16) + params["pos_embed_dec"][pos][None, None]
-    h, caches = _decoder_stack(params, h, None, cfg, "decode",
-                               caches=batch["caches"], pos=pos, ctx=ctx)
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return logits_head(params, h[:, 0, :], cfg.vocab_size), caches
+    with ctx.scope():
+        h = (embed_lookup(params, tok)[:, None, :].to(BF16)
+             + params["pos_embed_dec"][pos][None, None])
+        h, caches = _decoder_stack(params, h, None, cfg, "decode",
+                                   caches=batch["caches"], pos=pos, ctx=ctx)
+        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        return logits_head(params, h[:, 0, :], cfg.vocab_size), caches

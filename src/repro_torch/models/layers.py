@@ -14,6 +14,10 @@ stays on the direct path, because the kernel takes no key positions and
 cannot read a partly filled or ring cache.
 Training stays on ``attention_core`` too (``use_kernel=False``), as the
 reference trains through its jnp attention: the kernel has no backward.
+Under a mesh the kernel runs on each rank's local shards
+(``ShardCtx.local_call``): the batch and, when they divide over 'tp', the
+query heads stay sharded, and each rank takes the KV heads its own query
+heads read (``_kv_span``).
 The loss functions (``softmax_xent``, ``chunked_lm_loss``) close the file.
 """
 
@@ -27,7 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import flash_attention
-from .sharding import ShardCtx, reshape, unshard_dim
+from .sharding import ShardCtx, gather_inner, mm, reshape, unshard_dim
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -103,26 +107,26 @@ def _repeat_kv(x, rep: int):
 
 
 def attention_core(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
-                   chunk: int = 1024, ctx: ShardCtx = ShardCtx(),
-                   head_sharded: bool = True):
+                   chunk: int = 1024, ctx: ShardCtx = ShardCtx()):
     """q: [B, Sq, H, Dh]; k, v: [B, Skv, Hkv, Dh]; qpos: [Sq]; kpos: [Skv].
 
     Direct path for Sq == 1 (decode) or Skv <= chunk; otherwise the chunked
     online softmax, whose transient is [B, H, Sq, chunk] fp32.  Under grad
     mode each chunk is recomputed in backward (the reference's per-chunk
-    ``jax.checkpoint``) instead of keeping its scores for it.
+    ``jax.checkpoint``) instead of keeping its scores for it.  Under a mesh
+    it runs on each rank's heads (``_on_rank_heads``), as the kernel does.
     """
+    return _on_rank_heads(
+        lambda q, k, v: _attention(q, k, v, qpos, kpos, causal, window, chunk),
+        q, k, v, ctx)
+
+
+def _attention(q, k, v, qpos, kpos, causal: bool, window: int, chunk: int):
+    """``attention_core`` on plain tensors."""
     B, Sq, H, Dh = q.shape
     _, Skv, Hkv, _ = k.shape
     rep = H // Hkv
     scale = Dh ** -0.5
-
-    q_l = ("dp", None, "tp", None) if head_sharded else ("dp", "tp", None, None)
-    q = ctx.cstr(q, *q_l)
-    if Sq > 1 and Skv > chunk:
-        # K/V replicated over 'tp', so each chunk's slice is local
-        k = ctx.cstr(k, "dp", None, None, None)
-        v = ctx.cstr(v, "dp", None, None, None)
 
     if Sq == 1 or Skv <= chunk:
         kk, vv = _repeat_kv(k, rep), _repeat_kv(v, rep)
@@ -159,6 +163,54 @@ def attention_core(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
     return out.permute(0, 2, 1, 3).contiguous()  # [B, Sq, H, Dh]
 
 
+def _kv_span(first: int, n: int, rep: int) -> Tuple[int, int]:
+    """The KV heads [lo, hi) that query heads [first, first + n) read at
+    ``rep`` query heads a KV head, such that the kernel's own mapping (local
+    query head j reads local KV head j // (n // (hi - lo))) holds on the
+    slice: a rank's heads must cover whole KV groups or sit inside one."""
+    if n % rep and rep % n:
+        raise ValueError(f"{n} query heads a rank at {rep} a KV head straddle "
+                         "KV heads")
+    lo = first // rep
+    return lo, (first + n - 1) // rep + 1
+
+
+def _on_rank_heads(fn, q, k, v, ctx: ShardCtx):
+    """``fn(q, k, v)``, attention on plain tensors, or on each rank's local
+    shards of DTensors: the batch stays sharded over 'dp' and the query
+    heads over 'tp' when they divide (else they are gathered: a sequence
+    shard's causal ends would be wrong on a local slice); K and V are
+    gathered over 'tp' and each rank slices the KV heads its query heads
+    read (``_kv_span``; MQA keeps KV head 0 on every rank), so their local
+    grads are partial sums over 'tp'.  A decode step's K/V caches, sharded
+    on their capacity over 'tp', are gathered too.  Per-rank code also
+    keeps clear of the flatten of two sharded dims in a batched matmul,
+    which torch 2.11's DTensor refuses."""
+    H, Hkv = q.shape[2], k.shape[2]
+    heads = "tp" if H % max(1, ctx.tp) == 0 else None
+    bshd = ("dp", None, heads, None)
+    kv = ("dp", None, None, None)
+
+    def run(ql, kl, vl):
+        n = ql.shape[2]
+        if n != H:                          # this rank's H / tp query heads
+            lo, hi = _kv_span(ctx.mesh.get_local_rank(ctx.tp_axis) * n, n, H // Hkv)
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return fn(ql, kl, vl)
+
+    split = (ctx.tp_axis,) if heads and ctx.tp > 1 else ()
+    return ctx.local_call(run, (q, k, v), (bshd, kv, kv), [(bshd, tuple(q.shape))],
+                          grad_partial=((), split, split))
+
+
+def _flash(q, k, v, *, causal: bool, window: int, ctx: ShardCtx):
+    """The flash-attention kernel, on each rank's heads under a mesh."""
+    return _on_rank_heads(
+        lambda q, k, v: flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                        causal=causal, window=window),
+        q, k, v, ctx)
+
+
 def attention_block(p, x, *, cfg, positions, causal=True, window=0,
                     kv_override: Optional[Tuple] = None, use_rope: bool = True,
                     full_kv: bool = False, chunk=1024, use_kernel: bool = True,
@@ -176,15 +228,16 @@ def attention_block(p, x, *, cfg, positions, causal=True, window=0,
     """
     B, S, D = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = gather_inner(x)             # read by the q, k and v projections
     head_sharded_q = (H % max(1, ctx.tp) == 0) and S > 1
     q_layout = ("dp", None, "tp", None) if head_sharded_q else ("dp", "tp", None, None)
     # reshard before RoPE, so the boundary moves bf16 (RoPE upcasts to f32)
-    q = ctx.cstr(reshape(x @ p["wq"], B, S, H, Dh), *q_layout)
+    q = ctx.cstr(reshape(mm(x, p["wq"]), B, S, H, Dh), *q_layout)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
     if kv_override is None:
-        k = ctx.cstr(reshape(x @ p["wk"], B, S, Hkv, Dh), "dp", None, None, None)
-        v = ctx.cstr(reshape(x @ p["wv"], B, S, Hkv, Dh), "dp", None, None, None)
+        k = ctx.cstr(reshape(mm(x, p["wk"]), B, S, Hkv, Dh), "dp", None, None, None)
+        v = ctx.cstr(reshape(mm(x, p["wv"]), B, S, Hkv, Dh), "dp", None, None, None)
         if use_rope:
             k = rope(k, positions, cfg.rope_theta)
         kpos = positions
@@ -192,13 +245,11 @@ def attention_block(p, x, *, cfg, positions, causal=True, window=0,
         k, v, kpos = kv_override
     unmasked_full = kv_override is not None and full_kv and not causal and not window
     if use_kernel and S > 1 and (kv_override is None or unmasked_full):
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=causal, window=window)
+        o = _flash(q, k, v, causal=causal, window=window, ctx=ctx)
     else:
         o = attention_core(q, k, v, positions, kpos, causal=causal,
-                           window=window, chunk=chunk, ctx=ctx,
-                           head_sharded=H % max(1, ctx.tp) == 0)
-    out = reshape(o, B, S, H * Dh) @ p["wo"]
+                           window=window, chunk=chunk, ctx=ctx)
+    out = mm(reshape(o, B, S, H * Dh), p["wo"])
     return out, (k, v)
 
 
@@ -212,11 +263,12 @@ def mlp_init(gen, d_model: int, d_ff: int, lead=()):
 
 
 def mlp(p, x, ctx: ShardCtx = ShardCtx()):
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
+    x = gather_inner(x)             # read by the gate and up projections
+    g = mm(x, p["w_gate"])
+    u = mm(x, p["w_up"])
     h = F.silu(g.to(F32)).to(x.dtype) * u
     h = ctx.cstr(h, "dp", None, "tp")
-    return h @ p["w_down"]
+    return mm(h, p["w_down"])
 
 
 # ------------------------------------------------------------- embeddings
@@ -225,12 +277,16 @@ def embed_init(gen, vocab: int, d_model: int):
 
 
 def embed_lookup(p, tokens):
-    return p["embed"][tokens]
+    """Rows of the table.  Batch-sharded DTensor ids are gathered first:
+    every rank looks up the whole batch (its layout constraint then keeps
+    its own rows), since torch 2.11's DTensor cannot propagate the
+    lookup's backward (``index_put``) over sharded ids."""
+    return p["embed"][unshard_dim(tokens, 0)]
 
 
 def logits_head(p, x, vocab_size: int):
     """LM head with padded-vocab masking."""
-    logits = (x @ p["lm_head"]).to(F32)
+    logits = mm(x, p["lm_head"]).to(F32)
     pad = logits.shape[-1] - vocab_size
     if pad > 0:
         mask = torch.arange(logits.shape[-1], device=logits.device) < vocab_size

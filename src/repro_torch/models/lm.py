@@ -25,10 +25,13 @@ session owns its cache, so the copy the functional version makes would only
 cost memory.  A block with a MoE FFN returns its auxiliary loss (every
 other block None, so serving adds nothing); ``lm_loss`` sums it, prefill
 and decode drop it.  Every entry point takes the reference's ``ctx``:
-under a mesh the params and batch are DTensors, its layout constraints
-sit where the reference's do, a MoE FFN runs ``moe_ffn_sharded``, and the
-loss runs in ``ctx.scope()``, where the plain tensors every rank makes
-alike (positions, masks, fresh buffers) meet DTensors as replicated ones.
+under a mesh the params, batch and caches are DTensors, its layout
+constraints sit where the reference's do, a MoE FFN runs
+``moe_ffn_sharded``, each kernel runs on the local shards
+(``ShardCtx.local_call``), decode writes each rank's own cache shard in
+place (``write_slot``, ``copy_into``), and every entry point runs in
+``ctx.scope()``, where the plain tensors every rank makes alike
+(positions, masks, fresh buffers) meet DTensors as replicated ones.
 The vision frontend is the reference's stub: a batch
 may carry precomputed ``patch_embeds`` [B, P, D], projected by
 ``patch_proj`` and put before the text; the loss is taken over the text,
@@ -62,7 +65,7 @@ from .layers import (
     rope,
 )
 from .moe import moe_ffn, moe_ffn_sharded, moe_init
-from .sharding import ShardCtx, reshape, unshard_dim
+from .sharding import ShardCtx, copy_into, mm, reshape, unshard_dim, write_slot
 
 _KINDS = ("A", "L", "R", "W")
 
@@ -174,7 +177,7 @@ def _ffn_apply(bp, cfg: ArchConfig, h2, train: bool, ctx: ShardCtx = ShardCtx())
             and cfg.num_experts % max(1, ctx.tp) == 0
         )
         if use_smap:
-            return moe_ffn_sharded(bp["moe"], h2, ctx=ctx, **kw)
+            return moe_ffn_sharded(bp["moe"], h2, ctx=ctx, train=train, **kw)
         out, aux = moe_ffn(bp["moe"], reshape(h2, B * S, D), train=train, **kw)
         return reshape(out, B, S, D), aux
     return mlp(bp["ffn"], h2, ctx=ctx), None
@@ -189,7 +192,7 @@ def _store(cache, new, mode: str):
     if mode != "decode":
         return new
     for k, v in new.items():
-        cache[k].copy_(v)
+        copy_into(cache[k], v)
     return cache
 
 
@@ -225,7 +228,10 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
         tm_out, shift_tm, S_new = rw.timemix_apply(bp["tm"], hn, st["shift_tm"],
                                                    st["S"], cfg.rwkv_head_dim,
                                                    train=train, ctx=ctx)
-        h = h + tm_out
+        # the row-parallel output's partial sums reduced here: their norm
+        # would stay partial, and the channel mix's token shift cannot meet
+        # a partial tensor on torch 2.11's DTensor
+        h = ctx.cstr(h + tm_out, "dp", "tp", None)
         hn2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
         cm_out, shift_cm = rw.channelmix_apply(bp["cm"], hn2, st["shift_cm"])
         new_state = {"S": S_new, "shift_tm": shift_tm, "shift_cm": shift_cm}
@@ -237,14 +243,14 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
     if mode == "decode":
         B = h.shape[0]
         Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
-        k_new = (hn @ bp["attn"]["wk"]).reshape(B, 1, Hkv, Dh)
-        v_new = (hn @ bp["attn"]["wv"]).reshape(B, 1, Hkv, Dh)
+        k_new = reshape(mm(hn, bp["attn"]["wk"]), B, 1, Hkv, Dh)
+        v_new = reshape(mm(hn, bp["attn"]["wv"]), B, 1, Hkv, Dh)
         k_new = rope(k_new, positions, cfg.rope_theta)
         k_buf, v_buf = cache["k"], cache["v"]
         cap = k_buf.shape[1]
         slot = pos % cap if kind == "L" else min(pos, cap - 1)
-        k_buf[:, slot] = k_new[:, 0]
-        v_buf[:, slot] = v_new[:, 0]
+        write_slot(k_buf, 1, slot, k_new[:, 0])
+        write_slot(v_buf, 1, slot, v_new[:, 0])
         k_buf = ctx.cstr(k_buf, "dp", "tp", None, None)
         v_buf = ctx.cstr(v_buf, "dp", "tp", None, None)
         kpos = (_ring_positions(pos, cap, h.device) if kind == "L"
@@ -261,13 +267,12 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
         if train:
             new_cache = None
         elif kind == "L":
+            # ring slot (S - w + i) % w holds tail position i: every slot
+            # is written, so the ring is the tail in the order ``order``
             w = min(cfg.window_size, S)
-            slots = torch.remainder(torch.arange(S - w, S, device=h.device), w)
-            k_ring = torch.zeros_like(k_full[:, :w])
-            v_ring = torch.zeros_like(v_full[:, :w])
-            k_ring[:, slots] = k_full[:, S - w:]
-            v_ring[:, slots] = v_full[:, S - w:]
-            new_cache = {"k": k_ring, "v": v_ring}
+            order = torch.remainder(torch.arange(w, device=h.device) - (S - w), w)
+            new_cache = {"k": k_full[:, S - w:].index_select(1, order),
+                         "v": v_full[:, S - w:].index_select(1, order)}
         else:
             new_cache = {"k": ctx.cstr(k_full, "dp", "tp", None, None),
                          "v": ctx.cstr(v_full, "dp", "tp", None, None)}
@@ -359,7 +364,7 @@ def _embed_input(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx()):
     tok_h = _embed(params, batch["tokens"])
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         patches = batch["patch_embeds"]
-        patch_h = patches.to(BF16) @ params["patch_proj"]
+        patch_h = mm(patches.to(BF16), params["patch_proj"])
         h, off = torch.cat([patch_h, tok_h], dim=1), patches.shape[1]
     else:
         h, off = tok_h, 0
@@ -392,13 +397,14 @@ def lm_prefill(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx(),
     (+ patch_embeds [B, P, D]: the caches then hold P + S positions)}.
     Returns (logits_last [B, V], caches)."""
     check_supported(cfg)
-    h, _ = _embed_input(params, batch, cfg, ctx)
-    positions = torch.arange(h.shape[1], device=h.device)
-    h, _, caches = _run_stack(params, h, cfg=cfg, positions=positions,
-                              mode="prefill", chunk=chunk, ctx=ctx)
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = logits_head(params, h[:, -1:, :], cfg.vocab_size)
-    return logits[:, 0, :], caches
+    with ctx.scope():
+        h, _ = _embed_input(params, batch, cfg, ctx)
+        positions = torch.arange(h.shape[1], device=h.device)
+        h, _, caches = _run_stack(params, h, cfg=cfg, positions=positions,
+                                  mode="prefill", chunk=chunk, ctx=ctx)
+        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        logits = logits_head(params, h[:, -1:, :], cfg.vocab_size)
+        return logits[:, 0, :], caches
 
 
 def lm_decode(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx()):
@@ -407,11 +413,12 @@ def lm_decode(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx()):
     check_supported(cfg)
     tok = batch["token"]
     pos = int(batch["pos"])
-    h = _embed(params, tok)[:, None, :]
-    positions = torch.full((1,), pos, dtype=torch.int64, device=h.device)
-    h, _, caches = _run_stack(params, h, cfg=cfg, positions=positions,
-                              mode="decode", caches=batch["caches"], pos=pos,
-                              ctx=ctx)
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = logits_head(params, h[:, 0, :], cfg.vocab_size)
-    return logits, caches
+    with ctx.scope():
+        h = _embed(params, tok)[:, None, :]
+        positions = torch.full((1,), pos, dtype=torch.int64, device=h.device)
+        h, _, caches = _run_stack(params, h, cfg=cfg, positions=positions,
+                                  mode="decode", caches=batch["caches"], pos=pos,
+                                  ctx=ctx)
+        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        logits = logits_head(params, h[:, 0, :], cfg.vocab_size)
+        return logits, caches

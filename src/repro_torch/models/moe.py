@@ -45,8 +45,11 @@ does not round K times either; op by op in bf16 it moved the first loss
 of olmoe-1b-7b at full width 3.7e-3 from the unsharded path (an NVIDIA
 H100, ``chip_smoke.py``'s mesh phase).
 The partial outputs cross ranks in the tokens' dtype, as the reference's
-``psum_scatter`` does.  Like the reference's sharded path it reaches no
-kernel.  The gradients of
+``psum_scatter`` does.  In training (``train=True``) it runs the reference's
+einsums and reaches no kernel, as the reference's sharded path does; in
+serving each rank runs the grouped-GEMM kernel on its local [E/tp, C, D]
+buffer with its experts' fills, as ``moe_ffn`` does on one device.  The
+gradients of
 the replicated operands (the row's tokens, the router, the experts over
 "data") are partial sums on each rank, summed by DTensor.
 """
@@ -247,12 +250,13 @@ def _local_in(ctx: ShardCtx, x, spec, grad_spec):
 
 
 def moe_ffn_sharded(p, x, *, n_experts: int, top_k: int, capacity_factor: float,
-                    ctx: ShardCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+                    ctx: ShardCtx, train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] DTensor.  Returns ([B, S, D] DTensor sharded (dp, tp,
     None), replicated f32 aux).
 
     Row x column EP: rank (i, j) processes dp-row i's tokens for tp-column
-    j's experts; the partial outputs reduce-scatter over 'tp'.
+    j's experts; the partial outputs reduce-scatter over 'tp'.  ``train``:
+    the reference's einsums; else the kernel on the local experts.
     """
     from torch.distributed.tensor import DTensor, Replicate
 
@@ -298,7 +302,14 @@ def moe_ffn_sharded(p, x, *, n_experts: int, top_k: int, capacity_factor: float,
     buf = torch.zeros((E_loc * (C + 1), D), dtype=x2.dtype, device=x2.device)
     for k in range(K):
         buf = buf.index_add(0, row[k::K], x2)
-    y = _expert_mlp(w, buf.view(E_loc, C + 1, D)[:, :C], train=True)
+    if train:
+        y = _expert_mlp(w, buf.view(E_loc, C + 1, D)[:, :C], train=True)
+    else:
+        # kept entries fill slots 0 .. fill - 1 of their expert
+        fill = torch.clamp(_expert_counts(torch.where(keep, flat_e, E_loc),
+                                          E_loc + 1)[:E_loc], max=C)
+        y = _expert_mlp({k: v.contiguous() for k, v in w.items()},
+                        buf.view(E_loc, C + 1, D)[:, :C].contiguous(), fill)
     # the gated sum in f32, rounded once (``moe_ffn``'s sum, and what XLA's
     # fusion makes of the reference's bf16 one)
     out = torch.zeros((T, D), dtype=F32, device=x2.device)

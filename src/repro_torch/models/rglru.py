@@ -12,7 +12,9 @@ output projection.  RG-LRU per channel:
 The gate matmuls run as batched products.  Serving (prefill and decode)
 runs the two sigmoids, a, b and the time recurrence in one launch of the
 RG-LRU scan kernel's gated entry (``kernels.rglru_scan.ops.
-rglru_gated_scan``), which has no backward.  Training follows the
+rglru_gated_scan``), which has no backward.  Under a mesh it runs on each
+rank's local width (the scan is independent per channel), with ``lam``
+and the carried state sliced to the same channels.  Training follows the
 reference's train path: the sigmoids as separate fp32 ops, then
 ``rglru_scan``, the reference's ``lax.scan`` become a Python loop over
 time that autograd differentiates on the CPU and on the card alike.  The
@@ -27,7 +29,7 @@ import torch.nn.functional as F
 
 from ..kernels.rglru_scan.ops import rglru_gated_scan
 from .layers import BF16, F32, dense_init
-from .sharding import ShardCtx
+from .sharding import ShardCtx, gather_inner, mm
 
 RGLRU_C = 8.0
 
@@ -77,17 +79,21 @@ def rglru_block_apply(p, x, state, train=False, ctx: ShardCtx = ShardCtx()):
     """x: [B, T, D]; state: {h: [B, W], conv: [B, Cw-1, W]}.
     Returns (out, new state) with fresh state tensors.  ``train``: the
     reference's separate gates and scan instead of the kernel."""
-    xi = ctx.cstr(x @ p["w_in"], "dp", None, "tp")
+    x = gather_inner(x)             # read by the input and gate branches
+    xi = ctx.cstr(mm(x, p["w_in"]), "dp", None, "tp")
     xi, conv_state = causal_conv1d(xi, p["conv"], state["conv"])
     if train:
-        r = torch.sigmoid((xi @ p["w_a"]).to(F32))
-        i_gate = torch.sigmoid((xi @ p["w_x"]).to(F32))
+        r = torch.sigmoid(mm(xi, p["w_a"]).to(F32))
+        i_gate = torch.sigmoid(mm(xi, p["w_x"]).to(F32))
         y, hT = rglru_scan(xi, r, i_gate, p["lam"], state["h"])
     else:
-        y, hT = rglru_gated_scan(xi, xi @ p["w_a"], xi @ p["w_x"], p["lam"],
-                                 state["h"])
-    gate = F.gelu((x @ p["w_gate_branch"]).to(F32), approximate="tanh")
-    out = (y * gate).to(x.dtype) @ p["out_proj"]
+        B, T, W = xi.shape
+        btw, bw = ("dp", None, "tp"), ("dp", "tp")
+        y, hT = ctx.local_call(
+            rglru_gated_scan, (xi, mm(xi, p["w_a"]), mm(xi, p["w_x"]), p["lam"], state["h"]),
+            (btw, btw, btw, ("tp",), bw), [(btw, (B, T, W)), (bw, (B, W))])
+    gate = F.gelu(mm(x, p["w_gate_branch"]).to(F32), approximate="tanh")
+    out = mm((y * gate).to(x.dtype), p["out_proj"])
     return out, {"h": hT, "conv": conv_state}
 
 

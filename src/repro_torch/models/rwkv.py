@@ -14,7 +14,8 @@ backward, so training takes the reference's own route: ``wkv_chunked``
 for T > 1 (each chunk recomputed in backward, as the reference's
 ``jax.checkpoint`` of its chunk body does) and ``wkv_scan`` for T = 1,
 Python loops over time that autograd differentiates on the CPU and on the
-card alike.  Dtypes follow the reference: ``mu``, ``mix_b`` and ``wo``
+card alike.  Under a mesh the kernel runs on each rank's local batch
+shard, the layout the reference gives r, k, v and w.  Dtypes follow the reference: ``mu``, ``mix_b`` and ``wo``
 bf16; ``w0``, ``decay_b`` and ``u`` fp32.
 """
 
@@ -26,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.rwkv6_scan.ops import wkv6
 from .layers import BF16, F32, dense_init, rmsnorm, rmsnorm_init
-from .sharding import ShardCtx, reshape
+from .sharding import ShardCtx, einsum, mm, reshape
 
 LORA_MIX = 32
 LORA_DECAY = 64
@@ -84,7 +85,7 @@ def wkv_scan(r, k, v, w, u, s0):
     # (indexing step by step would add T full-size grads)
     for r_t, k_t, v_t, w_t in zip(*(a.to(F32).unbind(1) for a in (r, k, v, w))):
         kv = k_t[..., :, None] * v_t[..., None, :]                  # [B, H, N, N]
-        outs.append(torch.einsum("bhi,bhij->bhj", r_t, S + u4 * kv))
+        outs.append(einsum("bhi,bhij->bhj", r_t, S + u4 * kv))
         S = w_t[..., :, None] * S + kv
     return torch.stack(outs, 1), S
 
@@ -120,27 +121,30 @@ def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False,
     H = D // head_dim
     xx = _token_shift(x, shift_prev) - x
     mixed = x + xx * p["mu"][0]  # base for the dynamic mix coefficients
-    dyn = reshape(torch.tanh(mixed @ p["mix_a"]), B, T, 5, LORA_MIX)
-    dyn = torch.einsum("btzl,zld->btzd", dyn, p["mix_b"])
+    dyn = reshape(torch.tanh(mm(mixed, p["mix_a"])), B, T, 5, LORA_MIX)
+    dyn = einsum("btzl,zld->btzd", dyn, p["mix_b"])
     x_r, x_k, x_v, x_w, x_g = (x + xx * (p["mu"][z] + dyn[:, :, z]) for z in range(5))
 
-    r = ctx.cstr(reshape(x_r @ p["wr"], B, T, H, head_dim), "dp", None, None, None)
-    k = ctx.cstr(reshape(x_k @ p["wk"], B, T, H, head_dim), "dp", None, None, None)
-    v = ctx.cstr(reshape(x_v @ p["wv"], B, T, H, head_dim), "dp", None, None, None)
-    g = F.silu((x_g @ p["wg"]).to(F32))
-    logw = p["w0"] + torch.tanh(x_w.to(F32) @ p["decay_a"].to(F32)) @ p["decay_b"]
+    r = ctx.cstr(reshape(mm(x_r, p["wr"]), B, T, H, head_dim), "dp", None, None, None)
+    k = ctx.cstr(reshape(mm(x_k, p["wk"]), B, T, H, head_dim), "dp", None, None, None)
+    v = ctx.cstr(reshape(mm(x_v, p["wv"]), B, T, H, head_dim), "dp", None, None, None)
+    g = F.silu(mm(x_g, p["wg"]).to(F32))
+    logw = p["w0"] + mm(torch.tanh(mm(x_w.to(F32), p["decay_a"].to(F32))), p["decay_b"])
     w = reshape(torch.exp(-torch.exp(logw)), B, T, H, head_dim)  # decay in (0, 1)
     w = ctx.cstr(w, "dp", None, None, None)
     u = reshape(p["u"], H, head_dim)
 
     if not train:
-        out, sT = wkv6(r, k, v, w, u, s0)
+        bthn = ("dp", None, None, None)
+        out, sT = ctx.local_call(
+            wkv6, (r, k, v, w, u, s0), (bthn,) * 4 + ((None, None), bthn),
+            [(bthn, (B, T, H, head_dim)), (bthn, (B, H, head_dim, head_dim))])
     elif T > 1:
         out, sT = wkv_chunked(r, k, v, w, u, s0, ctx=ctx)
     else:
         out, sT = wkv_scan(r, k, v, w, u, s0)
     out = rmsnorm(p["ln_out"], reshape(out, B, T, D))
-    out = (out.to(F32) * g).to(x.dtype) @ p["wo"]
+    out = mm((out.to(F32) * g).to(x.dtype), p["wo"])
     return out, x[:, -1, :], sT
 
 
@@ -154,8 +158,8 @@ def channelmix_apply(p, x, shift_prev):
     xx = _token_shift(x, shift_prev) - x
     x_k = x + xx * p["mu_k"]
     x_r = x + xx * p["mu_r"]
-    k = torch.square(torch.relu((x_k @ p["wk"]).to(F32))).to(x.dtype)
-    out = torch.sigmoid((x_r @ p["wr"]).to(F32)).to(x.dtype) * (k @ p["wv"])
+    k = torch.square(torch.relu(mm(x_k, p["wk"]).to(F32))).to(x.dtype)
+    out = torch.sigmoid(mm(x_r, p["wr"]).to(F32)).to(x.dtype) * mm(k, p["wv"])
     return out, x[:, -1, :]
 
 

@@ -147,6 +147,44 @@ class ShardCtx:
         return DTensor.from_local(x, self.mesh, [Replicate()] * self.mesh.ndim,
                                   run_check=False)
 
+    def local_call(self, fn, operands, in_layouts, out_layouts, grad_partial=()):
+        """``fn``, a kernel entry point that takes plain tensors, run on each
+        rank's local shards.  Each operand (a DTensor, a plain tensor that
+        is the same on every rank, or None) is laid out by its logical dims
+        in ``in_layouts``: a dim the kernel is independent along (batch,
+        heads, width) may stay sharded, every other dim is gathered.  ``fn``
+        gets the ``to_local()`` tensors, and each of its outputs comes back
+        as a DTensor laid out by its ``(logical dims, global shape)`` in
+        ``out_layouts``.  ``grad_partial`` names, for each operand, the mesh
+        axes its local grad is a partial sum over (it is replicated there,
+        and ``fn`` reads part of it on each rank).  Without a mesh:
+        ``fn(*operands)``."""
+        if self.mesh is None:
+            return fn(*operands)
+        from torch.distributed.tensor import DTensor, Partial
+
+        local_ops = []
+        for i, (x, logical) in enumerate(zip(operands, in_layouts)):
+            if x is not None:
+                x = self.replicate(x)
+                want = self.placements(self.spec(logical, x.shape))
+                if tuple(x.placements) != want:
+                    x = x.redistribute(self.mesh, want)
+                partial = grad_partial[i] if i < len(grad_partial) else ()
+                x = x.to_local(grad_placements=[
+                    Partial() if a in partial else p
+                    for a, p in zip(self.mesh.mesh_dim_names, x.placements)])
+            local_ops.append(x)
+        outs = fn(*local_ops)
+        single = not isinstance(outs, tuple)
+        wrapped = tuple(
+            DTensor.from_local(o.contiguous(), self.mesh,
+                               self.placements(self.spec(logical, shape)),
+                               run_check=False, shape=torch.Size(shape),
+                               stride=torch.empty(shape, device="meta").stride())
+            for o, (logical, shape) in zip((outs,) if single else outs, out_layouts))
+        return wrapped[0] if single else wrapped
+
 
 class _GradLayout(torch.autograd.Function):
     """Identity; its backward lays the incoming grad out as ``placements``."""
@@ -231,6 +269,70 @@ def reshape(x, *shape):
     return x.reshape(*shape)
 
 
+def mm(x, w):
+    """``x @ w`` for activations ``x`` [..., D] and a weight [D, F].  A
+    DTensor ``x`` first gathers every dim it shards between its first and
+    its last (the sequence, over 'tp'): the all-gather before a
+    column-parallel matmul that the reference's compiled step makes, and
+    one torch 2.11's DTensor needs, since it refuses to flatten [B, S, D]
+    to [B * S, D] with S sharded.  The sums are those of ``x @ w``."""
+    if not is_dtensor(x):
+        return x @ w
+    x = gather_inner(x)
+    if is_dtensor(w):
+        # FSDP: a weight gathers its shards over the axes the batch is split
+        # on (as the reference's compiled step does), so that no operand is
+        # split two ways on one axis; torch 2.11's DTensor otherwise asks
+        # for a redistribute from Shard to Partial that it does not have
+        from torch.distributed.tensor import Replicate, Shard
+
+        batch = {m for m, p in enumerate(x.placements)
+                 if isinstance(p, Shard) and p.dim == 0}
+        want = [Replicate() if m in batch else p for m, p in enumerate(w.placements)]
+        if want != list(w.placements):
+            w = w.redistribute(w.device_mesh, want)
+    return _InnerWholeGrad.apply(x @ w)
+
+
+def einsum(equation: str, *operands):
+    """``torch.einsum`` for batched products whose operands are sharded on
+    their first dim at most: every other dim of a DTensor operand, and of
+    the result's cotangent, is gathered first (torch 2.11's DTensor
+    refuses to flatten two batch dims of which a later one is sharded).
+    The sums are those of ``torch.einsum``."""
+    if not any(is_dtensor(x) for x in operands):
+        return torch.einsum(equation, *operands)
+    operands = [gather_inner(x, last=True) for x in operands]
+    return _InnerWholeGrad.apply(torch.einsum(equation, *operands), True)
+
+
+def gather_inner(x, last: bool = False):
+    """Activations [B, S, ..., D] with every dim after the first (but the
+    last, unless ``last``) gathered, or ``x`` itself when not a DTensor.
+    Called once on an input that several matmuls read (``mm`` then gathers
+    nothing), so that in backward their partial input grads are summed
+    before one reduction, as on the layout DTensor propagates itself."""
+    if is_dtensor(x):
+        for d in range(1, x.ndim if last else x.ndim - 1):
+            x = unshard_dim(x, d)
+    return x
+
+
+class _InnerWholeGrad(torch.autograd.Function):
+    """Identity; its backward gathers the cotangent's dims as
+    ``gather_inner`` does, so that the product's backward flattens no
+    sharded inner dim either."""
+
+    @staticmethod
+    def forward(ctx, y, last=False):
+        ctx.last = last
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_inner(g, ctx.last), None
+
+
 def laid_like(x, ref):
     """DTensor ``x`` redistributed to ``ref``'s placements (a partial grad
     summed into its param's layout), or ``x`` itself."""
@@ -242,6 +344,97 @@ def laid_like(x, ref):
 def local(x):
     """The local shard of a DTensor, or ``x`` itself."""
     return x.to_local() if is_dtensor(x) else x
+
+
+def shard_span(x, dim: int) -> Tuple[int, int]:
+    """(first index, length) of DTensor ``x``'s local shard along ``dim``,
+    by ``torch.chunk``'s split, which is DTensor's ``Shard``."""
+    from torch.distributed.tensor import Shard
+
+    dim = dim % x.ndim
+    start, size = 0, x.shape[dim]
+    coord = x.device_mesh.get_coordinate()
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            chunk = -(-size // x.device_mesh.size(m))
+            start += coord[m] * chunk
+            size = max(0, min(chunk, size - coord[m] * chunk))
+    return start, size
+
+
+def _laid_without(value, buf, dim: int):
+    """``value`` (``buf`` without its dim ``dim``; plain tensors are the same
+    on every rank) as a DTensor on ``buf``'s mesh, sharded as ``buf`` is
+    on every other dim."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = []
+    for p in buf.placements:
+        if isinstance(p, Shard) and p.dim == dim:
+            p = Replicate()
+        elif isinstance(p, Shard) and p.dim > dim:
+            p = Shard(p.dim - 1)
+        want.append(p)
+    return _as_layout(value, buf.device_mesh, want)
+
+
+def write_slot(buf, dim: int, index: int, value) -> None:
+    """``buf.select(dim, index).copy_(value)``, in place.  For a DTensor
+    ``buf`` the rank whose shard holds ``index`` writes its part of
+    ``value`` into its local shard and the others write nothing; the
+    buffer is never gathered."""
+    if not is_dtensor(buf):
+        buf.select(dim, index).copy_(value)
+        return
+    dim = dim % buf.ndim
+    value = _laid_without(value, buf, dim).to_local()
+    start, size = shard_span(buf, dim)
+    if start <= index < start + size:
+        buf.to_local().select(dim, index - start).copy_(value)
+
+
+def write_prefix(buf, dim: int, value) -> None:
+    """``buf.narrow(dim, 0, n).copy_(value)`` for ``value`` of length n <=
+    ``buf.shape[dim]`` along ``dim``, in place.  For a DTensor ``buf`` each
+    rank copies the positions its shard of ``buf`` holds: ``value`` is
+    gathered along ``dim`` (its other dims laid out as ``buf``'s), the
+    buffer never."""
+    dim = dim % buf.ndim
+    n = value.shape[dim]
+    if not is_dtensor(buf):
+        buf.narrow(dim, 0, n).copy_(value)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    start, size = shard_span(buf, dim)
+    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+            for p in buf.placements]
+    value = _as_layout(value, buf.device_mesh, want)
+    lo, hi = start, min(start + size, n)
+    if hi > lo:
+        buf.to_local().narrow(dim, 0, hi - lo).copy_(
+            value.to_local().narrow(dim, lo, hi - lo))
+
+
+def copy_into(dst, src) -> None:
+    """``dst.copy_(src)`` in place; for a DTensor ``dst``, ``src`` is laid
+    out as ``dst`` first and each rank copies its own shard."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return
+    dst.to_local().copy_(_as_layout(src, dst.device_mesh, list(dst.placements))
+                         .to_local())
+
+
+def _as_layout(x, mesh, placements):
+    """``x`` (a DTensor, or a plain tensor the same on every rank) as a
+    DTensor on ``mesh`` with ``placements``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return x if list(x.placements) == list(placements) else x.redistribute(
+        mesh, placements)
 
 
 def full(x):

@@ -19,6 +19,15 @@ vectorized dispatcher, each step() (one drain epoch) also runs the
 dispatcher's scoring on the model's device: the dispatch-score kernel
 rescores the window and the rank-K kernel keeps the device-resident score
 mirror current, each held exactly to the host matrices.
+
+``ctx`` serves under a mesh, as the reference's ``DiffusionServer(ctx=)``
+does: the params are placed by their path rules (``tree_param_specs``),
+the decode caches by ``cache_leaf_spec``, the prompt and each token on
+'dp', and prefill and decode run under the mesh, every kernel on the
+local shards.  Greedy decoding takes the argmax of each rank's replicated
+logits.  Every rank runs the same routing on the same stream, so each
+makes the same decisions.  The scoring kernels and the host matrices are
+those of one device.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ from ..diffusion.payload import MeasuredBandwidth, RealPayload
 from ..diffusion.tiers import TierSpec
 from ..models import (cache_init, init_params, is_encdec, make_decode_step,
                       make_prefill_step)
+from ..models.sharding import (ShardCtx, copy_into, distribute, distribute_tree,
+                               tree_param_specs, write_prefix)
 from .router import (Assignment, AdmissionController, CacheAffinityRouter,
                      RoutedRequest)
 
@@ -183,6 +194,7 @@ class DiffusionServer:
         tenants: int = 0,
         slo_per_tenant: str = "",
         tenant_quota_frac: float = 0.0,
+        ctx: ShardCtx = ShardCtx(),
         seed: int = 0,
         device: str = "cuda",
     ):
@@ -197,14 +209,16 @@ class DiffusionServer:
                 "an encoder-decoder prefill needs audio_embeds; the reference's "
                 "DiffusionServer serves no encoder-decoder either")
         self.cfg = cfg
+        self.ctx = ctx
         self.device = torch.device(device)
         self.cap = cache_cap
         self.measured = MeasuredBandwidth()
         self.payload_mode = payload
-        self.params = init_params(cfg, device=self.device, seed=seed)
+        params = init_params(cfg, device=self.device, seed=seed)
+        self.params = distribute_tree(ctx, params, tree_param_specs(ctx, params))
         shape = ShapeConfig("serve", "prefill", cache_cap, 1)
-        self.prefill_fn = make_prefill_step(cfg, shape)
-        self.decode_fn = make_decode_step(cfg)
+        self.prefill_fn = make_prefill_step(cfg, shape, ctx=ctx)
+        self.decode_fn = make_decode_step(cfg, ctx=ctx)
         # host_cache_sessions > 0 enables the tiered diffusion plane: HBM
         # session slots backed by a host-DRAM tier, so an HBM eviction
         # demotes the KV prefix instead of dropping it and a later request
@@ -313,6 +327,17 @@ class DiffusionServer:
             del self.replicas[name]
         self.router.drp.registered = n
 
+    def _on_dp(self, x):
+        """A batch-leading tensor (the same on every rank) placed on 'dp'."""
+        return distribute(self.ctx, x, self.ctx.spec(["dp"] + [None] * (x.ndim - 1),
+                                                     x.shape))
+
+    def _greedy(self, logits):
+        """argmax over the vocab of each rank's replicated logits rows."""
+        B = logits.shape[0]
+        return self.ctx.local_call(lambda lg: torch.argmax(lg, dim=-1), (logits,),
+                                   [("dp", None)], [(("dp",), (B,))])
+
     def swap_in_bandwidth(self) -> float:
         """Measured dram->hbm swap-in bytes/s (0.0 until one happened)."""
         return self.measured.bandwidth("dram", "hbm")
@@ -401,10 +426,11 @@ class DiffusionServer:
             t0 = time.time()
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                      device=self.device)[None, :]
-            batch = {"tokens": prompt}
+            batch = {"tokens": self._on_dp(prompt)}
             _, pre_caches = self.prefill_fn(self.params, batch)
             # prefill caches are full-seq; re-home into a decode cache buffer
-            caches = cache_init(self.cfg, 1, self.cap, device=self.device)
+            caches = cache_init(self.cfg, 1, self.cap, device=self.device,
+                                ctx=self.ctx)
             caches = _merge_prefill_caches(caches, pre_caches, self.cfg)
             pos = req.prompt.shape[0]
             if self._trace is not None:
@@ -418,15 +444,15 @@ class DiffusionServer:
                                    detail=(req.prompt.shape[0],))
 
         t0 = time.time()
-        token = torch.tensor([int(req.prompt[-1]) % self.cfg.vocab_size],
-                             dtype=torch.int64, device=self.device)
+        token = self._on_dp(torch.tensor([int(req.prompt[-1]) % self.cfg.vocab_size],
+                                         dtype=torch.int64, device=self.device))
         for _ in range(req.max_new_tokens):
             if pos >= self.cap - 1:
                 break
             logits, caches = self.decode_fn(
                 self.params, {"token": token, "pos": pos, "caches": caches}
             )
-            token = torch.argmax(logits, dim=-1)
+            token = self._greedy(logits)
             pos += 1
             self.stats.decode_steps += 1
         if self._trace is not None:
@@ -578,7 +604,8 @@ class DiffusionServer:
 
 def _merge_prefill_caches(decode_caches, prefill_caches, cfg: ArchConfig):
     """Copy prefill K/V (length S) into the decode cache buffers (cap >= S),
-    in place; returns ``decode_caches``."""
+    in place; returns ``decode_caches``.  DTensor buffers stay where they
+    are: each rank copies into its own shard (``write_prefix``)."""
 
     def merge(dst, src):
         if isinstance(dst, dict):
@@ -587,12 +614,11 @@ def _merge_prefill_caches(decode_caches, prefill_caches, cfg: ArchConfig):
             return type(dst)(merge(d, s) for d, s in zip(dst, src))
         if dst.ndim >= 3 and src.ndim == dst.ndim and src.shape != dst.shape:
             # K/V buffers: [.., B, S, H, D] into [.., B, cap, H, D]
-            s = src.shape[-3]
-            if s <= dst.shape[-3]:
-                dst.narrow(dst.ndim - 3, 0, s).copy_(src)
+            if src.shape[-3] <= dst.shape[-3]:
+                write_prefix(dst, dst.ndim - 3, src)
             return dst
         if src.shape == dst.shape:
-            dst.copy_(src)
+            copy_into(dst, src)
         return dst
 
     return merge(decode_caches, prefill_caches)

@@ -5,7 +5,11 @@ forced host device count must not leak into other tests).
     python tests/_sharded_reference.py <inputs.npz> <out.npz>
 
 XLA may otherwise skip the rounding of a bf16 intermediate (the
-embedding's bf16 cast, whose cotangent is rounded to bf16 op by op).  The mesh is built with ``jax.sharding.Mesh`` (``Auto`` axes): under jax
+embedding's bf16 cast, whose cotangent is rounded to bf16 op by op).
+The ``serve`` case runs the reference's ``DiffusionServer(ctx=)`` on the
+stream of ``_torch_sharded_jobs.serve_prompts`` on the bridged bf16
+weights, and its jitted prefill and decode steps under the mesh on the
+same weights in f32.  The mesh is built with ``jax.sharding.Mesh`` (``Auto`` axes): under jax
 0.9, ``jax.make_mesh`` gives ``Explicit`` axes, on which the reference's
 ``with_sharding_constraint`` calls refuse to run.  Inputs and outputs are
 flat npz files keyed ``<case>/<path>``.
@@ -110,7 +114,49 @@ def main(src: str, dst: str) -> None:
         out[f"moe/{name}/out"] = np.asarray(y)
         out[f"moe/{name}/aux"] = np.asarray(aux)
 
+    serve_case(inputs, out, ctx)
     np.savez(dst, **out)
+
+
+def serve_case(inputs, out, ctx):
+    import json
+
+    from _torch_sharded_jobs import (SERVE_ARCHS, SERVE_COUNTERS, SERVE_KW,
+                                     SERVE_PROMPT, serve_prompts, serve_tokens)
+    from repro.models import cache_init
+    from repro.runtime.serve_loop import DiffusionServer, _merge_prefill_caches
+
+    for arch in SERVE_ARCHS:
+        cfg = get_arch(arch).reduced()
+        like = jax.eval_shape(lambda: init_params(cfg, jax.random.PRNGKey(0)))
+        f32 = _fill(like, inputs, f"params/{arch}")
+        bf16 = jax.tree_util.tree_map(lambda x, l: x.astype(l.dtype), f32, like)
+        srv = DiffusionServer(cfg, ctx=ctx, **SERVE_KW)
+        srv.params = bf16                   # the port's weights, bit for bit
+        prompt, forced = serve_tokens(cfg.vocab_size)
+        params = jax.device_put(f32, tree_shardings(ctx, f32))
+        with _loop_scans():
+            logits, pre = srv.prefill_fn(params, {"tokens": jnp.asarray(prompt,
+                                                                        jnp.int32)})
+            caches = jax.tree_util.tree_map(
+                lambda c: c.astype(jnp.float32), cache_init(cfg, 1, SERVE_KW["cache_cap"]))
+            caches = _merge_prefill_caches(caches, pre, cfg)
+            steps = [np.asarray(logits, np.float32)]
+            for i, t in enumerate(forced):
+                logits, caches = srv.decode_fn(params, {
+                    "token": jnp.asarray([t], jnp.int32),
+                    "pos": jnp.asarray(SERVE_PROMPT + i, jnp.int32),
+                    "caches": caches})
+                steps.append(np.asarray(logits, np.float32))
+        out[f"serve/{arch}/f32/ref"] = np.stack(steps)
+        srv.router.assignment_log = []
+        for _ in range(2):
+            for sid, p in serve_prompts(cfg.vocab_size).items():
+                srv.submit(sid, p, max_new_tokens=2)
+            srv.step()
+        out[f"serve/{arch}/stream"] = np.asarray(json.dumps({
+            "log": list(srv.router.assignment_log),
+            "counters": {c: getattr(srv.stats, c) for c in SERVE_COUNTERS}}))
 
 
 if __name__ == "__main__":

@@ -9,8 +9,20 @@ rank 0 writes ``<outdir>/result.npz`` and ``<outdir>/flags.json``.  Jobs
 grads of three reduced archs in f32 and their bf16 losses; two ``Trainer``
 steps sharded and on one device, with their checkpoints restored across
 mesh shapes; the kernels' DTensor guard; the mesh builders' refusals.
+Then ``serve``: prefill and decode of reduced internlm2, olmoe,
+recurrentgemma and rwkv6 under the mesh and on one device (f32 params;
+bf16 params with MoE routing replayed from one device),
+the sharded ``DiffusionServer`` on the stream of ``test_torch_payload.py``
+(bf16 modeled and real payload, f32 params) and on one device (f32), and
+the flash-attention kernel's GQA head mapping at tp = 2.
 Jobs ``psum``: ``compressed_psum`` over a ("pod",) mesh of every rank.
-"""
+Jobs ``bf16_readings``: the readings behind the bf16 logits bounds
+(``bf16_readings``; ``<inputs.npz>`` unused, pass ``none``).
+
+The inputs come from ``make_inputs`` (the port's own init and seeded numpy
+draws), so the jobs run without JAX; ``port_checks`` holds their results
+to the port on one device (what a machine without the reference can
+check)."""
 
 import dataclasses
 import json
@@ -299,6 +311,252 @@ def mesh_jobs(flags):
     flags["host_mesh"] = [list(m.mesh_dim_names), list(m.shape)]
 
 
+SERVE_ARCHS = ("internlm2-1.8b", "olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-3b")
+SERVE_KW = dict(policy="good-cache-compute", max_replicas=1, min_replicas=1,
+                cache_cap=48, max_sessions=2, host_cache_sessions=4, seed=0)
+SERVE_PROMPT, SERVE_STEPS = 16, 4
+SERVE_COUNTERS = ("served", "prefix_hits", "swap_ins", "prefills", "decode_steps")
+
+
+def serve_prompts(vocab):
+    """The stream of ``test_torch_payload.py``: 3 sessions of 12 tokens."""
+    rng = np.random.default_rng(0)
+    return {f"s{i}": rng.integers(0, vocab, size=(12,)) for i in range(3)}
+
+
+def serve_tokens(vocab, seed=5):
+    """A prompt and the teacher-forced decode tokens of the logits check."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, vocab, (1, SERVE_PROMPT)),
+            rng.integers(0, vocab, (SERVE_STEPS,)))
+
+
+def _logits_run(cfg, params, ctx, f32=True, seed=5):
+    """Prefill of the seeded prompt, then SERVE_STEPS teacher-forced decode
+    steps on the server's cache capacity; every step's whole logits.
+    ``f32``: f32 caches for f32 params (the reference's decode writes K/V in
+    its params' dtype); else the caches ``cache_init`` makes, as the server
+    does."""
+    from repro_torch.tree import tree_map
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import cache_init, make_decode_step, make_prefill_step
+    from repro_torch.models.sharding import P, distribute, full
+    from repro_torch.runtime.serve_loop import _merge_prefill_caches
+
+    cap = SERVE_KW["cache_cap"]
+    prompt, forced = serve_tokens(cfg.vocab_size, seed)
+    prompt = distribute(ctx, torch.from_numpy(prompt), P(None, None))
+    logits, pre = make_prefill_step(cfg, ShapeConfig("serve", "prefill", cap, 1),
+                                    ctx=ctx)(params, {"tokens": prompt})
+    caches = cache_init(cfg, 1, cap, device="cpu", ctx=ctx)
+    if f32:
+        caches = tree_map(lambda c: c.float(), caches)
+    caches = _merge_prefill_caches(caches, pre, cfg)
+    out = [_np(full(logits))]
+    decode = make_decode_step(cfg, ctx=ctx)
+    for i, t in enumerate(forced):
+        token = distribute(ctx, torch.tensor([int(t)]), P(None))
+        logits, caches = decode(params, {"token": token, "pos": SERVE_PROMPT + i,
+                                         "caches": caches})
+        out.append(_np(full(logits)))
+    return np.stack(out)
+
+
+# bf16 prefill/decode logits under the mesh against one device, max abs
+# error over max abs per step.  Each bound sits above the largest reading
+# over init seeds 0-7 (job ``bf16_readings``: internlm2 2.51e-2, olmoe
+# 5.53e-2 with routing replayed, recurrentgemma 5.25e-2, rwkv6 2.05e-1,
+# whose bf16 logits on one device lie up to 1.64e-1 from its f32 ones) and
+# below a planted fault (a decode K/V write one slot late on the mesh:
+# >= 1.17e-1; recurrent state not written back on the mesh: >= 1.08).
+BF16_LOGITS_TOL = {"internlm2-1.8b": 4e-2, "olmoe-1b-7b": 8e-2,
+                   "recurrentgemma-9b": 8e-2, "rwkv6-3b": 3e-1}
+BF16_TIE = 1e-2         # largest own-choice flip over seeds 0-7: 5.1e-3
+
+
+class _RoutingReplay:
+    """Top-k routing is discontinuous: where the k-th and (k+1)-th router
+    probabilities tie to within bf16 noise, the mesh's summation order can
+    swap two experts and change a layer's output wholesale.  The one-device
+    pass records each router call's experts; the mesh pass routes to them
+    with its own probabilities and keeps, in ``flips``, the one-device
+    margin of every token whose own choice differed."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig = moe, moe._router
+        self.recorded, self.flips, self.i = [], [], None
+
+    def __call__(self, p, x2d, top_k):
+        probs, gate_vals, gate_idx = self.orig(p, x2d, top_k)
+        if x2d.shape[0] == 0:                 # an empty batch shard
+            return probs, gate_vals, gate_idx
+        if self.i is None:
+            top = torch.topk(probs, top_k + 1, dim=-1).values
+            self.recorded.append((gate_idx, top[:, -2] - top[:, -1]))
+            return probs, gate_vals, gate_idx
+        idx, margin = self.recorded[self.i]
+        self.i += 1
+        own = (gate_idx.sort(-1).values != idx.sort(-1).values).any(-1)
+        self.flips += [float(margin[t]) for t in torch.nonzero(own)]
+        vals = torch.gather(probs, 1, idx)
+        return probs, vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9), idx
+
+    def __enter__(self):
+        self.moe._router = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self.orig
+
+
+def _bf16_logits(cfg, params, ctx, seed=5):
+    """``_logits_run`` on bf16 params and caches on one device, then under
+    ``ctx`` routed as one device routed; (mesh, one device, flips)."""
+    from repro_torch.models.sharding import ShardCtx
+
+    with _RoutingReplay() as replay:
+        single = _logits_run(cfg, params, ShardCtx(), f32=False, seed=seed)
+        replay.i = 0
+        mesh = _logits_run(cfg, _placed(ctx, params), ctx, f32=False, seed=seed)
+    return mesh, single, replay.flips
+
+
+def bf16_readings(ctx, rank, outdir, seeds=range(8)):
+    """The readings behind ``BF16_LOGITS_TOL`` and ``BF16_TIE``: for init
+    seed s (prompt seed 5 + s), every step's max abs error over max abs
+    of the bf16 logits under the mesh against one device, the one-device
+    margins of the routing flips, and (rank 0) how far one device's bf16
+    logits lie from its f32 ones; rank 0 writes
+    ``<outdir>/bf16_readings.json`` and prints one line a run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.models.sharding import ShardCtx
+    from repro_torch.tree import tree_map
+
+    def errs(t, o, V):
+        return [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(t[..., :V], o[..., :V])]
+
+    got = {}
+    for arch in SERVE_ARCHS:
+        cfg = get_arch(arch).reduced()
+        V = cfg.vocab_size
+        for s in seeds:
+            params = init_params(cfg, device="cpu", seed=s)
+            mesh, single, flips = _bf16_logits(cfg, params, ctx, seed=5 + s)
+            got[f"{arch}/{s}"] = {"step_errs": errs(mesh, single, V),
+                                  "flip_margins": flips}
+            if rank == 0:
+                f32 = _logits_run(cfg, tree_map(lambda p: p.float(), params),
+                                  ShardCtx(), seed=5 + s)
+                got[f"{arch}/{s}"]["one_device_bf16_vs_f32"] = errs(single, f32, V)
+                print(arch, s, " ".join(f"{e:.3g}" for e in got[f"{arch}/{s}"]["step_errs"]),
+                      "| one device bf16 vs f32 max",
+                      f"{max(got[f'{arch}/{s}']['one_device_bf16_vs_f32']):.3g}",
+                      "| flips", flips, flush=True)
+    if rank == 0:
+        with open(os.path.join(outdir, "bf16_readings.json"), "w") as f:
+            json.dump(got, f)
+
+
+def _serve_stream(cfg, ctx, payload, f32=False):
+    """The payload test's stream through ``DiffusionServer`` (``f32``: its
+    params cast to f32 and placed again); returns (log, counters, greedy
+    tokens, server)."""
+    from repro_torch.models.sharding import full
+    from repro_torch.runtime.serve_loop import DiffusionServer
+    from repro_torch.tree import tree_map
+
+    srv = DiffusionServer(cfg, device="cpu", ctx=ctx, payload=payload, **SERVE_KW)
+    if f32:
+        srv.params = tree_map(lambda p: p.float(), srv.params)
+    tokens, greedy = [], srv._greedy
+
+    def recorded(logits):
+        tok = greedy(logits)
+        tokens.append(full(tok).tolist())
+        return tok
+
+    srv._greedy = recorded
+    srv.router.assignment_log = []
+    for _ in range(2):
+        for sid, p in serve_prompts(cfg.vocab_size).items():
+            srv.submit(sid, p, max_new_tokens=2)
+        srv.step()
+    return (list(srv.router.assignment_log),
+            {c: getattr(srv.stats, c) for c in SERVE_COUNTERS}, tokens, srv)
+
+
+def serve_jobs(ctx, rank, out, flags, params_of):
+    """``params_of(arch, cfg)``: the arch's bf16 params, the same tree on
+    every rank."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.sharding import ShardCtx, is_dtensor
+    from repro_torch.tree import tree_leaves, tree_map
+
+    for arch in SERVE_ARCHS:
+        cfg = get_arch(arch).reduced()
+        bf16 = params_of(arch, cfg)
+        f32 = tree_map(lambda p: p.float(), bf16)
+        out[f"serve/{arch}/f32/mesh"] = _logits_run(cfg, _placed(ctx, f32), ctx)
+        if rank == 0:
+            out[f"serve/{arch}/f32/single"] = _logits_run(cfg, f32, ShardCtx())
+        (out[f"serve/{arch}/bf16/mesh"], out[f"serve/{arch}/bf16/single"],
+         flags[f"serve/{arch}/bf16/flips"]) = _bf16_logits(cfg, bf16, ctx)
+        runs = {}
+        # bf16: the server's own params; f32: the same cast up, whose greedy
+        # tokens are held to one device's (in bf16 the random reduced
+        # weights leave near ties that the mesh's summation order breaks
+        # otherwise: olmoe's routing, and rwkv6's logits, as far from the f32
+        # run on one device as from the mesh)
+        for name, c, payload, f32 in (
+                ("modeled", ctx, "modeled", False), ("real", ctx, "real", False),
+                ("f32", ctx, "modeled", True), ("f32_single", ShardCtx(), "modeled", True)):
+            if name == "f32_single" and rank != 0:
+                continue
+            log, counters, tokens, srv = _serve_stream(cfg, c, payload, f32)
+            runs[name] = {"log": log, "counters": counters, "tokens": tokens}
+            if name == "real":
+                backend = srv.router.stores[next(iter(srv.router.stores))].tiers.payload
+                leaves = [l for obj in list(backend._leaves)
+                          for l in tree_leaves(backend.value(obj))]
+                runs[name]["dtensor_leaves"] = bool(leaves) and all(
+                    is_dtensor(l) for l in leaves)
+                runs[name]["swap_in_bytes_per_s"] = srv.swap_in_bandwidth()
+                runs[name]["params_dtensor"] = all(is_dtensor(p) for p in
+                                                   tree_leaves(srv.params))
+            del srv
+        flags[f"serve/{arch}"] = runs
+
+
+def gqa_job(ctx, rank, out, flags):
+    """The flash-attention kernel at tp = 2 on 4 query heads over 2 KV
+    heads (GQA) and over 1 (MQA), batch 2 on 'dp', against one device;
+    and the same local call without the per-rank KV slice."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.layers import _flash, _kv_span
+    from repro_torch.models.sharding import P, distribute, full
+
+    rng = np.random.default_rng(11)
+    for name, hkv in (("gqa", 2), ("mqa", 1)):
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   for s in ((2, 16, 4, 16), (2, 16, hkv, 16), (2, 16, hkv, 16)))
+        one = flash_attention(q, k, v, causal=True)
+        qd = distribute(ctx, q, P("data", None, "model", None))
+        kd, vd = (distribute(ctx, x, P("data", None, None, None)) for x in (k, v))
+        got = full(_flash(qd, kd, vd, causal=True, window=0, ctx=ctx))
+        out[f"gqa/{name}/err"] = np.float32((got - one).abs().max())
+        naive = full(ctx.local_call(
+            lambda a, b, c: flash_attention(a.contiguous(), b, c, causal=True),
+            (qd, kd, vd), (("dp", None, "tp", None),) + (("dp", None, None, None),) * 2,
+            [(("dp", None, "tp", None), tuple(q.shape))]))
+        out[f"gqa/{name}/naive_err"] = np.float32((naive - one).abs().max())
+    flags["gqa/kv_span"] = _kv_span(ctx.mesh.get_local_rank("model") * 2, 2, 2)
+
+
 def _wait(procs, deadline):
     import pytest
 
@@ -334,25 +592,151 @@ def run_ranks(tmp, jobs, world=4, inputs="none", extra=()):
             pytest.fail(f"{name} exited {p.returncode}\n{text}")
 
 
+def _own_params(arch, cfg):
+    from repro_torch.models import init_params
+
+    return init_params(cfg, device="cpu", seed=0)
+
+
+def make_inputs(path):
+    """The jobs' inputs: tokens, each arch's params from the port's init
+    (seed 0, as f32 arrays) and a seeded ``moe_ffn_sharded`` case."""
+    from repro_torch.configs import get_arch
+    from repro_torch.tree import tree_flatten_with_paths
+
+    rng = np.random.default_rng(0)
+    out = {"tokens": rng.integers(0, 256, (4, 64)).astype(np.int32)}
+    for arch in sorted(set(ARCHS) | set(SERVE_ARCHS)):
+        params = _own_params(arch, get_arch(arch).reduced())
+        paths, leaves, _ = tree_flatten_with_paths(params)
+        for p, x in zip(paths, leaves):
+            out[f"params/{arch}/{p}"] = x.float().numpy()
+    D, F, E, K, B, S = 32, 64, 8, 2, 4, 16
+    out.update({
+        "moe/router": (rng.standard_normal((D, E)) / np.sqrt(D)).astype(np.float32),
+        "moe/w1": (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32),
+        "moe/w3": (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32),
+        "moe/w2": (rng.standard_normal((E, F, D)) / np.sqrt(F)).astype(np.float32),
+        "moe/x": rng.standard_normal((B, S, D)).astype(np.float32),
+        "moe/E": np.int32(E), "moe/K": np.int32(K),
+        "moe/cf_nodrop": np.float32(8.0), "moe/cf_drop": np.float32(1.0),
+    })
+    np.savez(path, **out)
+
+
+def rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+
+
+def port_checks(out, flags):
+    """{check: passed} for the results of the ``sharding`` jobs held to the
+    port on one device, with the bounds of ``test_torch_sharding.py``."""
+    c = {}
+    c["moe_ffn_sharded = dense (1e-5)"] = np.abs(
+        out["moe/nodrop/out"] - out["moe/dense/out"]).max() < 1e-5
+    c["moe_ffn_sharded drops"] = np.abs(
+        out["moe/drop/out"] - out["moe/nodrop/out"]).max() > 1e-3
+    c["moe on replicated operands (1e-6)"] = float(out["moe/replicated/err"]) < 1e-6
+    for arch in ARCHS:
+        tol = 0.05 if arch == "olmoe-1b-7b" else 2e-3
+        c[f"{arch} bf16 loss sharded = one device ({tol})"] = abs(
+            float(out[f"bf16/sharded/{arch}"]) - float(out[f"bf16/single/{arch}"])) < tol
+        one = [k for k in out if k.startswith(f"grads1/{arch}/")]
+        if one:
+            worst = max(rel_l2(out["grads" + k[len("grads1"):]], out[k]) for k in one)
+            c[f"{arch} f32 grads sharded = one device (1e-4 L2)"] = worst < 1e-4
+    c["trainer losses (1e-5)"] = len(out["trainer/sharded/losses"]) == 2 and np.abs(
+        out["trainer/sharded/losses"] - out["trainer/single/losses"]).max() < 1e-5
+    keys = [k for k in out if k.startswith("trainer/single/params/")]
+    c["trainer params (1e-5 L2)"] = bool(keys) and max(
+        rel_l2(out[k.replace("/single/", "/sharded/")], out[k]) for k in keys) < 1e-5
+    c["microbatch loss (1e-5)"] = abs(
+        float(out["mb2/sharded/loss"]) - float(out["mb2/single/loss"])) < 1e-5
+    keys = [k for k in out if k.startswith("mb2/single/params/")]
+    c["microbatch params (1e-5 L2)"] = bool(keys) and max(
+        rel_l2(out[k.replace("/single/", "/sharded/")], out[k]) for k in keys) < 1e-5
+    for f in ("restore_22_on_41_exact", "restore_1_on_22_exact", "resume_41_exact",
+              "guard_raises", "guard_passes_plain"):
+        c[f] = flags.get(f) is True
+    c["resume at step 2"] = flags.get("resume_41_step") == 2
+    for arch in SERVE_ARCHS:
+        runs = flags[f"serve/{arch}"]
+        single = runs["f32_single"]
+        c[f"{arch} server: modeled = real (log, counters, tokens)"] = (
+            runs["modeled"]["log"] == runs["real"]["log"]
+            and runs["modeled"]["counters"] == runs["real"]["counters"]
+            and runs["modeled"]["tokens"] == runs["real"]["tokens"]
+            and runs["modeled"]["counters"]["swap_ins"] >= 1)
+        c[f"{arch} server f32: tokens, log, counters = one device"] = (
+            runs["f32"]["tokens"] == single["tokens"] and len(single["tokens"]) == 12
+            and runs["f32"]["log"] == single["log"]
+            and runs["f32"]["counters"] == single["counters"])
+        c[f"{arch} server on DTensors"] = (runs["real"]["params_dtensor"] is True
+                                           and runs["real"]["dtensor_leaves"] is True)
+        t, o = out[f"serve/{arch}/f32/mesh"], out[f"serve/{arch}/f32/single"]
+        c[f"{arch} f32 prefill/decode logits = one device (1e-4)"] = _logits_close(
+            t, o, arch)
+        tol = BF16_LOGITS_TOL[arch]
+        c[f"{arch} bf16 prefill/decode logits = one device ({tol})"] = (
+            _logits_close(out[f"serve/{arch}/bf16/mesh"], out[f"serve/{arch}/bf16/single"],
+                          arch, tol)
+            and all(m < BF16_TIE for m in flags[f"serve/{arch}/bf16/flips"]))
+    c["K3 GQA heads at tp = 2"] = (float(out["gqa/gqa/err"]) < 1e-6
+                                   and float(out["gqa/gqa/naive_err"]) > 1e-2)
+    c["K3 MQA heads at tp = 2"] = float(out["gqa/mqa/err"]) < 1e-6
+    return c
+
+
+def _logits_close(t, o, arch, tol=1e-4):
+    from repro_torch.configs import get_arch
+
+    V = get_arch(arch).reduced().vocab_size
+    return all(np.abs(a - b).max() / np.abs(b).max() < tol
+               for a, b in zip(t[..., :V], o[..., :V]))
+
+
 def main(rank: int, world: int, store: str, src: str, outdir: str, jobs: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world)
     out, flags = {}, {}
+    times = {}
     if jobs == "psum":
         psum_job(world, rank, out)
+    elif jobs == "bf16_readings":
+        from repro_torch.launch.mesh import make_ctx, make_host_mesh
+
+        bf16_readings(make_ctx(make_host_mesh(world, model_axis=2)), rank, outdir)
     else:
         from repro_torch.launch.mesh import make_ctx, make_host_mesh
 
         ctx = make_ctx(make_host_mesh(world, model_axis=2))
+        work = os.path.join(outdir, "work")
+
+        def timed(name, fn, *a):
+            t0 = time.perf_counter()
+            fn(*a)
+            times[name] = time.perf_counter() - t0
+
         inputs = dict(np.load(src))
-        moe_job(ctx, inputs, out)
-        loss_jobs(ctx, inputs, out, rank)
-        trainer_and_checkpoint_jobs(ctx, world, os.path.join(outdir, "work"), rank,
-                                    out, flags)
-        microbatch_job(ctx, rank, out)
+
+        def bridged(arch, cfg):
+            from repro_torch.tree import tree_map
+
+            like = _own_params(arch, cfg)
+            return tree_map(lambda x, l: x.to(l.dtype),
+                            _fill(like, inputs, f"params/{arch}"), like)
+
+        timed("moe", moe_job, ctx, inputs, out)
+        timed("loss", loss_jobs, ctx, inputs, out, rank)
+        timed("trainer", trainer_and_checkpoint_jobs, ctx, world, work, rank, out, flags)
+        timed("microbatch", microbatch_job, ctx, rank, out)
         guard_job(ctx, flags)
         mesh_jobs(flags)
+        timed("serve", serve_jobs, ctx, rank, out, flags, bridged)
+        timed("gqa", gqa_job, ctx, rank, out, flags)
+        flags["seconds"] = times
     dist.barrier()
     if rank == 0:
         np.savez(os.path.join(outdir, "result.npz"), **out)

@@ -28,9 +28,19 @@ bridged weights:
   * checkpoints: the (2, 2) save restores bit-exact on (4, 1), on one
     device, and through the reference's ``restore_checkpoint``; a
     single-device save restores bit-exact under (2, 2); a trainer under
-    (4, 1) resumes from the (2, 2) save.
+    (4, 1) resumes from the (2, 2) save;
+  * sharded serving of reduced internlm2, olmoe, recurrentgemma and rwkv6
+    (``DiffusionServer(ctx=)``, every kernel on the local shards): the
+    assignment log and counters equal to the reference's sharded server's,
+    modeled and real payload; prefill and decode logits on f32 params
+    within 1e-4 of the reference's sharded steps, and on bf16 params
+    within per-arch bounds of the port's on one device; greedy tokens on
+    f32 params equal to one device's; K3's KV heads per rank at tp = 2;
+  * ``port_checks``, what ``chip_smoke.py``'s ``gloo4`` phase holds these
+    runs to without the reference, all passing.
 
-The launcher runs in process at world size 1 on gloo (``--mesh host``).
+The launcher runs in process at world size 1 on gloo (``--mesh host``);
+``torchrun --master-port 0`` is refused at once.
 """
 
 import json
@@ -61,7 +71,8 @@ from repro_torch.models.api import cache_init, is_encdec
 from repro_torch.optim.adamw import adamw8bit_init
 from repro_torch.tree import tree_flatten_with_paths, tree_map
 
-from _torch_sharded_jobs import run_ranks
+from _torch_sharded_jobs import (BF16_LOGITS_TOL, BF16_TIE, SERVE_ARCHS, make_inputs,
+                                 port_checks, run_ranks)
 
 TESTS = Path(__file__).resolve().parent
 SRC = TESTS.parent / "src"
@@ -240,24 +251,7 @@ def test_placements_of_specs():
 
 # ------------------------------------------------------------ multi-rank runs
 def _inputs(path):
-    rng = np.random.default_rng(0)
-    out = {"tokens": rng.integers(0, 256, (4, 64)).astype(np.int32)}
-    for arch in ARCHS:
-        params = init_params(get_arch(arch).reduced(), device="cpu", seed=0)
-        paths, leaves, _ = tree_flatten_with_paths(params)
-        for p, x in zip(paths, leaves):
-            out[f"params/{arch}/{p}"] = x.float().numpy()
-    D, F, E, K, B, S = 32, 64, 8, 2, 4, 16
-    out.update({
-        "moe/router": (rng.standard_normal((D, E)) / np.sqrt(D)).astype(np.float32),
-        "moe/w1": (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32),
-        "moe/w3": (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32),
-        "moe/w2": (rng.standard_normal((E, F, D)) / np.sqrt(F)).astype(np.float32),
-        "moe/x": rng.standard_normal((B, S, D)).astype(np.float32),
-        "moe/E": np.int32(E), "moe/K": np.int32(K),
-        "moe/cf_nodrop": np.float32(8.0), "moe/cf_drop": np.float32(1.0),
-    })
-    np.savez(path, **out)
+    make_inputs(path)
 
 
 @pytest.fixture(scope="module")
@@ -446,3 +440,135 @@ def test_launcher_mesh_host_matches_mesh_none(arch, tol, tmp_path, capsys, monke
     cfg = get_arch(arch).reduced()
     # every MoE layer, forward and its recompute in backward, each step
     assert n_sharded == (2 * 2 * cfg.num_layers if cfg.num_experts else 0)
+
+
+# ------------------------------------------------------------- sharded serving
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_server_matches_reference(runs, arch):
+    """Assignment log and counters of the port's server on the (2, 2) mesh,
+    modeled and real payload, equal the reference's sharded server's."""
+    ref = json.loads(str(runs["ref"][f"serve/{arch}/stream"]))
+    port = runs["flags"][f"serve/{arch}"]
+    assert ref["counters"]["swap_ins"] >= 1 and len(ref["log"]) == 6
+    for payload in ("modeled", "real"):
+        assert port[payload]["log"] == ref["log"], payload
+        assert port[payload]["counters"] == ref["counters"], payload
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_prefill_and_decode_logits_match_reference(runs, arch):
+    """Prefill, then four teacher-forced decode steps on the server's cache
+    capacity, under the (2, 2) mesh on f32 params: every step's logits (real
+    vocab) within 1e-4 of the reference's sharded steps, max abs error over
+    max abs.  bf16 is held to the port on one device (next test): there the
+    jitted reference is no yardstick op for op."""
+    t = runs["port"][f"serve/{arch}/f32/mesh"]
+    j = runs["ref"][f"serve/{arch}/f32/ref"]
+    V = get_arch(arch).reduced().vocab_size
+    assert t.shape == j.shape == (5, 1, get_arch(arch).reduced().padded_vocab)
+    for step, (a, b) in enumerate(zip(t[..., :V], j[..., :V])):
+        err = np.abs(a - b).max() / np.abs(b).max()
+        assert err < 1e-4, (step, err)
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_bf16_prefill_and_decode_logits_match_one_device(runs, arch):
+    """The same steps on the bf16 params and caches the server runs: every
+    step's logits within ``BF16_LOGITS_TOL`` of the port's on one device on
+    the same weights (bounds and readings at their definition).  MoE
+    routing follows one device's; every token whose own choice differed
+    is a near tie."""
+    t = runs["port"][f"serve/{arch}/bf16/mesh"]
+    o = runs["port"][f"serve/{arch}/bf16/single"]
+    V, tol = get_arch(arch).reduced().vocab_size, BF16_LOGITS_TOL[arch]
+    assert t.shape == o.shape == (5, 1, get_arch(arch).reduced().padded_vocab)
+    for step, (a, b) in enumerate(zip(t[..., :V], o[..., :V])):
+        err = np.abs(a - b).max() / np.abs(b).max()
+        assert err < tol, (step, err)
+    assert all(m < BF16_TIE for m in runs["flags"][f"serve/{arch}/bf16/flips"])
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_server_tokens_equal_one_device(runs, arch):
+    """Every decode call's greedy token of the sharded server on f32 params
+    equals the port's server on one device; in bf16, modeled and real
+    payload give the same tokens (modeled == real under the mesh)."""
+    port = runs["flags"][f"serve/{arch}"]
+    single = port["f32_single"]
+    assert len(single["tokens"]) == single["counters"]["decode_steps"] == 12
+    assert port["f32"]["tokens"] == single["tokens"]
+    assert port["f32"]["log"] == single["log"]
+    assert port["f32"]["counters"] == single["counters"]
+    assert port["real"]["tokens"] == port["modeled"]["tokens"]
+    assert len(port["real"]["tokens"]) == 12
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_real_payload_moves_local_shards(runs, arch):
+    """Under the mesh the params are DTensors, the real payload plane holds
+    each rank's shards and hands back DTensors, and it moved bytes."""
+    real = runs["flags"][f"serve/{arch}"]["real"]
+    assert real["params_dtensor"] is True
+    assert real["dtensor_leaves"] is True
+    assert real["swap_in_bytes_per_s"] > 0.0
+
+
+@pytest.mark.parametrize("heads", ["gqa", "mqa"])
+def test_flash_attention_kv_heads_per_rank_at_tp2(runs, heads):
+    """4 query heads at tp = 2: rank r's two query heads read KV head r of 2
+    (GQA), or KV head 0 (MQA).  Without the per-rank KV slice the GQA
+    result is wrong on the second model column."""
+    t = runs["port"]
+    assert float(t[f"gqa/{heads}/err"]) < 1e-6
+    if heads == "gqa":
+        assert float(t["gqa/gqa/naive_err"]) > 1e-2
+    assert runs["flags"]["gqa/kv_span"] == [0, 1]          # rank 0 of 'model'
+
+
+def test_kv_span_covers_whole_groups_or_one_head():
+    from repro_torch.models.layers import _kv_span
+
+    assert _kv_span(0, 4, 2) == (0, 2) and _kv_span(4, 4, 2) == (2, 4)
+    assert _kv_span(8, 4, 16) == (0, 1) and _kv_span(28, 7, 7) == (4, 5)
+    with pytest.raises(ValueError):
+        _kv_span(3, 3, 2)
+
+
+def test_init_process_group_refuses_master_port_zero(monkeypatch):
+    """torchrun --master-port 0 hands its workers MASTER_PORT=0; joining it
+    would wait for ever, so it is refused at once."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "0")
+    with pytest.raises(RuntimeError, match="MASTER_PORT is 0"):
+        mesh.init_process_group("cpu")
+    assert not dist.is_initialized()
+
+
+def test_torchrun_master_port_zero_fails_fast(tmp_path):
+    """The launcher under ``torchrun --master-port 0`` exits with the
+    refusal instead of hanging."""
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+         "--master-port", "0", "-m", "repro_torch.launch.train", "--arch",
+         "internlm2-1.8b", "--reduced", "--steps", "1", "--device", "cpu",
+         "--mesh", "host", "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode != 0
+    assert "MASTER_PORT is 0" in proc.stdout + proc.stderr
+    assert time.monotonic() - t0 < 110
+
+
+
+def test_port_checks_without_the_reference_pass(runs):
+    """What a machine without JAX checks of these runs (``chip_smoke.py``'s
+    ``gloo4`` phase): every result held to the port on one device."""
+    checks = port_checks(runs["port"], runs["flags"])
+    assert len(checks) >= 30
+    assert [k for k, ok in checks.items() if not ok] == []
