@@ -106,6 +106,19 @@ Phases (any failure exits non-zero before the result line):
                256: output 2e-2, every grad 3e-2 L2), timed at B = 4, then
                ``python -m repro_torch.launch.train --arch recurrentgemma-9b
                --reduced --steps 3`` on the card;
+     dryrun  - the cost model under this machine's torch: (a) started
+               beside the build, ``python -m repro_torch.launch.dryrun`` on
+               internlm2-1.8b x train_4k and olmoe-1b-7b x decode_32k, 256
+               fake ranks (16 x 16, the card hidden, nothing allocated):
+               each cell's terms, dominant term, peak GiB and collective
+               counts, ``ok`` required; (b) after phase 9, the cost model's
+               counts at world size 1 on FakeTensors of phase 9's
+               internlm2-1.8b step and of one decode step beside what the
+               card measured: matmul flops over ``_step_bound``'s
+               operations (0.8-1.5), the eager peak over the launcher's
+               ``max_memory_allocated`` (0.5-2.0), the decode step's bytes
+               over the weights it reads (0.5-2.0), the bounds beside the
+               measured step and ms/token;
  10. mesh    - (a) ``--mesh host`` at world size 1 over NCCL: olmoe-1b-7b
                at full width, 2 of 16 layers, trained 6 steps by the
                ``Trainer`` under ``make_ctx(make_host_mesh())`` on the
@@ -1785,6 +1798,7 @@ def train_phase(ops, card):
     fw = out["full_width"]
     bound = _step_bound(opt.pop("sizes"), fw["seq"] * fw["batch"], 0)
     step_bound = fw["step_bound_ms"] = bound["bound_ms"]
+    fw["step_bound_ops"] = bound["ops"]
     fw["optimizer_share"] = opt["ms"] / fw["median_step_ms_4_9"]
     say(f"train optimizer [{card}]: AdamW update {opt['ms']:.2f} ms "
         f"(runs {', '.join(f'{t:.2f}' for t in opt['ms_all'])}) over {opt['params']} "
@@ -2376,6 +2390,150 @@ def gloo4_finish(h, card):
     return row
 
 
+# ------------------------------------------------------------------ dryrun
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k"), ("olmoe-1b-7b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 600
+DECODE_CAP, DECODE_POS = 128, 16        # the serve phase's cache, a short prompt
+COST_FLOPS_BAND, COST_MEMORY_BAND = (0.8, 1.5), (0.5, 2.0)
+
+
+def dryrun_start():
+    """(a) ``repro_torch.launch.dryrun``'s ``main`` on two production cells
+    (16 x 16 fake ranks of this machine's torch, the card hidden), in one
+    process at a lower priority, started beside the build.  Returns the
+    handle ``dryrun_finish`` reads."""
+    import os
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1",
+           "CUDA_VISIBLE_DEVICES": ""}
+    code = ("import os, sys\n"
+            "os.nice(10)\n"
+            "from repro_torch.launch.dryrun import main\n"
+            f"for arch, shape in {DRYRUN_CELLS!r}:\n"
+            "    main(['--arch', arch, '--shape', shape, '--out', sys.argv[1]])\n")
+    with open(tmp / "dryrun.log", "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(tmp)], stdout=log,
+                                stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    return {"tmp": tmp, "proc": proc, "t0": time.perf_counter()}
+
+
+def _dryrun_cells(h, card):
+    import shutil
+    tmp, proc = h["tmp"], h["proc"]
+    rows = []
+    try:
+        try:
+            proc.wait(timeout=max(1.0, h["t0"] + DRYRUN_TIMEOUT_S - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        for arch, shape in DRYRUN_CELLS:
+            tag = f"{arch}_{shape}_sp".replace(".", "_")
+            path = tmp / f"{tag}.json"
+            res = json.loads(path.read_text()) if path.exists() else {"ok": False}
+            if not res.get("ok"):
+                log = (tmp / "dryrun.log").read_text()[-2500:]
+                fail(f"dryrun {arch} x {shape}: rc {proc.returncode}, "
+                     f"{res.get('error', 'no result')}\n{log}")
+            t, hlo = res["roofline_terms_s"], res["hlo_analysis"]
+            row = {"arch": arch, "shape": shape, "mesh": res["mesh"],
+                   "trace_s": res["trace_s"], "ops": res["ops"], "terms_s": t,
+                   "dominant_term": res["dominant_term"],
+                   "peak_device_gib": res["memory"]["peak_device_gib"],
+                   "collective_count": hlo["collective_count"],
+                   "collective_bytes": hlo["total_collective_bytes"],
+                   "dot_flops": hlo["dot_flops"], "bytes": hlo["bytes"],
+                   "useful_flops_ratio": res["useful_flops_ratio"]}
+            say(f"dryrun {arch} x {shape} @ {res['mesh']} (fake ranks, {card}): "
+                + json.dumps(row))
+            rows.append(row)
+        if proc.returncode != 0:
+            fail(f"dryrun: rc {proc.returncode}\n{(tmp / 'dryrun.log').read_text()[-2500:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
+def cost_model_readings(seq, batch):
+    """(b) The cost model at world size 1, no mesh, on FakeTensors: the
+    train phase's internlm2-1.8b step (``seq`` x ``batch`` tokens, one
+    microbatch, AdamW) and one decode step at batch 1 (cache of
+    ``DECODE_CAP``).  Counts, not times; no card needed."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import roofline_terms
+    from repro_torch.launch.op_analysis import trace_step
+    from repro_torch.models import (cache_init, init_opt_state, make_decode_step,
+                                    make_train_step, param_specs)
+    from repro_torch.tree import tree_map
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeConfig("train", "train", seq, batch)
+    with FakeTensorMode():
+        params = tree_map(lambda sp: torch.empty(sp.shape, dtype=sp.dtype),
+                          param_specs(cfg))
+        opt = init_opt_state(params, cfg)
+        tokens = torch.empty((batch, seq), dtype=torch.int32)
+        caches = cache_init(cfg, 1, DECODE_CAP, device="cpu")
+        token = torch.empty((1,), dtype=torch.int32)
+    train = trace_step(make_train_step(cfg, shape, microbatches=1), params, opt,
+                       {"tokens": tokens}, donate=(0, 1))
+    decode = trace_step(make_decode_step(cfg), params,
+                        {"token": token, "pos": DECODE_POS, "caches": caches},
+                        donate=(1,))
+    out = {}
+    for name, tr in (("train", train), ("decode", decode)):
+        terms = roofline_terms(tr.total, None)
+        out[name] = {"dot_flops": tr.total.dot_flops, "bytes": tr.total.bytes,
+                     "ops": tr.ops, "trace_s": tr.seconds, "terms_s": terms,
+                     "step_time_bound_s": max(terms.values()), "memory": tr.memory}
+    out["decode"]["weight_bytes"] = _decode_weight_bytes(params, cfg, 1)
+    return out
+
+
+def dryrun_finish(h, card, train, served):
+    """(a) read the two production cells; (b) the cost model's readings
+    beside what the card measured in the train and serve phases: matmul
+    flops over ``_step_bound``'s operations, the predicted peak over the
+    launcher's ``max_memory_allocated``, the bound beside the median step;
+    the decode step's bytes over the weights it reads."""
+    import torch
+    row = {"torch": torch.__version__, "cells": _dryrun_cells(h, card)}
+    fw = train["full_width"]
+    cm = cost_model_readings(fw["seq"], fw["batch"])
+    tr, dec = cm["train"], cm["decode"]
+    ratios = {
+        "train_dot_flops_over_step_bound_ops": tr["dot_flops"] / fw["step_bound_ops"],
+        "train_eager_peak_over_max_memory_allocated":
+            tr["memory"]["eager_peak_bytes"] / fw["max_memory_allocated"],
+        "train_peak_device_over_max_memory_allocated":
+            tr["memory"]["peak_device_bytes"] / fw["max_memory_allocated"],
+        "train_bound_ms": 1e3 * tr["step_time_bound_s"],
+        "train_median_step_ms": fw["median_step_ms"],
+        "decode_bytes_over_weight_bytes": dec["bytes"] / dec["weight_bytes"],
+        "decode_bound_ms": 1e3 * dec["step_time_bound_s"],
+        "decode_weight_floor_ms": 1e3 * dec["weight_bytes"] / HBM_BYTES_PER_S,
+        "decode_ms_per_token": served[TRAIN_ARCH][2]["decode_ms_per_token"],
+    }
+    row.update(cost_model=cm, ratios=ratios)
+    say(f"dryrun cost model vs card [{card}]: " + json.dumps(ratios))
+    say("dryrun cost model readings: " + json.dumps(
+        {k: {kk: v[kk] for kk in ("dot_flops", "bytes", "ops", "trace_s", "terms_s")}
+         for k, v in cm.items()}))
+    checks = (("train flops", ratios["train_dot_flops_over_step_bound_ops"], COST_FLOPS_BAND),
+              ("train memory", ratios["train_eager_peak_over_max_memory_allocated"],
+               COST_MEMORY_BAND),
+              ("decode memory", ratios["decode_bytes_over_weight_bytes"], COST_MEMORY_BAND))
+    bad = [(n, v, b) for n, v, b in checks if not b[0] <= v <= b[1]]
+    if bad:
+        fail(f"dryrun cost model outside its bands: {bad}")
+    return row
+
+
 # -------------------------------------------------------------- mesh_serve
 def empty_batch_check(ops):
     """Each kernel entry point given an empty batch on the card (a rank's
@@ -2564,8 +2722,10 @@ def main() -> None:
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "n/a"
     say(f"device: {name} count={torch.cuda.device_count()} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
-    # the CPU ranks run beside the build, the parity and the model phases
+    # the CPU ranks and the dry run's fake ranks run beside the build, the
+    # parity and the model phases
     gloo = gloo4_start()
+    dry = dryrun_start()
 
     # 2. build
     from repro_torch.kernels import _build
@@ -2766,6 +2926,13 @@ def main() -> None:
     train["seconds"] = time.perf_counter() - t0
     say(f"train: ok in {train['seconds']:.1f}s")
 
+    # the cost model: two production cells on fake ranks, and its counts of
+    # the train and decode steps beside what the card measured
+    t0 = time.perf_counter()
+    dryrun = dryrun_finish(dry, smi_line, train, served)
+    dryrun["seconds"] = time.perf_counter() - t0
+    say(f"dryrun: ok in {dryrun['seconds']:.1f}s")
+
     # 10. the same MoE training under --mesh host, compression, elastic restore
     t0 = time.perf_counter()
     none_row = next(r for r in train["families"] if r["arch"] == MESH_ARCH)
@@ -2871,7 +3038,7 @@ def main() -> None:
          "serve": {a: v[2] for a, v in served.items()}, "launches": launches,
          "shapes": shapes, "payload": payload, "checkpoint": ckpt, "ci": ci,
          "train": train, "mesh": mesh, "encdec": encdec, "vision": vision,
-         "gloo4": gloo4, "mesh_serve": mesh_serve, "archs": archs},
+         "gloo4": gloo4, "mesh_serve": mesh_serve, "archs": archs, "dryrun": dryrun},
         indent=1))
     say(f"nvidia-smi: {smi_line}")
     say(json.dumps({"kernels": kernels}))

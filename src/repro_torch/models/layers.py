@@ -18,6 +18,9 @@ Under a mesh the kernel runs on each rank's local shards
 (``ShardCtx.local_call``): the batch and, when they divide over 'tp', the
 query heads stay sharded, and each rank takes the KV heads its own query
 heads read (``_kv_span``).
+The scores, mask and softmax, and the kernel's call, run in the
+``record_function`` region "attn_scores", the reference's named scope,
+which the cost model reads (``launch/op_analysis.py``).
 The loss functions (``softmax_xent``, ``chunked_lm_loss``) close the file.
 """
 
@@ -28,10 +31,11 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import flash_attention
-from .sharding import ShardCtx, gather_inner, mm, reshape, unshard_dim
+from .sharding import ShardCtx, gather_inner, gather_last, mm, reshape, unshard_dim
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -129,12 +133,13 @@ def _attention(q, k, v, qpos, kpos, causal: bool, window: int, chunk: int):
     scale = Dh ** -0.5
 
     if Sq == 1 or Skv <= chunk:
-        kk, vv = _repeat_kv(k, rep), _repeat_kv(v, rep)
-        s = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), kk.to(F32)) * scale
-        s = s + _mask_bias(qpos, kpos, causal, window)[None, None]
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).to(F32), vv.to(F32))
-        return o.to(q.dtype)
+        with record_function("attn_scores"):     # region of the cost model
+            kk, vv = _repeat_kv(k, rep), _repeat_kv(v, rep)
+            s = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), kk.to(F32)) * scale
+            s = s + _mask_bias(qpos, kpos, causal, window)[None, None]
+            p = torch.softmax(s, dim=-1)
+            o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).to(F32), vv.to(F32))
+            return o.to(q.dtype)
 
     assert Skv % chunk == 0, (Skv, chunk)
     o = torch.zeros((B, H, Sq, Dh), dtype=F32, device=q.device)
@@ -143,16 +148,17 @@ def _attention(q, k, v, qpos, kpos, causal: bool, window: int, chunk: int):
     qf = q.to(F32)
 
     def body(o, m, l, kc, vc, kp):
-        kc, vc = _repeat_kv(kc, rep), _repeat_kv(vc, rep)
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc.to(F32)) * scale
-        s = s + _mask_bias(qpos, kp, causal, window)[None, None]
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(dim=-1)
-        o = o * alpha[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p.to(vc.dtype).to(F32), vc.to(F32))
-        return o, m_new, l
+        with record_function("attn_scores"):     # so is its recompute
+            kc, vc = _repeat_kv(kc, rep), _repeat_kv(vc, rep)
+            s = torch.einsum("bqhd,bkhd->bhqk", qf, kc.to(F32)) * scale
+            s = s + _mask_bias(qpos, kp, causal, window)[None, None]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vc.dtype).to(F32), vc.to(F32))
+            return o, m_new, l
 
     for start in range(0, Skv, chunk):
         args = (o, m, l, k[:, start:start + chunk], v[:, start:start + chunk],
@@ -205,10 +211,12 @@ def _on_rank_heads(fn, q, k, v, ctx: ShardCtx):
 
 def _flash(q, k, v, *, causal: bool, window: int, ctx: ShardCtx):
     """The flash-attention kernel, on each rank's heads under a mesh."""
-    return _on_rank_heads(
-        lambda q, k, v: flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                        causal=causal, window=window),
-        q, k, v, ctx)
+    def kernel(q, k, v):
+        with record_function("attn_scores"):
+            return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal, window=window)
+
+    return _on_rank_heads(kernel, q, k, v, ctx)
 
 
 def attention_block(p, x, *, cfg, positions, causal=True, window=0,
@@ -223,8 +231,9 @@ def attention_block(p, x, *, cfg, positions, causal=True, window=0,
     (``full_kv``: the caller's word, so the key positions are never read
     back from the device) with no causal or window mask, which is
     cross-attention over a whole encoder output.  Everything else, and
-    everything when training passes ``use_kernel=False``, runs the direct
-    or chunked ``attention_core``.
+    everything when training passes ``use_kernel=False`` or the context
+    turns the kernel off (``ctx.flash``: the dry run), runs the direct or
+    chunked ``attention_core``.
     """
     B, S, D = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -244,13 +253,18 @@ def attention_block(p, x, *, cfg, positions, causal=True, window=0,
     else:
         k, v, kpos = kv_override
     unmasked_full = kv_override is not None and full_kv and not causal and not window
-    if use_kernel and S > 1 and (kv_override is None or unmasked_full):
+    if use_kernel and ctx.flash and S > 1 and (kv_override is None or unmasked_full):
         o = _flash(q, k, v, causal=causal, window=window, ctx=ctx)
     else:
         o = attention_core(q, k, v, positions, kpos, causal=causal,
                            window=window, chunk=chunk, ctx=ctx)
-    out = mm(reshape(o, B, S, H * Dh), p["wo"])
-    return out, (k, v)
+    o = reshape(o, B, S, H * Dh)
+    if H % max(1, ctx.tp):
+        # heads that do not divide over 'tp': the cotangent from the
+        # row-parallel wo, split on H * Dh, is gathered before it is viewed
+        # back as [B, S, H, Dh]
+        o = ctx.cstr(o, "dp", None, None)
+    return mm(o, p["wo"]), (k, v)
 
 
 # ------------------------------------------------------------------- MLP
@@ -304,11 +318,10 @@ def softmax_xent(logits, labels, vocab_size: int):
 
 
 def _xent_sum(lm_head, h, labels, vocab_size: int):
-    # the gather below reads each label's logit: it needs the vocab dim whole
+    # the pick below reads each label's logit: it needs the vocab dim whole
     logits = unshard_dim(logits_head({"lm_head": lm_head}, h, vocab_size), -1)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.sum(logz - gold)
+    return torch.sum(logz - gather_last(logits, labels))
 
 
 def chunked_lm_loss(params, h, labels, vocab_size: int, *, chunk: int = 256,

@@ -19,13 +19,16 @@ reference's train path: the sigmoids as separate fp32 ops, then
 ``rglru_scan``, the reference's ``lax.scan`` become a Python loop over
 time that autograd differentiates on the CPU and on the card alike.  The
 GeLU is the tanh approximation, which is what ``jax.nn.gelu`` computes by
-default.
+default.  The recurrence step (the loop, or the kernel's call) runs in the
+``record_function`` region "rglru_rec", the reference's named scope, which
+the cost model reads.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..kernels.rglru_scan.ops import rglru_gated_scan
 from .layers import BF16, F32, dense_init
@@ -69,10 +72,16 @@ def rglru_scan(xi, r, i_gate, lam, h0):
     gated = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (
         i_gate.to(F32) * xi.to(F32))
     h, ys = h0.to(F32), []
-    for a_t, g_t in zip(a.unbind(1), gated.unbind(1)):
-        h = a_t * h + g_t
-        ys.append(h)
+    with record_function("rglru_rec"):          # region of the cost model
+        for a_t, g_t in zip(a.unbind(1), gated.unbind(1)):
+            h = a_t * h + g_t
+            ys.append(h)
     return torch.stack(ys, 1), h
+
+
+def _gated_kernel(*operands):
+    with record_function("rglru_rec"):
+        return rglru_gated_scan(*operands)
 
 
 def rglru_block_apply(p, x, state, train=False, ctx: ShardCtx = ShardCtx()):
@@ -83,14 +92,16 @@ def rglru_block_apply(p, x, state, train=False, ctx: ShardCtx = ShardCtx()):
     xi = ctx.cstr(mm(x, p["w_in"]), "dp", None, "tp")
     xi, conv_state = causal_conv1d(xi, p["conv"], state["conv"])
     if train:
-        r = torch.sigmoid(mm(xi, p["w_a"]).to(F32))
-        i_gate = torch.sigmoid(mm(xi, p["w_x"]).to(F32))
+        # gates laid out as xi (a matmul may split the sequence over 'tp',
+        # and the scan's unbind cannot take a sharded time dim)
+        r = torch.sigmoid(ctx.cstr(mm(xi, p["w_a"]), "dp", None, "tp").to(F32))
+        i_gate = torch.sigmoid(ctx.cstr(mm(xi, p["w_x"]), "dp", None, "tp").to(F32))
         y, hT = rglru_scan(xi, r, i_gate, p["lam"], state["h"])
     else:
         B, T, W = xi.shape
         btw, bw = ("dp", None, "tp"), ("dp", "tp")
         y, hT = ctx.local_call(
-            rglru_gated_scan, (xi, mm(xi, p["w_a"]), mm(xi, p["w_x"]), p["lam"], state["h"]),
+            _gated_kernel, (xi, mm(xi, p["w_a"]), mm(xi, p["w_x"]), p["lam"], state["h"]),
             (btw, btw, btw, ("tp",), bw), [(btw, (B, T, W)), (bw, (B, W))])
     gate = F.gelu(mm(x, p["w_gate_branch"]).to(F32), approximate="tanh")
     out = mm((y * gate).to(x.dtype), p["out_proj"])

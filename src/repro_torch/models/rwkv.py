@@ -15,14 +15,18 @@ for T > 1 (each chunk recomputed in backward, as the reference's
 ``jax.checkpoint`` of its chunk body does) and ``wkv_scan`` for T = 1,
 Python loops over time that autograd differentiates on the CPU and on the
 card alike.  Under a mesh the kernel runs on each rank's local batch
-shard, the layout the reference gives r, k, v and w.  Dtypes follow the reference: ``mu``, ``mix_b`` and ``wo``
-bf16; ``w0``, ``decay_b`` and ``u`` fp32.
+shard, the layout the reference gives r, k, v and w.  The recurrence, the
+loop's steps or the kernel's call, runs in the ``record_function`` region
+"wkv_scan" (the reference's named scope; the cost model reads it).  Dtypes
+follow the reference: ``mu``, ``mix_b`` and ``wo`` bf16; ``w0``,
+``decay_b`` and ``u`` fp32.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.rwkv6_scan.ops import wkv6
@@ -81,13 +85,14 @@ def wkv_scan(r, k, v, w, u, s0):
     S = s0.to(F32)
     u4 = u[None, :, :, None]
     outs = []
-    # one unbind a tensor: in backward its step grads are stacked once
-    # (indexing step by step would add T full-size grads)
-    for r_t, k_t, v_t, w_t in zip(*(a.to(F32).unbind(1) for a in (r, k, v, w))):
-        kv = k_t[..., :, None] * v_t[..., None, :]                  # [B, H, N, N]
-        outs.append(einsum("bhi,bhij->bhj", r_t, S + u4 * kv))
-        S = w_t[..., :, None] * S + kv
-    return torch.stack(outs, 1), S
+    with record_function("wkv_scan"):           # region of the cost model
+        # one unbind a tensor: in backward its step grads are stacked once
+        # (indexing step by step would add T full-size grads)
+        for r_t, k_t, v_t, w_t in zip(*(a.to(F32).unbind(1) for a in (r, k, v, w))):
+            kv = k_t[..., :, None] * v_t[..., None, :]              # [B, H, N, N]
+            outs.append(einsum("bhi,bhij->bhj", r_t, S + u4 * kv))
+            S = w_t[..., :, None] * S + kv
+        return torch.stack(outs, 1), S
 
 
 def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128, ctx: ShardCtx = ShardCtx()):
@@ -111,6 +116,11 @@ def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128, ctx: ShardCtx = ShardCtx())
         S = ctx.cstr(S, "dp", None, None, None)
         outs.append(out)
     return torch.cat(outs, 1), S
+
+
+def _wkv6_kernel(*operands):
+    with record_function("wkv_scan"):
+        return wkv6(*operands)
 
 
 def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False,
@@ -137,13 +147,18 @@ def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False,
     if not train:
         bthn = ("dp", None, None, None)
         out, sT = ctx.local_call(
-            wkv6, (r, k, v, w, u, s0), (bthn,) * 4 + ((None, None), bthn),
+            _wkv6_kernel, (r, k, v, w, u, s0), (bthn,) * 4 + ((None, None), bthn),
             [(bthn, (B, T, H, head_dim)), (bthn, (B, H, head_dim, head_dim))])
     elif T > 1:
         out, sT = wkv_chunked(r, k, v, w, u, s0, ctx=ctx)
     else:
         out, sT = wkv_scan(r, k, v, w, u, s0)
-    out = rmsnorm(p["ln_out"], reshape(out, B, T, D))
+    out = reshape(out, B, T, D)
+    if H % max(1, ctx.tp):
+        # heads that do not divide over 'tp': the cotangent, split on D, is
+        # gathered before it is viewed back as [B, T, H, N]
+        out = ctx.cstr(out, "dp", None, None)
+    out = rmsnorm(p["ln_out"], out)
     out = mm((out.to(F32) * g).to(x.dtype), p["wo"])
     return out, x[:, -1, :], sT
 

@@ -57,6 +57,12 @@ class ShardCtx:
     mesh: Optional[Any] = None
     dp_axes: Tuple[str, ...] = ("data",)     # ('pod','data') on multi-pod
     tp_axis: str = "model"
+    # False: prefill and cross-attention run the chunked ``attention_core``
+    # instead of the flash kernel, the route the reference's dry run lowers.
+    # The port's dry run traces FakeTensors, where the kernel's plain
+    # version would stand in, and it holds every [Sq, Skv] score (32 GiB a
+    # layer and rank at 32k positions), which the kernel never does.
+    flash: bool = True
 
     def axis_size(self, axes) -> int:
         if self.mesh is None:
@@ -331,6 +337,26 @@ class _InnerWholeGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return gather_inner(g, ctx.last), None
+
+
+def gather_last(x, index):
+    """``torch.gather(x, -1, index[..., None])[..., 0]``: for each position
+    the entry of ``x``'s last dim that ``index`` names.  A DTensor ``x``
+    whole along its last dim picks on each rank's own rows (``index`` laid
+    out as ``x``'s leading dims), so that its grad is local too: DTensor's
+    own gather backward builds a zero buffer of the global shape of ``x``
+    on every rank (a [B, chunk, vocab] f32 of the loss a chunk)."""
+    placements = getattr(x, "placements", ())
+    if not is_dtensor(x) or any(p.is_partial() or (p.is_shard() and p.dim >= x.ndim - 1)
+                                for p in placements):
+        return torch.gather(x, -1, index[..., None].long())[..., 0]
+    from torch.distributed.tensor import DTensor
+
+    picked = torch.gather(x.to_local(), -1, _as_layout(
+        index, x.device_mesh, list(placements)).to_local()[..., None].long())[..., 0]
+    return DTensor.from_local(picked, x.device_mesh, placements, run_check=False,
+                              shape=index.shape, stride=torch.empty(
+                                  tuple(index.shape), device="meta").stride())
 
 
 def laid_like(x, ref):

@@ -1,0 +1,92 @@
+"""The reference's side of ``test_torch_cost.py``, in a process of its own:
+importing ``repro.launch.dryrun`` or ``perf`` sets ``XLA_FLAGS`` to 512
+host devices, which must not reach the test process.
+
+    python tests/_cost_reference.py <out.json>
+
+Writes ``model_flops`` and the three kernel models of ``repro.launch.perf``
+for every (arch x shape) cell on both production meshes, and the
+per-device ``dot_flops`` of ``analyze_hlo_text`` for the reduced cells of
+``HLO_CELLS`` on a (2, 2) mesh of 4 forced host devices (``Auto`` axes,
+as ``tests/_sharded_reference.py`` builds it), each built as the
+reference's ``build_cell`` builds a cell.
+"""
+
+import os
+
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+
+import json  # noqa: E402
+import sys  # noqa: E402
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+HLO_CELLS = (("internlm2-1.8b", "prefill_32k"), ("internlm2-1.8b", "decode_32k"),
+             ("olmoe-1b-7b", "prefill_32k"), ("recurrentgemma-9b", "prefill_32k"),
+             ("internlm2-1.8b", "train_4k"), ("olmoe-1b-7b", "train_4k"),
+             ("whisper-medium", "train_4k"), ("rwkv6-3b", "train_4k"))
+
+
+def hlo_dot_flops(arch, shape_name, mesh):
+    from repro.configs import SHAPES, get_arch
+    from repro.launch.hlo_analysis import analyze_hlo_text
+    from repro.launch.mesh import make_ctx
+    from repro.launch.shardings import (
+        batch_specs,
+        opt_state_specs,
+        step_out_shardings,
+        with_shardings,
+    )
+    from repro.models import init_opt_state, input_specs, make_step, param_specs
+    from repro.models.sharding import tree_param_specs
+
+    cfg, shape = get_arch(arch).reduced(), SHAPES[shape_name].reduced()
+    ctx = make_ctx(mesh)
+    pspecs = param_specs(cfg)
+    params_in = with_shardings(ctx, pspecs, tree_param_specs(ctx, pspecs))
+    bspecs = input_specs(cfg, shape)
+    batch_in = with_shardings(ctx, bspecs, batch_specs(ctx, cfg, shape, bspecs))
+    step = make_step(cfg, shape, ctx)
+    if shape.kind == "train":
+        ospecs = jax.eval_shape(lambda p: init_opt_state(p, cfg), pspecs)
+        opt_in = with_shardings(ctx, ospecs, opt_state_specs(ctx, pspecs, ospecs))
+        args = (params_in, opt_in, batch_in)
+    else:
+        args = (params_in, batch_in)
+    out_sh = step_out_shardings(ctx, shape.kind, jax.eval_shape(step, *args))
+    donate = (0, 1) if shape.kind == "train" else ((1,) if shape.kind == "decode" else ())
+    fn = jax.jit(step, donate_argnums=donate, out_shardings=out_sh)
+    with mesh:
+        text = fn.lower(*args).compile().as_text()
+    return analyze_hlo_text(text).dot_flops
+
+
+def main():
+    jax.devices()                   # 4 host devices, before perf's import
+    from repro.configs import SHAPES, all_archs, cells
+    from repro.launch.perf import (
+        flash_kernel_model,
+        model_flops,
+        rglru_kernel_model,
+        wkv_kernel_model,
+    )
+
+    models = {}
+    for name, cfg in all_archs().items():
+        for s in cells(cfg):
+            shape = SHAPES[s.name]
+            for n_dev, mesh_shape in ((256, (16, 16)), (512, (2, 16, 16))):
+                models[f"{name}|{s.name}|{n_dev}"] = {
+                    "model_flops": model_flops(cfg, shape),
+                    "flash": flash_kernel_model(cfg, shape, n_dev, mesh_shape),
+                    "wkv": wkv_kernel_model(cfg, shape, n_dev),
+                    "rglru": rglru_kernel_model(cfg, shape, n_dev)}
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    hlo = {f"{a}|{s}": hlo_dot_flops(a, s, mesh) for a, s in HLO_CELLS}
+    with open(sys.argv[1], "w") as f:
+        json.dump({"models": models, "hlo_dot_flops": hlo}, f)
+
+
+if __name__ == "__main__":
+    main()

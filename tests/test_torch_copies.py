@@ -61,7 +61,8 @@ def test_port_files_cover_training_and_the_examples():
     for rel in ("optim/adamw.py", "runtime/train_loop.py", "launch/train.py",
                 "examples/__init__.py", "examples/train_100m.py",
                 "models/sharding.py", "launch/mesh.py", "launch/shardings.py",
-                "runtime/compression.py"):
+                "runtime/compression.py", "launch/dryrun.py", "launch/op_analysis.py",
+                "launch/perf.py"):
         assert rel in PORT_FILES, rel
 
 
