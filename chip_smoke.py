@@ -108,17 +108,34 @@ Phases (any failure exits non-zero before the result line):
                --reduced --steps 3`` on the card;
      dryrun  - the cost model under this machine's torch: (a) started
                beside the build, ``python -m repro_torch.launch.dryrun`` on
-               internlm2-1.8b x train_4k and olmoe-1b-7b x decode_32k, 256
-               fake ranks (16 x 16, the card hidden, nothing allocated):
-               each cell's terms, dominant term, peak GiB and collective
-               counts, ``ok`` required; (b) after phase 9, the cost model's
-               counts at world size 1 on FakeTensors of phase 9's
-               internlm2-1.8b step and of one decode step beside what the
-               card measured: matmul flops over ``_step_bound``'s
+               internlm2-1.8b x train_4k, olmoe-1b-7b x decode_32k and
+               rwkv6-3b x train_4k (its loops over time counted by their
+               trip counts), 256 fake ranks (16 x 16, the card hidden,
+               nothing allocated): each cell's terms, dominant term, peak
+               GiB and collective counts, ``ok`` required; (b) after phase
+               9, the cost model's counts at world size 1 on FakeTensors of
+               phase 9's internlm2-1.8b step and of one decode step beside
+               what the card measured: matmul flops over ``_step_bound``'s
                operations (0.8-1.5), the eager peak over the launcher's
                ``max_memory_allocated`` (0.5-2.0), the decode step's bytes
                over the weights it reads (0.5-2.0), the bounds beside the
-               measured step and ms/token;
+               measured step and ms/token; then phase 9's rwkv6-3b step (4
+               of 32 layers, 8 x 256 tokens; traced in (a)'s process after
+               the cells) with trip counts against the same step with
+               every step run (matmul flops
+               equal, flops, transcendentals and bytes within 1%, the peak
+               within 5%), its matmul flops over ``_step_bound``'s
+               operations (0.8-1.5) and its eager peak over the card's
+               ``max_memory_allocated`` (0.5-2.0);
+     examples - ``python -m repro_torch.examples.serve_diffusion`` (reduced
+               internlm2 under ``DiffusionServer``, three policies) and
+               ``elastic_failover`` (reduced gemma3-1b through the
+               ``Trainer``, a scale-up, a worker loss and recovery, a
+               scale-down) run in this process on the card and on the CPU:
+               equal serving counters, flash-attention launches on the card;
+               equal events and recovery actions, the first loss within
+               2e-2 (both runs' weights drawn on the CPU), a finite final
+               loss;
  10. mesh    - (a) ``--mesh host`` at world size 1 over NCCL: olmoe-1b-7b
                at full width, 2 of 16 layers, trained 6 steps by the
                ``Trainer`` under ``make_ctx(make_host_mesh())`` on the
@@ -1217,6 +1234,7 @@ FAMILY_ARCHS = ("olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-3b")
 # depths cut (olmoe from 4, rwkv6 from 16 layers) to keep the script's time
 FAMILY_FULL_WIDTH = (("olmoe-1b-7b", 2), ("rwkv6-3b", 4))
 FAMILY_TRAIN_STEPS = 6
+FAMILY_SEQ, FAMILY_BATCH = 256, 8
 RG_TRAIN_ARGS = ("--arch", "recurrentgemma-9b", "--reduced", "--steps", "3")
 GUARDED = ("flash_attention", "moe_gmm", "rglru_scan", "rglru_gated_scan", "wkv6",
            "dispatch_scores", "dispatch_score_update")
@@ -1616,7 +1634,7 @@ def train_family_full_width(arch, layers, card, ops, steps=FAMILY_TRAIN_STEPS,
     from repro_torch.runtime import TrainConfig, Trainer
     from repro_torch.tree import tree_flatten_with_paths
     cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
-    seq, batch = 256, 8
+    seq, batch = FAMILY_SEQ, FAMILY_BATCH
     d = tempfile.mkdtemp(prefix="chip_smoke_family_")
     leaves = {}
     try:
@@ -2391,27 +2409,37 @@ def gloo4_finish(h, card):
 
 
 # ------------------------------------------------------------------ dryrun
-DRYRUN_CELLS = (("internlm2-1.8b", "train_4k"), ("olmoe-1b-7b", "decode_32k"))
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
+                ("rwkv6-3b", "train_4k"))
 DRYRUN_TIMEOUT_S = 600
 DECODE_CAP, DECODE_POS = 128, 16        # the serve phase's cache, a short prompt
 COST_FLOPS_BAND, COST_MEMORY_BAND = (0.8, 1.5), (0.5, 2.0)
+# the trip-counted trace of the train phase's rwkv6-3b step against the same
+# step with every step of its loops over time run: matmul flops equal, the
+# other counts within TRIP_TOL, the peak within TRIP_PEAK_TOL
+TRIP_ARCH, TRIP_TOL, TRIP_PEAK_TOL = "rwkv6-3b", 0.01, 0.05
 
 
 def dryrun_start():
-    """(a) ``repro_torch.launch.dryrun``'s ``main`` on two production cells
-    (16 x 16 fake ranks of this machine's torch, the card hidden), in one
-    process at a lower priority, started beside the build.  Returns the
-    handle ``dryrun_finish`` reads."""
+    """(a) ``repro_torch.launch.dryrun``'s ``main`` on the production cells
+    (16 x 16 fake ranks of this machine's torch, the card hidden), then (b)'s
+    ``trip_count_readings`` (no card either), in one process at a lower
+    priority, started beside the build.  Returns the handle
+    ``dryrun_finish`` reads."""
     import os
     import tempfile
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1",
            "CUDA_VISIBLE_DEVICES": ""}
-    code = ("import os, sys\n"
+    layers = dict(FAMILY_FULL_WIDTH)[TRIP_ARCH]
+    code = ("import json, os, sys\n"
             "os.nice(10)\n"
             "from repro_torch.launch.dryrun import main\n"
             f"for arch, shape in {DRYRUN_CELLS!r}:\n"
-            "    main(['--arch', arch, '--shape', shape, '--out', sys.argv[1]])\n")
+            "    main(['--arch', arch, '--shape', shape, '--out', sys.argv[1]])\n"
+            "import chip_smoke\n"
+            f"trip = chip_smoke.trip_count_readings({layers}, {FAMILY_SEQ}, {FAMILY_BATCH})\n"
+            "open(os.path.join(sys.argv[1], 'trips.json'), 'w').write(json.dumps(trip))\n")
     with open(tmp / "dryrun.log", "w") as log:
         proc = subprocess.Popen([sys.executable, "-c", code, str(tmp)], stdout=log,
                                 stderr=subprocess.STDOUT, env=env, cwd=ROOT)
@@ -2419,6 +2447,7 @@ def dryrun_start():
 
 
 def _dryrun_cells(h, card):
+    """(the production cells' rows, the trip-count readings)."""
     import shutil
     tmp, proc = h["tmp"], h["proc"]
     rows = []
@@ -2448,13 +2477,14 @@ def _dryrun_cells(h, card):
             say(f"dryrun {arch} x {shape} @ {res['mesh']} (fake ranks, {card}): "
                 + json.dumps(row))
             rows.append(row)
-        if proc.returncode != 0:
+        if proc.returncode != 0 or not (tmp / "trips.json").exists():
             fail(f"dryrun: rc {proc.returncode}\n{(tmp / 'dryrun.log').read_text()[-2500:]}")
+        trip = json.loads((tmp / "trips.json").read_text())
     finally:
         if proc.poll() is None:
             proc.kill()
         shutil.rmtree(tmp, ignore_errors=True)
-    return rows
+    return rows, trip
 
 
 def cost_model_readings(seq, batch):
@@ -2495,14 +2525,53 @@ def cost_model_readings(seq, batch):
     return out
 
 
+def trip_count_readings(layers, seq, batch):
+    """(b) The train phase's rwkv6-3b step (``layers`` of its depth, ``seq``
+    x ``batch`` tokens, the ``Trainer``'s AdamW and one microbatch) on
+    FakeTensors at world size 1, traced with its loops over time counted by
+    their trip counts and again with every step run."""
+    import dataclasses
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.op_analysis import trace_step
+    from repro_torch.models import init_opt_state, make_train_step, param_specs
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_arch(TRIP_ARCH), num_layers=layers)
+    shape = ShapeConfig("train", "train", seq, batch)
+    with FakeTensorMode():
+        params = tree_map(lambda sp: torch.empty(sp.shape, dtype=sp.dtype),
+                          param_specs(cfg))
+        opt = init_opt_state(params, cfg)
+        tokens = torch.empty((batch, seq), dtype=torch.long)
+    step = make_train_step(cfg, shape, AdamWConfig(lr=1e-3), FAMILY_TRAIN_STEPS,
+                           microbatches=1)
+    out = {"layers": layers, "seq": seq, "batch": batch}
+    for label, counted in (("trips", True), ("every_step", False)):
+        tr = trace_step(step, params, opt, {"tokens": tokens}, donate=(0, 1),
+                        regions=["wkv_scan"], trip_counts=counted)
+        out[label] = {k: getattr(tr.total, k) for k in
+                      ("dot_flops", "flops", "transcendentals", "bytes")}
+        out[label].update(ops=tr.ops, trace_s=tr.seconds,
+                          wkv_scan_flops=tr.regions["wkv_scan"].flops,
+                          peak_device_bytes=tr.memory["peak_device_bytes"],
+                          eager_peak_bytes=tr.memory["eager_peak_bytes"])
+    return out
+
+
 def dryrun_finish(h, card, train, served):
-    """(a) read the two production cells; (b) the cost model's readings
+    """(a) read the three production cells; (b) the cost model's readings
     beside what the card measured in the train and serve phases: matmul
     flops over ``_step_bound``'s operations, the predicted peak over the
     launcher's ``max_memory_allocated``, the bound beside the median step;
-    the decode step's bytes over the weights it reads."""
+    the decode step's bytes over the weights it reads; the rwkv6-3b step
+    counted by trip counts against every step run, and against its
+    ``_step_bound`` and ``max_memory_allocated``."""
     import torch
-    row = {"torch": torch.__version__, "cells": _dryrun_cells(h, card)}
+    cells, trip = _dryrun_cells(h, card)
+    row = {"torch": torch.__version__, "cells": cells}
     fw = train["full_width"]
     cm = cost_model_readings(fw["seq"], fw["batch"])
     tr, dec = cm["train"], cm["decode"]
@@ -2528,10 +2597,124 @@ def dryrun_finish(h, card, train, served):
               ("train memory", ratios["train_eager_peak_over_max_memory_allocated"],
                COST_MEMORY_BAND),
               ("decode memory", ratios["decode_bytes_over_weight_bytes"], COST_MEMORY_BAND))
+    fam = next(r for r in train["families"] if r["arch"] == TRIP_ARCH)
+    if (trip["layers"], trip["seq"], trip["batch"]) != (fam["layers"], fam["seq"],
+                                                        fam["batch"]):
+        fail(f"dryrun: the traced rwkv6 step {trip} is not the trained one {fam}")
+    tc, full = trip["trips"], trip["every_step"]
+    trip_ratios = {
+        "dot_flops_trips_over_every_step": tc["dot_flops"] / full["dot_flops"],
+        **{f"{k}_trips_over_every_step": tc[k] / full[k]
+           for k in ("flops", "transcendentals", "bytes")},
+        "peak_trips_over_every_step": tc["peak_device_bytes"] / full["peak_device_bytes"],
+        "dot_flops_over_step_bound_ops": tc["dot_flops"] / fam["bound"]["ops"],
+        "eager_peak_over_max_memory_allocated":
+            tc["eager_peak_bytes"] / fam["max_memory_allocated"],
+        "ops_run": [tc["ops"], full["ops"]], "trace_s": [tc["trace_s"], full["trace_s"]]}
+    row.update(trip_counts=trip, trip_ratios=trip_ratios)
+    say(f"dryrun {TRIP_ARCH} step, {fam['layers']} of {fam['of_layers']} layers, "
+        f"trip counts vs every step and vs card [{card}]: " + json.dumps(trip_ratios))
+    checks += (
+        ("rwkv6 dot flops, trips vs every step",
+         trip_ratios["dot_flops_trips_over_every_step"], (1.0, 1.0)),
+        *((f"rwkv6 {k}, trips vs every step", trip_ratios[f"{k}_trips_over_every_step"],
+           (1 - TRIP_TOL, 1 + TRIP_TOL)) for k in ("flops", "transcendentals", "bytes")),
+        ("rwkv6 peak, trips vs every step", trip_ratios["peak_trips_over_every_step"],
+         (1 - TRIP_PEAK_TOL, 1 + TRIP_PEAK_TOL)),
+        ("rwkv6 train flops", trip_ratios["dot_flops_over_step_bound_ops"], COST_FLOPS_BAND),
+        ("rwkv6 train memory", trip_ratios["eager_peak_over_max_memory_allocated"],
+         COST_MEMORY_BAND))
     bad = [(n, v, b) for n, v, b in checks if not b[0] <= v <= b[1]]
     if bad:
         fail(f"dryrun cost model outside its bands: {bad}")
     return row
+
+
+# ---------------------------------------------------------------- examples
+EXAMPLE_COUNTERS = ("served", "prefix_hit", "prefills", "decode_steps", "replicas")
+EXAMPLE_FIRST_LOSS_TOL = 2e-2
+EXAMPLE_INIT = ("weights drawn on the CPU and moved to the device, in place of the "
+                "Trainer's draw on the card")
+
+
+def _example(ops, main, device):
+    """``main(["--device", device])`` with its printed lines kept: (result,
+    lines, kernel launches, seconds)."""
+    import contextlib
+    import io
+    _zero(ops)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main(["--device", device])
+    took = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in ops.items() if fn.launches}
+    return res, buf.getvalue().splitlines(), launched, took
+
+
+def examples_phase(ops, card):
+    """``repro_torch.examples.serve_diffusion`` and ``elastic_failover`` on
+    the card, each beside the same run on the CPU in this process: equal
+    serving counters for the three policies and flash-attention launches
+    on the card; equal scale events, sizing, recovery and elastic events,
+    the first loss within ``EXAMPLE_FIRST_LOSS_TOL`` and a finite final
+    loss.  The ``Trainer`` draws its weights from a generator on its own
+    device, and a CUDA generator's stream is not the CPU's: for the two
+    elastic runs it draws them on the CPU and moves them, so both train
+    the same weights: on the card this stands in for the ``Trainer``'s own
+    draw (``train_loop.init_params``, the name it looks up), which the
+    phase's line and result say."""
+    import math
+    from repro_torch.examples import elastic_failover, serve_diffusion
+    from repro_torch.models import init_params
+    from repro_torch.runtime import train_loop
+    from repro_torch.tree import tree_map
+    out = {}
+    sd = {dev: _example(ops, serve_diffusion.main, dev) for dev in ("cuda", "cpu")}
+    (card_sd, card_lines, card_launch, card_s), (cpu_sd, _, cpu_launch, cpu_s) = \
+        sd["cuda"], sd["cpu"]
+    counters = {dev: {p: {k: v[p][k] for k in EXAMPLE_COUNTERS} for p in v}
+                for dev, v in (("cuda", card_sd), ("cpu", cpu_sd))}
+    out["serve_diffusion"] = {"counters": counters["cuda"], "launches": card_launch,
+                              "cpu_launches": cpu_launch, "lines": card_lines,
+                              "seconds": [card_s, cpu_s]}
+    say(f"examples serve_diffusion [{card}]: card {card_s:.1f}s, cpu {cpu_s:.1f}s, "
+        f"card launches {json.dumps(card_launch)}; " + json.dumps(counters["cuda"]))
+    problems = []
+    if counters["cuda"] != counters["cpu"]:
+        problems.append(f"serve_diffusion counters differ: {counters}")
+    if card_launch.get("flash_attention", 0) <= 0 or cpu_launch:
+        problems.append(f"serve_diffusion launches: card {card_launch}, cpu {cpu_launch}")
+    def drawn_on_cpu(cfg, device="cuda", seed=0):
+        return tree_map(lambda x: x.to(device), init_params(cfg, device="cpu", seed=seed))
+
+    train_loop.init_params = drawn_on_cpu
+    try:
+        ef = {dev: _example(ops, elastic_failover.main, dev) for dev in ("cuda", "cpu")}
+    finally:
+        train_loop.init_params = init_params
+    card_ef, cpu_ef = ef["cuda"][0], ef["cpu"][0]
+    keys = ("scale_up", "sizing", "recovery", "scale_down", "events", "steps_run")
+    first = abs(card_ef["losses"][0] - cpu_ef["losses"][0])
+    out["elastic_failover"] = {
+        "init": EXAMPLE_INIT, "card": card_ef, "cpu_losses": cpu_ef["losses"],
+        "first_loss_diff": first,
+        "launches": ef["cuda"][2], "lines": ef["cuda"][1],
+        "seconds": [ef["cuda"][3], ef["cpu"][3]]}
+    say(f"examples elastic_failover [{card}] ({EXAMPLE_INIT}): card "
+        f"{ef['cuda'][3]:.1f}s, cpu {ef['cpu'][3]:.1f}s; events {json.dumps({k: card_ef[k] for k in keys})}; "
+        f"first loss card {card_ef['losses'][0]:.5f} cpu {cpu_ef['losses'][0]:.5f}; "
+        f"final loss card {card_ef['final_loss']:.5f} cpu {cpu_ef['final_loss']:.5f}")
+    if any(card_ef[k] != cpu_ef[k] for k in keys):
+        problems.append(f"elastic_failover events differ: "
+                        f"{[(k, card_ef[k], cpu_ef[k]) for k in keys]}")
+    if not first <= EXAMPLE_FIRST_LOSS_TOL:
+        problems.append(f"elastic_failover first loss differs by {first}")
+    if not math.isfinite(card_ef["final_loss"]):
+        problems.append(f"elastic_failover final loss {card_ef['final_loss']}")
+    if problems:
+        fail("examples: " + "; ".join(problems))
+    return out
 
 
 # -------------------------------------------------------------- mesh_serve
@@ -2933,6 +3116,12 @@ def main() -> None:
     dryrun["seconds"] = time.perf_counter() - t0
     say(f"dryrun: ok in {dryrun['seconds']:.1f}s")
 
+    # the port's serving and elastic-training examples, card beside CPU
+    t0 = time.perf_counter()
+    examples = examples_phase(ops, smi_line)
+    examples["seconds"] = time.perf_counter() - t0
+    say(f"examples: ok in {examples['seconds']:.1f}s")
+
     # 10. the same MoE training under --mesh host, compression, elastic restore
     t0 = time.perf_counter()
     none_row = next(r for r in train["families"] if r["arch"] == MESH_ARCH)
@@ -3038,7 +3227,8 @@ def main() -> None:
          "serve": {a: v[2] for a, v in served.items()}, "launches": launches,
          "shapes": shapes, "payload": payload, "checkpoint": ckpt, "ci": ci,
          "train": train, "mesh": mesh, "encdec": encdec, "vision": vision,
-         "gloo4": gloo4, "mesh_serve": mesh_serve, "archs": archs, "dryrun": dryrun},
+         "gloo4": gloo4, "mesh_serve": mesh_serve, "archs": archs, "dryrun": dryrun,
+         "examples": examples},
         indent=1))
     say(f"nvidia-smi: {smi_line}")
     say(json.dumps({"kernels": kernels}))

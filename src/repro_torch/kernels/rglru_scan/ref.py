@@ -4,13 +4,17 @@
 ``kernels/rglru_scan/ref.py``: the exact per-step scan h_t = a_t * h_{t-1} +
 b_t in fp32.  ``rglru_gated_ref`` puts in front of it the gate chain of the
 reference's ``models/rglru.py`` (``rglru_block_apply``'s two sigmoids and
-``rglru_scan``'s a and b), as tensor operations in the same order.
+``rglru_scan``'s a and b), as tensor operations in the same order.  The
+loop over time is marked (``trips.scan``): the cost model counts it by its
+trip count.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ... import trips
 
 RGLRU_C = 8.0
 
@@ -24,11 +28,14 @@ def rglru_ref(a, b, h0=None):
     h = (torch.zeros((B, W), dtype=torch.float32, device=a.device) if h0 is None
          else h0.float())
     a, b = a.float(), b.float()
-    ys = []
-    for t in range(T):
-        h = a[:, t] * h + b[:, t]
-        ys.append(h)
-    y = torch.stack(ys, 1) if ys else torch.zeros((B, 0, W), device=a.device)
+
+    def step(_, h, a_t, b_t):
+        h = a_t * h + b_t
+        return h, h
+
+    if T == 0:
+        return torch.zeros((B, 0, W), device=a.device), h
+    h, y = trips.scan(T, step, h, (a, b))
     return y, h
 
 

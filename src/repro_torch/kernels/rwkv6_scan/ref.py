@@ -3,11 +3,15 @@
 A port of ``wkv6_ref`` in the reference's ``kernels/rwkv6_scan/ref.py``:
 the exact per-step scan in fp32,
     S_t = diag(w_t) S_{t-1} + k_t v_t^T;  out_t = r_t (S_{t-1} + u k_t v_t^T).
+The loop over time is marked (``trips.scan``): the cost model counts it by
+its trip count.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ... import trips
 
 
 def wkv6_ref(r, k, v, w, u, s0=None):
@@ -20,11 +24,13 @@ def wkv6_ref(r, k, v, w, u, s0=None):
     S = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
          if s0 is None else s0.float())
     r, k, v, w, u = (x.float() for x in (r, k, v, w, u))
-    outs = []
-    for t in range(T):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]               # [B,H,N,N]
-        outs.append(torch.einsum("bhi,bhij->bhj", r[:, t], S + u[None, :, :, None] * kv))
-        S = w[:, t, :, :, None] * S + kv
-    out = (torch.stack(outs, 1) if outs
-           else torch.zeros((B, 0, H, N), dtype=torch.float32, device=r.device))
+
+    def step(_, S, r_t, k_t, v_t, w_t):
+        kv = k_t[:, :, :, None] * v_t[:, :, None, :]                  # [B,H,N,N]
+        out = torch.einsum("bhi,bhij->bhj", r_t, S + u[None, :, :, None] * kv)
+        return w_t[:, :, :, None] * S + kv, out
+
+    if T == 0:
+        return torch.zeros((B, 0, H, N), dtype=torch.float32, device=r.device), S
+    S, out = trips.scan(T, step, S, (r, k, v, w))
     return out, S

@@ -8,7 +8,9 @@ batch as ``FakeTensor``s laid out as DTensors by the sharding rules, then
 one call of the cell's step under ``op_analysis.trace_step``, which counts
 what rank 0 runs: flops, memory traffic and collective bytes per device,
 and the step's peak memory (the stand-in for XLA's ``memory_analysis()``),
-with the three roofline terms of one H100 beside them.
+with the three roofline terms of one H100 beside them.  The loops over
+time (the RWKV6 and RG-LRU recurrences) count by their trip counts, as the
+reference's ``while`` loops do.
 
 This is a shape-only analysis, as the reference's lowering on forced host
 devices is: it allocates nothing on any device and has no ``--device``.
@@ -50,9 +52,11 @@ from .rooflines import HBM_BW, IB_BW, NODE_CARDS, NVLINK_BW, PEAK_FLOPS
 from .shardings import batch_specs, opt_state_specs, with_shardings
 
 
-# A cell's trace stops past this many ops (20-150 us an op on fake ranks):
-# the RWKV6 and RG-LRU recurrences run their Python loop over time once a
-# step, millions of ops at 4k-32k positions (rwkv6-3b x train_4k: ~65 M).
+# A cell's trace stops past this many ops run (20-150 us an op on fake
+# ranks).  The loops over time count by their trip counts and run three
+# steps each (``trips.scan``), so no cell comes near it (rwkv6-3b x
+# train_4k runs ~0.2 M ops, ~65 M with every step run); it guards a loop
+# that is not marked.
 MAX_OPS = 12_000_000
 
 
@@ -145,16 +149,18 @@ def roofline_terms(hlo: CostSummary, mesh) -> Dict[str, float]:
 
 def trace_cell(arch_name: str, shape_name: str, multi_pod: bool, *,
                reduced: bool = False, mesh_shape: Optional[Tuple[int, ...]] = None,
-               regions=(), top: int = 20, max_ops: Optional[int] = MAX_OPS):
+               regions=(), top: int = 20, max_ops: Optional[int] = MAX_OPS,
+               trip_counts: bool = True):
     """Build a cell on fake ranks (a group started here and ended) and
-    trace its step once.  Returns (cfg, shape, mesh size, mesh
-    shape, roofline terms, ``StepTrace``)."""
+    trace its step once (``trip_counts=False``: the loops over time run
+    every step).  Returns (cfg, shape, mesh size, mesh shape, roofline
+    terms, ``StepTrace``)."""
     n_dev = math.prod(mesh_shape) if mesh_shape else (512 if multi_pod else 256)
     with fake_world(n_dev):
         cfg, shape, mesh, fn, args, donate = build_cell(
             arch_name, shape_name, multi_pod, reduced=reduced, mesh_shape=mesh_shape)
         tr = trace_step(fn, *args, regions=regions, donate=donate, top=top,
-                        axes=group_axes(mesh), max_ops=max_ops)
+                        axes=group_axes(mesh), max_ops=max_ops, trip_counts=trip_counts)
         return cfg, shape, mesh.size(), tuple(mesh.shape), roofline_terms(tr.total, mesh), tr
 
 

@@ -11,15 +11,26 @@ runs, and counts it.
   op; the mode declines it (``NotImplemented``), DTensor's handler runs the
   **local** op, collectives included, and the mode counts that.  On a cache
   miss DTensor's sharding propagator also runs the op once on global-shape
-  fake tensors to infer its output's metadata; ops run inside
-  ``ShardingPropagator._propagate_tensor_meta_non_cached`` are never
-  counted.
+  fake tensors to infer its output's metadata, and torch 2.13 may run its
+  decomposition on a fake mesh to infer a strategy; ops run inside
+  ``ShardingPropagator._propagate_tensor_meta_non_cached`` or
+  ``DecompShardingStrategy.propagate_strategy`` are never counted.
 * **Flops.** ``torch.utils.flop_counter``'s formulas (mm, bmm, addmm,
   baddbmm, einsum's products, convolutions, attention) give ``dot_flops``;
   every other op adds one operation per output element to ``flops``, and
   exp, log, tanh, sigmoid, rsqrt and softmax elements are
-  ``transcendentals``.  A Python loop is counted once per iteration (the
-  reference multiplies a ``while`` body by its trip count).
+  ``transcendentals``.
+* **Loops.** A plain Python loop is counted once per iteration.  A loop
+  marked through ``repro_torch.trips.scan`` (the recurrences over time:
+  ``wkv_scan``, ``wkv_chunked``, ``rglru_scan`` and the two scans' plain
+  versions) runs its first, second and last steps, and the second's ops,
+  forward and backward, count for steps 1 to n - 2: everything above, the
+  collectives and the region's sums multiplied by n - 2, as the reference
+  multiplies a ``while`` body by its ``known_trip_count``.  Nested marked
+  loops multiply.  A backward op takes the multiplier of the step whose
+  node it runs (autograd sequence numbers), a checkpointed chunk's
+  recompute that of the node that asked for it.  ``ops`` stays the number
+  of ops run.  ``trip_counts=False`` runs every step instead.
 * **Bytes.** Eager PyTorch does not fuse: each op reads its operands and
   writes its outputs, and that is its traffic on the card.  ``bytes`` is the
   sum over ops of operand bytes plus output bytes; view and alias ops
@@ -48,9 +59,12 @@ runs, and counts it.
 * **Memory.** XLA's ``memory_analysis()`` has no equal; the mode tracks the
   live storage of every tensor the step makes (a finalizer on each storage)
   and takes its high-water mark over the step, beside the bytes of the
-  arguments and outputs.  Donated arguments count once: a new output of the
-  shape and dtype of a donated argument's leaf takes that leaf's storage, as
-  XLA's buffer aliasing does.
+  arguments and outputs.  What a marked loop's second step still holds at
+  the end of its last step (the saved tensors every step would hold)
+  counts n - 2 times until it is freed; its carry-out's copies live as
+  long as its carry-in.  Donated arguments count once: a new output of
+  the shape and dtype of a donated argument's leaf takes that leaf's
+  storage, as XLA's buffer aliasing does.
 """
 
 from __future__ import annotations
@@ -66,6 +80,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from .. import trips
 from ..tree import tree_leaves
 
 _COLLECTIVE_NS = ("_c10d_functional", "c10d_functional", "_dtensor")
@@ -84,8 +99,11 @@ _ZERO_BYTES = {"_unsafe_view", "lift_fresh", "empty", "empty_strided", "empty_li
 _GATHERS = {"index", "index_select", "gather", "embedding", "take"}
 _SCATTERS_ = {"index_put_", "_index_put_impl_", "scatter_", "scatter_add_", "index_add_",
               "index_copy_"}
-# (function, file) of DTensor's shape inference and of its Shard -> Shard move
-_SHADOW = ("_propagate_tensor_meta_non_cached", "_sharding_prop.py")
+# (function, file) of DTensor's shape inference (torch 2.13 also infers a
+# strategy by running an op's decomposition on a fake mesh) and of its
+# Shard -> Shard move
+_SHADOW = (("_propagate_tensor_meta_non_cached", "_sharding_prop.py"),
+           ("propagate_strategy", "_decompositions.py"))
 _ALLTOALL = ("shard_dim_alltoall", "_collective_utils.py")
 
 
@@ -182,7 +200,7 @@ def _within() -> Tuple[bool, bool]:
     f = sys._getframe(2)
     while f is not None:
         c = f.f_code
-        if c.co_name == _SHADOW[0] and c.co_filename.endswith(_SHADOW[1]):
+        if any(c.co_name == n and c.co_filename.endswith(p) for n, p in _SHADOW):
             shadow = True
             break
         if c.co_name == _ALLTOALL[0] and c.co_filename.endswith(_ALLTOALL[1]):
@@ -215,10 +233,21 @@ class _Counter(TorchDispatchMode):
         self.count: Dict[str, int] = defaultdict(int)
         self.open: List[list] = []          # [name, interval index or None]
         self.intervals: List[list] = []     # [first seq, end seq, name, parent]
+        # marked loops: the multiplier of each counted step running now
+        # (innermost last); [first seq, end seq, multiplier, parent] of each
+        # counted step's autograd nodes; the open ones' indices
+        self.dyn: List[int] = []
+        self.trip_ivs: List[list] = []
+        self.open_trips: List[int] = []
+        # a skipped step's stand-in runs: not counted (True: its outputs
+        # are still live memory); None: count
+        self.skipping: Optional[bool] = None
         # memory: storages the step allocated, live bytes after each allocation
         self.inputs: set = set()
         self.live: Dict[int, int] = {}
         self.alloc_at: Dict[int, int] = {}
+        self.born: Dict[int, int] = {}      # storage -> its place in ``born_order``
+        self.born_order: List[int] = []
         self.series: List[int] = []
         self.live_bytes = 0
 
@@ -247,21 +276,85 @@ class _Counter(TorchDispatchMode):
         node = torch._C._current_autograd_node()
         if node is None or not self.intervals:
             return "other"
-        seq = node._sequence_nr()
-        lo, hi = 0, len(self.intervals)
-        while lo < hi:                       # last interval starting at or before seq
-            mid = (lo + hi) // 2
-            if self.intervals[mid][0] <= seq:
-                lo = mid + 1
-            else:
-                hi = mid
-        i = lo - 1
-        while i >= 0:
-            first, end, name, parent = self.intervals[i]
-            if end is None or seq < end:
-                return name
-            i = parent                       # intervals nest: try the enclosing one
-        return "other"
+        i = _innermost(self.intervals, node._sequence_nr())
+        return self.intervals[i][2] if i >= 0 else "other"
+
+    # ------------------------------------------------------- marked loops
+    def _mult(self) -> int:
+        """How many steps the op stands for: the innermost counted step
+        running now, else the one whose autograd node runs (backward, or a
+        checkpointed chunk's recompute that node asked for)."""
+        if self.dyn:
+            return self.dyn[-1]
+        node = torch._C._current_autograd_node()
+        if node is None or not self.trip_ivs:
+            return 1
+        i = _innermost(self.trip_ivs, node._sequence_nr())
+        return self.trip_ivs[i][2] if i >= 0 else 1
+
+    @contextlib.contextmanager
+    def trip(self, k: int, carry):
+        """Around the step of a marked loop that stands for ``k`` steps, given
+        its carry-in.  Yields the mark ``carried`` and ``retain`` take:
+        [first allocation, end, k, carry-in storages, carry-out storages]."""
+        m = self._mult() * k
+        iv = None
+        if torch.is_grad_enabled():
+            parent = next((i for i in reversed(self.open_trips) if i is not None), -1)
+            iv = len(self.trip_ivs)
+            self.trip_ivs.append([torch._C._autograd._get_sequence_nr(), None, m, parent])
+        self.dyn.append(m)
+        self.open_trips.append(iv)
+        mark = [len(self.born_order), None, k, {_key(t) for t in _tensors(carry)}, set()]
+        try:
+            yield mark
+        finally:
+            self.dyn.pop()
+            self.open_trips.pop()
+            if iv is not None:
+                self.trip_ivs[iv][1] = torch._C._autograd._get_sequence_nr()
+            mark[1] = len(self.born_order)
+
+    @contextlib.contextmanager
+    def quiet(self, track: bool):
+        prev, self.skipping = self.skipping, track
+        try:
+            yield
+        finally:
+            self.skipping = prev
+
+    def carried(self, mark, carry):
+        """The counted step's carry-out (storages only: holding the tensors
+        would keep them live)."""
+        mark[4] = {_key(t) for t in _tensors(carry)}
+
+    def retain(self, mark):
+        """What the counted step allocated and is still live at the end of
+        the loop's last step (its saved tensors, an output not yet stacked)
+        counts ``k`` times, and all copies go when it is freed.  Its
+        carry-out is the exception: the last step holds it, and the copies
+        of steps 1 to n - 3 are held by the steps after them, as the
+        counted step holds its carry-in, so they live as long as that."""
+        first, end, k, into, outs = mark
+        add = 0
+        for idx in range(first, end):
+            key = self.born_order[idx]
+            if self.born.get(key) != idx or key not in self.live:
+                continue
+            if key in outs:
+                held = [c for c in into if c in self.live and self.born[c] < first]
+                if held:
+                    extra = self.live[key] * (k - 1) // len(held)
+                    for c in held:
+                        self.live[c] += extra
+                        add += extra
+                continue
+            extra = self.live[key] * (k - 1)
+            self.live[key] += extra
+            add += extra
+        if add:
+            self.live_bytes += add
+            self.series.append(self.live_bytes)
 
     # ------------------------------------------------------------ memory
     def _free(self, key):
@@ -276,6 +369,8 @@ class _Counter(TorchDispatchMode):
             n = st.nbytes()
             self.live[k] = n
             self.alloc_at[k] = len(self.series)
+            self.born[k] = len(self.born_order)
+            self.born_order.append(k)
             self.live_bytes += n
             self.series.append(self.live_bytes)
             weakref.finalize(st, self._free, k)
@@ -296,6 +391,10 @@ class _Counter(TorchDispatchMode):
                 self._exit()
             return out
         out = func(*args, **kwargs)
+        if self.skipping is not None:        # a skipped step's stand-in
+            if self.skipping and not func.is_view:
+                self._track(_flat_tensors(out))
+            return out
         shadow, alltoall = _within()
         if shadow:
             return out
@@ -316,6 +415,7 @@ class _Counter(TorchDispatchMode):
         if self.max_ops is not None and self.ops > self.max_ops:
             raise TraceBudgetExceeded(f"the step runs more than {self.max_ops} ops")
         region = self._region() if self.names else "other"
+        m = self._mult()
         sums = (self.total, self.regions[region])
         ins = _flat_tensors(args) + _flat_tensors(kwargs)
         outs = _flat_tensors(out)
@@ -338,13 +438,13 @@ class _Counter(TorchDispatchMode):
                          and a in self.axes), "?")
             traffic = 2 * operand if alltoall else in_b + out_b
             for s in sums:
-                s.collective_bytes[kind] += operand
-                s.collective_count[kind] += 1
-                s.collective_axis_bytes[axis] += operand
-                s.bytes += traffic
+                s.collective_bytes[kind] += m * operand
+                s.collective_count[kind] += m
+                s.collective_axis_bytes[axis] += m * operand
+                s.bytes += m * traffic
             if not alltoall:
                 self._track(outs)
-            self._tally(name, outs or ins, traffic)
+            self._tally(name, outs or ins, traffic, m)
             return
         from torch.utils.flop_counter import flop_registry
 
@@ -353,23 +453,42 @@ class _Counter(TorchDispatchMode):
         dot = float(flop_registry[packet](*args, **kwargs, out_val=out)) \
             if packet in flop_registry else 0.0
         for s in sums:
-            s.bytes += in_b + out_b
+            s.bytes += m * (in_b + out_b)
             if dot:
-                s.dot_flops += dot
-                s.flops += dot
+                s.dot_flops += m * dot
+                s.flops += m * dot
             else:
-                s.flops += out_elems
+                s.flops += m * out_elems
             if name in _TRANSCENDENTAL:
-                s.transcendentals += out_elems
+                s.transcendentals += m * out_elems
         self._track(outs)
-        self._tally(name, outs or ins, in_b + out_b)
+        self._tally(name, outs or ins, in_b + out_b, m)
 
-    def _tally(self, name, tensors, nbytes):
+    def _tally(self, name, tensors, nbytes, m=1):
         t = tensors[0] if tensors else None
         key = name if t is None else (
             f"{name} {str(t.dtype).replace('torch.', '')}{list(t.shape)}")
-        self.traffic[key] += nbytes
-        self.count[key] += 1
+        self.traffic[key] += m * nbytes
+        self.count[key] += m
+
+
+def _innermost(intervals: List[list], seq: int) -> int:
+    """Index of the innermost of the nested ``[first, end, _, parent]``
+    intervals of sequence numbers that holds ``seq``, or -1."""
+    lo, hi = 0, len(intervals)
+    while lo < hi:                           # last interval starting at or before seq
+        mid = (lo + hi) // 2
+        if intervals[mid][0] <= seq:
+            lo = mid + 1
+        else:
+            hi = mid
+    i = lo - 1
+    while i >= 0:
+        first, end, _, parent = intervals[i]
+        if end is None or seq < end:
+            return i
+        i = parent                           # intervals nest: try the enclosing one
+    return -1
 
 
 def _same_view(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -392,21 +511,24 @@ def _unique_bytes(tensors) -> Tuple[int, Dict[int, torch.Tensor]]:
 
 def trace_step(fn, *args, regions: Sequence[str] = (), donate: Sequence[int] = (),
                top: int = 20, axes: Optional[Dict[str, str]] = None,
-               max_ops: Optional[int] = None) -> StepTrace:
+               max_ops: Optional[int] = None, trip_counts: bool = True) -> StepTrace:
     """Run ``fn(*args)`` once under the counting mode (inside the fake mode
     of its FakeTensor arguments, if they are fake) and return its costs per
     device, per region, its top traffic keys and its memory.  ``donate``:
     the indices of the arguments whose storage the step may reuse for its
     outputs (the reference's ``donate_argnums``); ``axes``: {group name:
     mesh axis} for the per-axis collective bytes (``group_axes(mesh)``);
-    ``max_ops``: raise ``TraceBudgetExceeded`` past that many counted ops."""
+    ``max_ops``: raise ``TraceBudgetExceeded`` past that many ops run;
+    ``trip_counts``: marked loops run three steps and count by their trip
+    count (False: every step runs and counts)."""
     arg_t = _tensors(list(args))
     counter = _Counter(regions, axes, max_ops)
     arg_bytes, arg_keys = _unique_bytes(arg_t)
     counter.inputs = set(arg_keys)
     fake = _fake_mode_of(arg_t)
     t0 = time.perf_counter()
-    with (fake if fake is not None else contextlib.nullcontext()), counter:
+    loops = trips.counting(counter) if trip_counts else contextlib.nullcontext()
+    with (fake if fake is not None else contextlib.nullcontext()), counter, loops:
         out = fn(*args)
     seconds = time.perf_counter() - t0
 

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from .. import trips
 from ..kernels.rglru_scan.ops import rglru_gated_scan
 from .layers import BF16, F32, dense_init
 from .sharding import ShardCtx, gather_inner, mm
@@ -66,17 +67,19 @@ def rglru_scan(xi, r, i_gate, lam, h0):
     i_gate the sigmoid gates); lam: [W]; h0: [B, W].  Returns (y [B, T, W]
     f32, hT).  The steps are stacked, never written into a preallocated
     buffer, so autograd sees each one; a and the gated input are unbound
-    once, so backward stacks their step grads once."""
+    once, so backward stacks their step grads once.  The loop is marked
+    (``trips.scan``): the cost model counts it by its trip count."""
     log_a = (-RGLRU_C * F.softplus(lam))[None, None, :] * r.to(F32)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (
         i_gate.to(F32) * xi.to(F32))
-    h, ys = h0.to(F32), []
+    def step(_, h, a_t, g_t):
+        h = a_t * h + g_t
+        return h, h
+
     with record_function("rglru_rec"):          # region of the cost model
-        for a_t, g_t in zip(a.unbind(1), gated.unbind(1)):
-            h = a_t * h + g_t
-            ys.append(h)
-    return torch.stack(ys, 1), h
+        h, y = trips.scan(a.shape[1], step, h0.to(F32), (a, gated))
+    return y, h
 
 
 def _gated_kernel(*operands):

@@ -14,10 +14,12 @@ backward, so training takes the reference's own route: ``wkv_chunked``
 for T > 1 (each chunk recomputed in backward, as the reference's
 ``jax.checkpoint`` of its chunk body does) and ``wkv_scan`` for T = 1,
 Python loops over time that autograd differentiates on the CPU and on the
-card alike.  Under a mesh the kernel runs on each rank's local batch
-shard, the layout the reference gives r, k, v and w.  The recurrence, the
-loop's steps or the kernel's call, runs in the ``record_function`` region
-"wkv_scan" (the reference's named scope; the cost model reads it).  Dtypes
+card alike; both loops are marked (``trips.scan``), so the cost model
+counts them by their trip counts.  Under a mesh the kernel runs on each
+rank's local batch shard, the layout the reference gives r, k, v and w.
+The recurrence, the loop's steps or the kernel's call, runs in the
+``record_function`` region "wkv_scan" (the reference's named scope; the
+cost model reads it).  Dtypes
 follow the reference: ``mu``, ``mix_b`` and ``wo`` bf16; ``w0``,
 ``decay_b`` and ``u`` fp32.
 """
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from .. import trips
 from ..kernels.rwkv6_scan.ops import wkv6
 from .layers import BF16, F32, dense_init, rmsnorm, rmsnorm_init
 from .sharding import ShardCtx, einsum, mm, reshape
@@ -84,15 +87,17 @@ def wkv_scan(r, k, v, w, u, s0):
     """
     S = s0.to(F32)
     u4 = u[None, :, :, None]
-    outs = []
+
+    def step(_, S, r_t, k_t, v_t, w_t):
+        kv = k_t[..., :, None] * v_t[..., None, :]                  # [B, H, N, N]
+        out = einsum("bhi,bhij->bhj", r_t, S + u4 * kv)
+        return w_t[..., :, None] * S + kv, out
+
     with record_function("wkv_scan"):           # region of the cost model
         # one unbind a tensor: in backward its step grads are stacked once
         # (indexing step by step would add T full-size grads)
-        for r_t, k_t, v_t, w_t in zip(*(a.to(F32).unbind(1) for a in (r, k, v, w))):
-            kv = k_t[..., :, None] * v_t[..., None, :]              # [B, H, N, N]
-            outs.append(einsum("bhi,bhij->bhj", r_t, S + u4 * kv))
-            S = w_t[..., :, None] * S + kv
-        return torch.stack(outs, 1), S
+        S, out = trips.scan(r.shape[1], step, S, [a.to(F32) for a in (r, k, v, w)])
+        return out, S
 
 
 def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128, ctx: ShardCtx = ShardCtx()):
@@ -105,17 +110,17 @@ def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128, ctx: ShardCtx = ShardCtx())
     B, T, H, N = r.shape
     chunk = min(chunk, T)
     assert T % chunk == 0, (T, chunk)
-    S = s0.to(F32)
-    outs = []
-    for start in range(0, T, chunk):
-        xs = tuple(a[:, start:start + chunk] for a in (r, k, v, w))
+
+    def step(i, S):
+        xs = tuple(a[:, i * chunk:(i + 1) * chunk] for a in (r, k, v, w))
         if torch.is_grad_enabled():
             out, S = checkpoint(wkv_scan, *xs, u, S, use_reentrant=False)
         else:
             out, S = wkv_scan(*xs, u, S)
-        S = ctx.cstr(S, "dp", None, None, None)
-        outs.append(out)
-    return torch.cat(outs, 1), S
+        return ctx.cstr(S, "dp", None, None, None), out
+
+    S, out = trips.scan(T // chunk, step, s0.to(F32), join="cat")
+    return out, S
 
 
 def _wkv6_kernel(*operands):
@@ -139,7 +144,10 @@ def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False,
     k = ctx.cstr(reshape(mm(x_k, p["wk"]), B, T, H, head_dim), "dp", None, None, None)
     v = ctx.cstr(reshape(mm(x_v, p["wv"]), B, T, H, head_dim), "dp", None, None, None)
     g = F.silu(mm(x_g, p["wg"]).to(F32))
-    logw = p["w0"] + mm(torch.tanh(mm(x_w.to(F32), p["decay_a"].to(F32))), p["decay_b"])
+    # the decay LoRA's partial sums reduced onto the width before the bias
+    # is added: torch 2.11's DTensor cannot add a replicated bias to them
+    logw = p["w0"] + ctx.cstr(
+        mm(torch.tanh(mm(x_w.to(F32), p["decay_a"].to(F32))), p["decay_b"]), "dp", None, "tp")
     w = reshape(torch.exp(-torch.exp(logw)), B, T, H, head_dim)  # decay in (0, 1)
     w = ctx.cstr(w, "dp", None, None, None)
     u = reshape(p["u"], H, head_dim)

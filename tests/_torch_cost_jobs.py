@@ -2,7 +2,7 @@
 of its own (a fake group is the default group of the process that starts
 it), for ``test_torch_cost.py``.  No JAX.
 
-    python tests/_torch_cost_jobs.py <job> <out.json> [<i> <n>]
+    python tests/_torch_cost_jobs.py <job> <out.json> [<job's arguments>]
 
 Jobs:
 ``mesh``: importing the three modules changes neither the environment nor
@@ -18,6 +18,15 @@ on a fake (2, 2) mesh.
 ``regions``: the region costs of reduced internlm2, rwkv6 and
 recurrentgemma on a fake (2, 2) mesh: the train step, prefill, and the
 train route's forward alone (the loss under ``no_grad``).
+``trips <arch>``: the arch's reduced train_4k and prefill_32k cells on a
+fake (2, 2) mesh, traced with trip counts and with every step run: totals,
+regions and memory of both.
+``depth <arch> <shape> <layers,...>``: a full-size cell cut to each depth
+on both production meshes (16 x 16 and 2 x 16 x 16 fake ranks), traced
+with trip counts, the first depth also with every step run: totals, ops,
+trace seconds and memory.  Not a test's job: the dry run's peaks by depth
+(rwkv6-3b prefill_32k 1,2,4 takes ~16 min, the every-step traces
+nearly all of it).
 ``cli``: ``python -m repro_torch.launch.dryrun``'s ``main`` at full size
 (internlm2-1.8b x decode_32k on 16 x 16 fake ranks), again (the file
 exists), and on an unknown arch; then ``repro_torch.launch.perf``'s.
@@ -44,6 +53,7 @@ def reduced_cells():
 
 def _summary(s):
     return {"flops": s.flops, "dot_flops": s.dot_flops, "bytes": s.bytes,
+            "transcendentals": s.transcendentals,
             "collective_bytes": dict(s.collective_bytes),
             "collective_count": dict(s.collective_count),
             "collective_axis_bytes": dict(s.collective_axis_bytes)}
@@ -180,6 +190,44 @@ def job_regions():
     return out
 
 
+def job_trips(arch):
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.perf import REGIONS
+
+    out = {}
+    for shape in ("train_4k", "prefill_32k"):
+        for counted in (True, False):
+            tr = trace_cell(arch, shape, False, reduced=True, mesh_shape=(2, 2),
+                            regions=REGIONS, trip_counts=counted)[-1]
+            out[f"{shape}|{'trips' if counted else 'every step'}"] = {
+                "total": _summary(tr.total), "ops": tr.ops, "memory": tr.memory,
+                "regions": {r: _summary(c) for r, c in tr.regions.items()}}
+    return out
+
+
+def job_depth(arch, shape, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+
+    out = []
+    for n in layers:
+        dryrun.get_arch = lambda name, n=n: dataclasses.replace(get_arch(name), num_layers=n)
+        for multi_pod in (False, True):
+            for counted in (True, False) if n == layers[0] else (True,):
+                tr = dryrun.trace_cell(arch, shape, multi_pod, trip_counts=counted,
+                                       max_ops=None)[-1]
+                out.append({"layers": n, "mesh": dryrun.mesh_label(multi_pod),
+                            "trips": counted, "ops": tr.ops, "trace_s": tr.seconds,
+                            "total": _summary(tr.total), "memory": tr.memory})
+                print(json.dumps({k: out[-1][k] for k in
+                                  ("layers", "mesh", "trips", "ops", "trace_s")}
+                                 | {"peak": tr.memory["peak_device_bytes"]}), flush=True)
+    dryrun.get_arch = get_arch
+    return out
+
+
 def job_cli():
     from repro_torch.launch import dryrun, perf
 
@@ -206,6 +254,10 @@ def main():
     job, dest = sys.argv[1], sys.argv[2]
     if job == "cells":
         out = job_cells(int(sys.argv[3]), int(sys.argv[4]))
+    elif job == "trips":
+        out = job_trips(sys.argv[3])
+    elif job == "depth":
+        out = job_depth(sys.argv[3], sys.argv[4], [int(n) for n in sys.argv[5].split(",")])
     else:
         out = {"mesh": job_mesh, "regions": job_regions, "cli": job_cli}[job]()
     Path(dest).write_text(json.dumps(out, default=str))

@@ -60,6 +60,8 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
 def test_port_files_cover_training_and_the_examples():
     for rel in ("optim/adamw.py", "runtime/train_loop.py", "launch/train.py",
                 "examples/__init__.py", "examples/train_100m.py",
+                "examples/quickstart.py", "examples/serve_diffusion.py",
+                "examples/elastic_failover.py", "trips.py",
                 "models/sharding.py", "launch/mesh.py", "launch/shardings.py",
                 "runtime/compression.py", "launch/dryrun.py", "launch/op_analysis.py",
                 "launch/perf.py"):
@@ -74,6 +76,9 @@ for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
 import repro_torch
 import repro_torch.launch.serve
 import repro_torch.launch.train
+import repro_torch.examples.quickstart
+import repro_torch.examples.serve_diffusion
+import repro_torch.examples.elastic_failover
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 bad = [k for k, v in sys.modules.items() if v is not None and (

@@ -6,12 +6,20 @@ Units (this process, plain CPU tensors): matmul flops by
 ``torch.utils.flop_counter``'s formulas, a loop counted once an iteration,
 views free, an elementwise op's bytes its operands plus its output, the
 peak of live storage with and without donation, a backward op under its
-forward node's region.
+forward node's region.  Marked loops (``repro_torch.trips.scan``): counted
+by their trip count (the reference's ``4 * 2 * 128**3``), forward and
+backward as the loop run step by step, ``wkv_chunked``'s two nested loops
+with the chunk recompute too; outside a trace every step runs and the
+values, the models' train steps and prefills included, are bit for bit
+those of the loops written out.
 
 Process-group checks run in processes of their own
 (``tests/_torch_cost_jobs.py``; the reference in ``tests/_cost_reference.py``,
 whose imports set ``XLA_FLAGS``), all started together: per-device counts on
-a fake (2, 2) mesh; the region costs of reduced train and prefill cells
+a fake (2, 2) mesh; reduced rwkv6 and recurrentgemma x train_4k and x
+prefill_32k traced with trip counts against every step run (matmul flops
+and collective bytes equal, the rest within 1%, the peak within 5%, totals
+and regions); the region costs of reduced train and prefill cells
 (a train step's region holds more than twice its forward's);
 ``model_flops`` and the kernel models equal to the reference's for all 33
 cells on both meshes; every reduced cell through ``run_cell``; per-device
@@ -30,13 +38,17 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch.nn.functional as F
 
+from repro_torch import trips
 from repro_torch.launch import op_analysis as oa
 
 TESTS = Path(__file__).resolve().parent
 SRC = TESTS.parent / "src"
 JOB_TIMEOUT = 900          # ~60 s alone; the jobs run side by side
 CELL_PROCS = 3
+TRIP_ARCHS = ("rwkv6-3b", "recurrentgemma-9b")
+TRIP_SHAPES = ("train_4k", "prefill_32k")
 HLO_TOL = {"prefill": (0.99, 1.01), "decode": (0.99, 1.01), "train": (0.8, 1.25)}
 
 
@@ -59,6 +71,245 @@ def test_loop_counts_every_iteration():
 
     x = torch.randn(32, 32)
     assert oa.analyze_step(four, x, x).dot_flops == 4 * 2 * 32 ** 3
+
+
+def test_marked_loop_counts_by_trip_count():
+    def four(x, w):
+        def body(_, c):
+            c = c @ w
+            return c, c
+        return trips.scan(4, body, x)[0]
+
+    x = torch.zeros(128, 128)
+    w = torch.zeros(128, 128)
+    tr = oa.trace_step(four, x, w)
+    assert tr.total.dot_flops == 4 * 2 * 128 ** 3          # the reference's count
+    full = oa.trace_step(four, x, w, trip_counts=False)
+    assert full.total.dot_flops == tr.total.dot_flops
+
+
+def _toy(marked):
+    """h_t = tanh(h_{t-1} @ w + x_t) over x's steps, stacked; the grads of
+    the sum of squares under ``enable_grad``."""
+    def fn(x, w, h0):
+        def step(_, h, x_t):
+            h = torch.tanh(h @ w + x_t)
+            return h, h
+
+        with torch.enable_grad():
+            if marked:
+                _, ys = trips.scan(x.shape[1], step, h0, (x,))
+            else:
+                h, out = h0, []
+                for x_t in x.unbind(1):
+                    h, y = step(0, h, x_t)
+                    out.append(y)
+                ys = torch.stack(out, 1)
+            return torch.autograd.grad((ys * ys).sum(), (x, w))
+    return fn
+
+
+def _same_costs(a, b, rel=0.0):
+    for k in ("flops", "dot_flops", "bytes", "transcendentals"):
+        va, vb = getattr(a, k), getattr(b, k)
+        assert abs(va - vb) <= rel * abs(vb), (k, va, vb)
+
+
+def test_marked_loop_counts_as_the_loop_run_step_by_step():
+    from torch.profiler import record_function
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 8, 16, generator=g, requires_grad=True)
+    w = torch.randn(16, 16, generator=g, requires_grad=True)
+    h0 = torch.zeros(2, 16)
+
+    def in_region(fn):
+        def run(*a):
+            with record_function("rglru_rec"):
+                return fn(*a)
+        return run
+
+    plain = oa.trace_step(_toy(False), x, w, h0, regions=["rglru_rec"])
+    for marked in (_toy(True), in_region(_toy(True))):
+        tr = oa.trace_step(marked, x, w, h0, regions=["rglru_rec"])
+        _same_costs(tr.total, plain.total)
+        # forward and dw 8 steps each, dh 7 (h0 needs no grad)
+        assert tr.total.dot_flops == 23 * 2 * 2 * 16 * 16
+    assert tr.regions["rglru_rec"].dot_flops == plain.total.dot_flops
+    # run every step: the counts of the loop written out
+    _same_costs(oa.trace_step(_toy(True), x, w, h0, trip_counts=False).total, plain.total)
+    assert trips._hook is None
+
+
+def _wkv_inputs(T, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    B, H, N = 2, 2, 8
+    r, k, v = (torch.randn(B, T, H, N, generator=g, requires_grad=True) for _ in range(3))
+    w = torch.rand(B, T, H, N, generator=g).requires_grad_(True)
+    u = torch.randn(H, N, generator=g, requires_grad=True)
+    return r, k, v, w, u, torch.zeros(B, H, N, N)
+
+
+@pytest.mark.parametrize("final_state", [True, False])
+def test_wkv_chunked_nests_trip_counts_with_the_recompute(final_state):
+    """8 chunks of 4 steps, each chunk recomputed in backward: the chunk
+    loop's counted chunk holds the step loop's counted step."""
+    from repro_torch.models.rwkv import wkv_chunked
+
+    def step(*a):
+        with torch.enable_grad():
+            out, S = wkv_chunked(*a, chunk=4)
+            loss = (out * out).sum() + (S.sum() if final_state else 0)
+            return torch.autograd.grad(loss, a[:5])
+
+    args = _wkv_inputs(32)
+    tr = oa.trace_step(step, *args, regions=["wkv_scan"])
+    full = oa.trace_step(step, *args, regions=["wkv_scan"], trip_counts=False)
+    assert tr.total.dot_flops == full.total.dot_flops
+    # with the final state unused the last step's decay has no grad: the
+    # split's backward fills its slice with zeros, the unbind's a scalar
+    _same_costs(tr.total, full.total, rel=0 if final_state else 1e-3)
+    _same_costs(tr.regions["wkv_scan"], full.regions["wkv_scan"],
+                rel=0 if final_state else 1e-3)
+    peak, want = tr.memory["peak_device_bytes"], full.memory["peak_device_bytes"]
+    assert abs(peak - want) <= 0.05 * want, (peak, want)
+    assert tr.ops < full.ops / 2
+
+
+def _wkv_scan_plain(r, k, v, w, u, s0):
+    S = s0.float()
+    u4 = u[None, :, :, None]
+    outs = []
+    for r_t, k_t, v_t, w_t in zip(*(a.float().unbind(1) for a in (r, k, v, w))):
+        kv = k_t[..., :, None] * v_t[..., None, :]
+        outs.append(torch.einsum("bhi,bhij->bhj", r_t, S + u4 * kv))
+        S = w_t[..., :, None] * S + kv
+    return torch.stack(outs, 1), S
+
+
+def _wkv_chunked_plain(r, k, v, w, u, s0, chunk=128, ctx=None):
+    from torch.utils.checkpoint import checkpoint
+
+    T = r.shape[1]
+    chunk = min(chunk, T)
+    S, outs = s0.float(), []
+    for start in range(0, T, chunk):
+        xs = tuple(a[:, start:start + chunk] for a in (r, k, v, w))
+        if torch.is_grad_enabled():
+            out, S = checkpoint(_wkv_scan_plain, *xs, u, S, use_reentrant=False)
+        else:
+            out, S = _wkv_scan_plain(*xs, u, S)
+        outs.append(out)
+    return torch.cat(outs, 1), S
+
+
+def _rglru_scan_plain(xi, r, i_gate, lam, h0):
+    log_a = (-8.0 * F.softplus(lam))[None, None, :] * r.float()
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (i_gate.float() * xi.float())
+    h, ys = h0.float(), []
+    for a_t, g_t in zip(a.unbind(1), gated.unbind(1)):
+        h = a_t * h + g_t
+        ys.append(h)
+    return torch.stack(ys, 1), h
+
+
+def _rglru_ref_plain(a, b, h0=None):
+    h = torch.zeros(a.shape[0], a.shape[2]) if h0 is None else h0.float()
+    ys = []
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + b[:, t].float()
+        ys.append(h)
+    return torch.stack(ys, 1), h
+
+
+def _wkv6_ref_plain(r, k, v, w, u, s0=None):
+    B, T, H, N = r.shape
+    S = torch.zeros((B, H, N, N)) if s0 is None else s0.float()
+    r, k, v, w, u = (x.float() for x in (r, k, v, w, u))
+    outs = []
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        outs.append(torch.einsum("bhi,bhij->bhj", r[:, t], S + u[None, :, :, None] * kv))
+        S = w[:, t, :, :, None] * S + kv
+    return torch.stack(outs, 1), S
+
+
+def _equal(a, b):
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        else:
+            assert x == y
+
+
+def test_marked_loops_run_every_step_outside_a_trace():
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+    from repro_torch.models.rglru import rglru_scan
+    from repro_torch.models.rwkv import wkv_chunked, wkv_scan
+
+    args = _wkv_inputs(24, seed=3)
+    for marked, plain, kw in ((wkv_scan, _wkv_scan_plain, {}),
+                              (wkv_chunked, _wkv_chunked_plain, {"chunk": 8})):
+        with torch.no_grad():
+            _equal(marked(*args, **kw), plain(*args, **kw))
+        with torch.enable_grad():
+            got = torch.autograd.grad(sum(t.sum() for t in marked(*args, **kw)), args[:5])
+            want = torch.autograd.grad(sum(t.sum() for t in plain(*args, **kw)), args[:5])
+        _equal(got, want)
+    _equal(wkv6_ref(*args), _wkv6_ref_plain(*args))
+    g = torch.Generator().manual_seed(4)
+    xi, rg, ig = (torch.randn(2, 24, 16, generator=g, requires_grad=True) for _ in range(3))
+    lam, h0 = torch.randn(16, generator=g, requires_grad=True), torch.randn(2, 16, generator=g)
+
+    def gate(scan):
+        return scan(xi, torch.sigmoid(rg), torch.sigmoid(ig), lam, h0)
+
+    _equal(gate(rglru_scan), gate(_rglru_scan_plain))
+    with torch.enable_grad():
+        got, want = (torch.autograd.grad(gate(scan)[0].square().sum(), (xi, rg, ig, lam))
+                     for scan in (rglru_scan, _rglru_scan_plain))
+    _equal(got, want)
+    a, b = torch.rand(2, 24, 16, generator=g), torch.randn(2, 24, 16, generator=g)
+    _equal(rglru_ref(a, b, h0), _rglru_ref_plain(a, b, h0))
+    assert trips._hook is None
+
+
+@pytest.mark.parametrize("arch", TRIP_ARCHS)
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_models_bit_equal_to_the_loops_written_out(arch, kind, monkeypatch):
+    """A reduced train step (loss, grads, AdamW) and prefill on the CPU with
+    the marked loops, then with the loops written out in their place."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.models import (init_opt_state, init_params, make_prefill_step,
+                                    make_train_step, rglru, rwkv, synth_inputs)
+
+    cfg = get_arch(arch).reduced()
+    shape = ShapeConfig(kind, kind, 32, 2)
+
+    def run():
+        params = init_params(cfg, device="cpu", seed=0)
+        batch = synth_inputs(cfg, shape, device="cpu")
+        if kind == "train":
+            return make_train_step(cfg, shape)(params, init_opt_state(params, cfg), batch)
+        with torch.no_grad():
+            return make_prefill_step(cfg, shape)(params, batch)
+
+    marked = run()
+    monkeypatch.setattr(rwkv, "wkv_scan", _wkv_scan_plain)
+    monkeypatch.setattr(rwkv, "wkv_chunked", _wkv_chunked_plain)
+    monkeypatch.setattr(rglru, "rglru_scan", _rglru_scan_plain)
+    monkeypatch.setattr(wkv_ops, "wkv6_ref", _wkv6_ref_plain)
+    monkeypatch.setattr(rg_ref, "rglru_ref", _rglru_ref_plain)
+    _equal(marked, run())
 
 
 def test_views_move_no_bytes():
@@ -131,6 +382,8 @@ def test_backward_ops_go_to_their_forward_region():
 # ------------------------------------------------------------ process jobs
 def _job_args():
     jobs = {"mesh": ["mesh"], "regions": ["regions"], "cli": ["cli"]}
+    for arch in TRIP_ARCHS:
+        jobs[f"trips|{arch}"] = ["trips", arch]
     for i in range(CELL_PROCS):
         jobs[f"cells{i}"] = ["cells", str(i), str(CELL_PROCS)]
     return jobs
@@ -247,6 +500,31 @@ def test_regions_hold_their_costs_backward_included(jobs, arch, region):
         # the serve route marks the same products; the RG-LRU's serve region
         # is the gated kernel, gates included, and has no matmul
         assert train["dot_flops"] > prefill["dot_flops"] > 0
+
+
+@pytest.mark.parametrize("arch", TRIP_ARCHS)
+@pytest.mark.parametrize("shape", TRIP_SHAPES)
+def test_trip_counts_match_every_step_on_a_fake_mesh(jobs, arch, shape):
+    """Reduced cells on a fake (2, 2) mesh: the loops over time counted by
+    their trip counts against every step run.  Matmul flops and collective
+    bytes by kind and axis equal; flops, transcendentals and bytes within
+    1% (the last step's decay, whose grad is unused, gets a zero slice
+    where the unbind broadcast a scalar); the peak within 5%; the same
+    for each region; far fewer ops run."""
+    res = _job(jobs, f"trips|{arch}")
+    tr, full = res[f"{shape}|trips"], res[f"{shape}|every step"]
+    for got, want in [(tr["total"], full["total"])] + [
+            (tr["regions"][r], full["regions"][r]) for r in full["regions"]]:
+        assert got["dot_flops"] == want["dot_flops"]
+        for k in ("collective_bytes", "collective_axis_bytes", "collective_count"):
+            assert got[k] == want[k], k
+        for k in ("flops", "transcendentals", "bytes"):
+            assert abs(got[k] - want[k]) <= 0.01 * want[k], (k, got[k], want[k])
+    peak, want = (x["memory"]["peak_device_bytes"] for x in (tr, full))
+    assert abs(peak - want) <= 0.05 * want, (peak, want)
+    region = "wkv_scan" if arch == "rwkv6-3b" else "rglru_rec"
+    assert tr["regions"][region]["flops"] > 0
+    assert tr["ops"] < full["ops"]
 
 
 def test_model_flops_and_kernel_models_equal_the_reference(jobs):
