@@ -12,16 +12,25 @@ Phases (any failure exits non-zero before the result line):
                sharded loss and grads, two ``Trainer`` steps and a
                microbatch step, checkpoints across meshes, the sharded
                ``DiffusionServer`` (reduced internlm2, olmoe,
-               recurrentgemma, rwkv6; modeled and real payload) and K3's
-               GQA heads at tp = 2, each held to the port on one device by
-               ``port_checks`` (the bounds of ``test_torch_sharding.py``);
+               recurrentgemma, rwkv6; modeled and real payload), K3's
+               GQA heads at tp = 2, and reduced gemma3-1b with 3 query
+               heads, which do not divide over 'tp' (each rank attends its
+               own S / 2 query rows: K3's entry at its offset in prefill,
+               the plain route in training), each held to the port on one
+               device by ``port_checks`` (the bounds of
+               ``test_torch_sharding.py``);
   2. build   - nvcc builds every kernel in src/repro_torch/csrc, in parallel;
   3. parity  - each kernel against its plain PyTorch version on the card:
                flash attention (bf16, rel. err < 2e-2, head dims up to 256,
                prompts up to 2,048, unmasked at the whisper encoder's 1,024
                and 1,500 frames and across Sq != Skv (cross-attention, 128
                and 187 queries), causal at llava's 4,608 positions with 56/8
-               heads; f32 < 2e-5, also unmasked at Sq != Skv), the two
+               heads; f32 < 2e-5, also unmasked at Sq != Skv; then one
+               sequence shard at a time at its own query offset, llava's
+               prompt in 16 blocks of 288 rows and a 2,048-token prompt
+               under a 2,048 window at D = 256 in 16 of 128, each block
+               against the plain version and the same rows of K3 over the
+               whole sequence, 2e-2), the two
                dispatch scoring
                kernels (max |out - float64| == 0.0; K1 also at the serving
                window, at W = 1 and at ragged O), the grouped expert GEMM
@@ -108,10 +117,12 @@ Phases (any failure exits non-zero before the result line):
                --reduced --steps 3`` on the card;
      dryrun  - the cost model under this machine's torch: (a) started
                beside the build, ``python -m repro_torch.launch.dryrun`` on
-               internlm2-1.8b x train_4k, olmoe-1b-7b x decode_32k and
+               internlm2-1.8b x train_4k, olmoe-1b-7b x decode_32k,
                rwkv6-3b x train_4k (its loops over time counted by their
-               trip counts), 256 fake ranks (16 x 16, the card hidden,
-               nothing allocated): each cell's terms, dominant term, peak
+               trip counts) and ``DRYRUN_SPLIT_CELL``, whose query heads do
+               not divide over 'tp' (its matmul flops held to torch
+               2.13's count on a CPU host), 256 fake ranks (16 x 16, the
+               card hidden, nothing allocated): each cell's terms, dominant term, peak
                GiB and collective counts, ``ok`` required; (b) after phase
                9, the cost model's counts at world size 1 on FakeTensors of
                phase 9's internlm2-1.8b step and of one decode step beside
@@ -178,8 +189,10 @@ Phases (any failure exits non-zero before the result line):
                that no launch finds them in L2.  More rows: the gate/up
                shape, full capacity at C = 8 and C = 320, flash attention at
                2,048 tokens (D = 128) and at 512 (D = 256), at the whisper
-               encoder's and cross-attention's shapes and at llava's
-               prefill, window scoring at
+               encoder's and cross-attention's shapes, at llava's
+               prefill and at the last of its 16 sequence blocks (288 rows
+               at q_offset 4,320, SDPA given the explicit boolean mask),
+               window scoring at
                (W, O, E) = (256, 512, 64), the rank-K update at (256, 64,
                64), WKV6 at T = 16 and 2,048, K4 at qwen3-moe-235b-a22b's
                down product at one decode token's routing (E = 128, top 8).
@@ -197,6 +210,7 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -292,11 +306,12 @@ def attn_inputs(B, Sq, Skv, H, Hkv, D, dtype, seed):
     return q, k, v
 
 
-def attn_cost(B, Sq, Skv, H, Hkv, D, causal, window, elem):
+def attn_cost(B, Sq, Skv, H, Hkv, D, causal, window, elem, q_offset=None):
     """(bytes, operations) the function needs: q, k, v read once, o written
-    once; 4*D operations per unmasked (query, key) pair."""
+    once; 4*D operations per unmasked (query, key) pair, query row i at
+    position ``q_offset + i`` (default ``Skv - Sq``)."""
     import torch
-    qpos = torch.arange(Sq)[:, None] + (Skv - Sq)
+    qpos = torch.arange(Sq)[:, None] + (Skv - Sq if q_offset is None else q_offset)
     kpos = torch.arange(Skv)[None, :]
     ok = torch.ones((Sq, Skv), dtype=torch.bool)
     if causal:
@@ -308,11 +323,13 @@ def attn_cost(B, Sq, Skv, H, Hkv, D, causal, window, elem):
     return nbytes, 4.0 * D * pairs * B * H
 
 
-def sdpa_call(q, k, v, causal, window):
-    """One library call computing the same function (timed only)."""
+def sdpa_call(q, k, v, causal, window, q_offset=None):
+    """One library call computing the same function (timed only); a mask
+    other than whole-sequence causal goes in as an explicit boolean one."""
     import torch
     import torch.nn.functional as F
     Sq, Skv = q.shape[1], k.shape[1]
+    offset = Skv - Sq if q_offset is None else q_offset
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     kw = {}
     if q.shape[2] != k.shape[2]:
@@ -320,7 +337,7 @@ def sdpa_call(q, k, v, causal, window):
     if causal and not window and Sq == Skv:
         kw["is_causal"] = True
     elif causal or window:
-        qpos = torch.arange(Sq, device="cuda")[:, None] + (Skv - Sq)
+        qpos = torch.arange(Sq, device="cuda")[:, None] + offset
         kpos = torch.arange(Skv, device="cuda")[None, :]
         ok = torch.ones((Sq, Skv), dtype=torch.bool, device="cuda")
         if causal:
@@ -360,6 +377,57 @@ def flash_case(shape, causal=True, window=0, dtype_name="bf16", seed=0,
         nbytes, ops = attn_cost(B, Sq, Skv, H, Hkv, D, causal, window,
                                 q.element_size())
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, dtype_name)
+    return row
+
+
+# K3 on one sequence shard at a time: (label, (B, S, H, Hkv, D), window,
+# shards), the way a prefill whose query heads do not divide over 'tp' runs
+# it on each rank (llava-next-34b's 56 heads at tp = 16, its served prompt of
+# 2,304 patches and 2,304 tokens; recurrentgemma's local attention)
+FLASH_SPLITS = (("llava prefill", (1, 4608, 56, 8, 128), 0, 16),
+                ("window 2048", (1, 2048, 16, 1, 256), 2048, 16))
+
+
+def flash_split_case(label, shape, window, shards, seed=0, timed=False):
+    """Each of ``shards`` equal row blocks of the query at its own
+    ``q_offset`` against the plain version on the same inputs, and against
+    the same rows of K3 over the whole sequence (bf16, causal).  ``timed``:
+    the last block, the heaviest, against its bound, the plain version and
+    SDPA with an explicit boolean mask."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
+    B, S, H, Hkv, D = shape
+    q, k, v = attn_inputs(B, S, S, H, Hkv, D, torch.bfloat16, seed)
+    whole = flash_attention(q, k, v, causal=True, window=window)
+    n = S // shards
+    errs, max_abs = [], 0.0
+    for a in range(0, S, n):
+        qa = q[:, a:a + n].contiguous()
+        out = flash_attention(qa, k, v, causal=True, window=window, q_offset=a)
+        ref = attention_ref(qa, k, v, causal=True, window=window, q_offset=a)
+        errs.append([rel_err(out, ref), rel_err(out, whole[:, a:a + n])])
+        max_abs = max(max_abs, float((out.float() - ref.float()).abs().max()))
+    torch.cuda.synchronize()
+    row = {"label": label, "shape": list(shape), "window": window, "shards": shards,
+           "rows": n, "first_and_last_offset": [0, S - n], "worst_rel_err_plain": max(e[0] for e in errs),
+           "worst_rel_err_whole": max(e[1] for e in errs), "max_abs_err": max_abs}
+    if not (row["worst_rel_err_plain"] < 2e-2 and row["worst_rel_err_whole"] < 2e-2):
+        fail(f"flash_attention split {row} exceeds 2e-2 (per block {errs})")
+    if timed:
+        a = S - n
+        qa = q[:, a:].contiguous()
+        lib = sdpa_call(qa, k, v, True, window, q_offset=a)
+        row["library_rel_err"] = rel_err(lib().transpose(1, 2),
+                                         attention_ref(qa, k, v, causal=True,
+                                                       window=window, q_offset=a))
+        row["ms"] = cuda_ms(lambda: flash_attention(qa, k, v, causal=True, window=window,
+                                                    q_offset=a))
+        row["plain_ms"] = cuda_ms(lambda: attention_ref(qa, k, v, causal=True,
+                                                        window=window, q_offset=a))
+        row["library_ms"] = cuda_ms(lib)
+        nbytes, ops = attn_cost(B, n, S, H, Hkv, D, True, window, q.element_size(),
+                                q_offset=a)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, "bf16")
     return row
 
 
@@ -2409,8 +2477,13 @@ def gloo4_finish(h, card):
 
 
 # ------------------------------------------------------------------ dryrun
+# a cell whose query heads do not divide over 'tp' (each rank attends its own
+# S / 16 query rows), and its per-device matmul flops as torch 2.13 counts
+# them on a CPU host, which this machine's torch must count too
+DRYRUN_SPLIT_CELL = ("gemma3-1b", "prefill_32k")
+DRYRUN_SPLIT_DOT_FLOPS = 20_009_791_258_624.0
 DRYRUN_CELLS = (("internlm2-1.8b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
-                ("rwkv6-3b", "train_4k"))
+                ("rwkv6-3b", "train_4k"), DRYRUN_SPLIT_CELL)
 DRYRUN_TIMEOUT_S = 600
 DECODE_CAP, DECODE_POS = 128, 16        # the serve phase's cache, a short prompt
 COST_FLOPS_BAND, COST_MEMORY_BAND = (0.8, 1.5), (0.5, 2.0)
@@ -2476,6 +2549,10 @@ def _dryrun_cells(h, card):
                    "useful_flops_ratio": res["useful_flops_ratio"]}
             say(f"dryrun {arch} x {shape} @ {res['mesh']} (fake ranks, {card}): "
                 + json.dumps(row))
+            if (arch, shape) == DRYRUN_SPLIT_CELL and not math.isclose(
+                    row["dot_flops"], DRYRUN_SPLIT_DOT_FLOPS, rel_tol=1e-9):
+                fail(f"dryrun {arch} x {shape}: matmul flops {row['dot_flops']}, "
+                     f"torch 2.13 counts {DRYRUN_SPLIT_DOT_FLOPS}")
             rows.append(row)
         if proc.returncode != 0 or not (tmp / "trips.json").exists():
             fail(f"dryrun: rc {proc.returncode}\n{(tmp / 'dryrun.log').read_text()[-2500:]}")
@@ -2960,6 +3037,12 @@ def main() -> None:
     flash_rows.append(flash_case((2, 100, 300, 4, 4, 64), False, 0, "f32"))
     for row in flash_rows:
         say("parity flash_attention: " + json.dumps(row))
+    # one sequence shard at a time, each at its own query offset; the llava
+    # split's last block is timed
+    split_rows = [flash_split_case(label, shape, window, shards, timed=i == 0)
+                  for i, (label, shape, window, shards) in enumerate(FLASH_SPLITS)]
+    for row in split_rows:
+        say("parity flash_attention split: " + json.dumps(row))
     for W, O, E, dens in ((16, 64, 4, 0.2), (256, 512, 64, 0.05),
                           (300, 1200, 96, 0.02), (64, 256, 4, 0.2),
                           (8, 256, 16, 0.2), (1, 256, 16, 0.2),     # serving window
@@ -3174,6 +3257,8 @@ def main() -> None:
         **{name: next(r for r in flash_rows if tuple(r["shape"]) == shape
                       and r["dtype"] == "bf16")
            for shape, name in long_prompt.items()},
+        "flash_attention llava split, last of 16 blocks (288 rows, q_offset 4320)":
+            split_rows[0],
         "moe_gmm w1/w3 (f32 out), decode routing": gmm_case(
             E, C, D, F, out_dtype=torch.float32, counts=decode_fill, timed=True),
         "moe_gmm w2, C=8 all experts live": gmm_case(E, C, F, D, timed=True),
@@ -3223,6 +3308,7 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi_line, "flash_rows": flash_rows,
+         "flash_split_rows": split_rows,
          "main_rows": main_rows, "more_rows": more_rows,
          "serve": {a: v[2] for a, v in served.items()}, "launches": launches,
          "shapes": shapes, "payload": payload, "checkpoint": ckpt, "ci": ci,

@@ -5,8 +5,10 @@
 // src/repro/kernels/flash_attention/flash_attention.py.  Same function:
 // q [B,Sq,H,D], k and v [B,Skv,Hkv,D] (head h reads kv head h / (H/Hkv)),
 // online softmax with m, l and the accumulator in fp32, causal and
-// sliding-window masks on absolute positions with aligned ends
-// (q_offset = Skv - Sq), output in q's dtype.
+// sliding-window masks on absolute positions, output in q's dtype.  Query
+// row i sits at position q_offset + i (the Pallas body's `q_offset`): the
+// wrapper passes Skv - Sq (aligned ends, a whole prefill) or, for one
+// sequence shard of a prefill, Skv - S plus the shard's first row.
 //
 // Design.  The Pallas grid walks KV blocks as a sequential grid axis with
 // the running max/sum/accumulator in VMEM scratch.  Blocks here run in
@@ -85,8 +87,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o,
-                  int Sq, int Skv, int H, int Hkv, int causal, int window,
-                  float scale) {
+                  int Sq, int Skv, int H, int Hkv, int q_offset, int causal,
+                  int window, float scale) {
   constexpr int DP = D + 1;        // padded row: conflict-free column reads
   constexpr int PP = BK + 1;
   constexpr int DJ = D / 16;       // output columns per thread
@@ -103,7 +105,6 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const int q_offset = Skv - Sq;
   const long q_rs = (long)H * D;
   const long kv_rs = (long)Hkv * D;
   const T* qb = q + (long)b * Sq * q_rs + (long)h * D;
@@ -241,7 +242,8 @@ template <int D>
 __global__ void __launch_bounds__(TC_NT)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv,
-                int H, int Hkv, int causal, int window, float scale_log2) {
+                int H, int Hkv, int q_offset, int causal, int window,
+                float scale_log2) {
   constexpr int BKV = FlashTC<D>::BKV, LD = FlashTC<D>::LD;
   constexpr int NST = BKV / 8;     // n8 tiles of S a warp
   constexpr int NDT = D / 8;       // n8 tiles of O a warp
@@ -258,7 +260,6 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (H / Hkv);
-  const int q_offset = Skv - Sq;
   const long q_rs = (long)H * D;
   const long kv_rs = (long)Hkv * D;
   const bf16* qb = q + (long)b * Sq * q_rs + (long)h * D;
@@ -421,8 +422,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Sq, int Skv, int H, int Hkv, int causal, int window,
-                   cudaStream_t stream) {
+                   int Sq, int Skv, int H, int Hkv, int q_offset, int causal,
+                   int window, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
@@ -434,8 +435,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
       const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
       flash_tc_kernel<D><<<grid, TC_NT, smem, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, H, Hkv, causal,
-          window, 1.4426950408889634f / sqrtf((float)D));   // log2(e) / sqrt(D)
+          static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, H, Hkv, q_offset,
+          causal, window, 1.4426950408889634f / sqrtf((float)D));   // log2(e) / sqrt(D)
       return cudaGetLastError();
     }
   }
@@ -446,20 +447,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_simt_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, H, Hkv, causal, window, 1.f / sqrtf((float)D));
+      static_cast<T*>(o), Sq, Skv, H, Hkv, q_offset, causal, window,
+      1.f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-                       int Sq, int Skv, int H, int Hkv, int D, int causal,
-                       int window, cudaStream_t stream) {
+                       int Sq, int Skv, int H, int Hkv, int D, int q_offset,
+                       int causal, int window, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window,
+                                    stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window,
+                                    stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -467,19 +471,24 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Tensors are contiguous [B,S,heads,D].
+// Query row i is at position q_offset + i; a masked call needs
+// 0 <= q_offset and q_offset + Sq <= Skv.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int Sq, int Skv, int H,
-                                   int Hkv, int D, int dtype, int causal,
-                                   int window, void* stream) {
+                                   int Hkv, int D, int dtype, int q_offset,
+                                   int causal, int window, void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this call's
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  if ((causal || window) && (q_offset < 0 || q_offset > Skv - Sq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_d<float>(q, k, v, o, B, Sq, Skv, H, Hkv, D, causal, window, s);
+    err = dispatch_d<float>(q, k, v, o, B, Sq, Skv, H, Hkv, D, q_offset, causal, window, s);
   else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, Hkv, D, causal, window, s);
+    err = dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, Hkv, D, q_offset, causal,
+                                    window, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

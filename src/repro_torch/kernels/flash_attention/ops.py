@@ -14,18 +14,24 @@ from .ref import attention_ref
 _SIGNATURES = {
     "flash_attention_fwd": [_build.P, _build.P, _build.P, _build.P,
                             _build.I, _build.I, _build.I, _build.I, _build.I,
-                            _build.I, _build.I, _build.I, _build.I, _build.P],
+                            _build.I, _build.I, _build.I, _build.I, _build.I,
+                            _build.P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Tiled online-softmax GQA attention with aligned ends.
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset=None):
+    """Tiled online-softmax GQA attention.
 
-    q: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D] with H % Hkv == 0.  On CUDA:
-    float32 or bfloat16, D in {16, 32, 64, 128, 256}, contiguous inputs, and
-    Skv >= Sq when a causal or window mask applies.
+    q: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D] with H % Hkv == 0.  Query row i
+    sits at position ``q_offset + i`` (the Pallas body's ``q_offset``);
+    None means ``Skv - Sq``, aligned ends.  A given offset must be >= 0
+    and, when a causal or window mask applies, keep the last row within
+    the keys (``q_offset + Sq <= Skv``).  On CUDA: float32 or bfloat16, D in
+    {16, 32, 64, 128, 256}, contiguous inputs, and Skv >= Sq when a mask
+    applies with the default offset.
     """
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k, v must be [B, S, heads, D]")
@@ -36,8 +42,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if Hkv == 0 or H % Hkv:
         raise ValueError("H must be a multiple of Hkv")
+    masked = bool(causal or window)
+    if q_offset is not None:
+        q_offset = int(q_offset)
+        if q_offset < 0:
+            raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+        if masked and q_offset + Sq > Skv:
+            raise ValueError(f"masked attention needs q_offset + Sq <= Skv, got "
+                             f"{q_offset} + {Sq} > {Skv}")
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     _build.refuse_grad("flash_attention", q, k, v)
     _build.refuse_dtensor("flash_attention", q, k, v)
     if q.device.type != "cuda":
@@ -51,8 +65,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention kernel takes D in {HEAD_DIMS}, got {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous tensors")
-    if (causal or window) and Skv < Sq:
+    if masked and Skv < Sq:
         raise ValueError("masked attention needs Skv >= Sq (aligned ends)")
+    if q_offset is None:
+        q_offset = Skv - Sq
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -61,7 +77,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, Hkv, D, _DTYPES[q.dtype], int(bool(causal)),
+            B, Sq, Skv, H, Hkv, D, _DTYPES[q.dtype], q_offset, int(bool(causal)),
             int(window), stream)
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1

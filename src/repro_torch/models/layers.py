@@ -17,7 +17,10 @@ reference trains through its jnp attention: the kernel has no backward.
 Under a mesh the kernel runs on each rank's local shards
 (``ShardCtx.local_call``): the batch and, when they divide over 'tp', the
 query heads stay sharded, and each rank takes the KV heads its own query
-heads read (``_kv_span``).
+heads read (``_kv_span``); when the heads do not divide, a prefill's query
+stays split on the sequence over 'tp', as the reference lays it out, and
+each rank runs its own rows from their own first position (K3's
+``q_offset``).
 The scores, mask and softmax, and the kernel's call, run in the
 ``record_function`` region "attn_scores", the reference's named scope,
 which the cost model reads (``launch/op_analysis.py``).
@@ -118,10 +121,12 @@ def attention_core(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
     online softmax, whose transient is [B, H, Sq, chunk] fp32.  Under grad
     mode each chunk is recomputed in backward (the reference's per-chunk
     ``jax.checkpoint``) instead of keeping its scores for it.  Under a mesh
-    it runs on each rank's heads (``_on_rank_heads``), as the kernel does.
+    it runs on each rank's heads or sequence rows (``_on_rank_heads``), as
+    the kernel does.
     """
     return _on_rank_heads(
-        lambda q, k, v: _attention(q, k, v, qpos, kpos, causal, window, chunk),
+        lambda q, k, v, first: _attention(q, k, v, qpos[first:first + q.shape[1]], kpos,
+                                          causal, window, chunk),
         q, k, v, ctx)
 
 
@@ -182,39 +187,59 @@ def _kv_span(first: int, n: int, rep: int) -> Tuple[int, int]:
 
 
 def _on_rank_heads(fn, q, k, v, ctx: ShardCtx):
-    """``fn(q, k, v)``, attention on plain tensors, or on each rank's local
-    shards of DTensors: the batch stays sharded over 'dp' and the query
-    heads over 'tp' when they divide (else they are gathered: a sequence
-    shard's causal ends would be wrong on a local slice); K and V are
-    gathered over 'tp' and each rank slices the KV heads its query heads
-    read (``_kv_span``; MQA keeps KV head 0 on every rank), so their local
-    grads are partial sums over 'tp'.  A decode step's K/V caches, sharded
-    on their capacity over 'tp', are gathered too.  Per-rank code also
-    keeps clear of the flatten of two sharded dims in a batched matmul,
-    which torch 2.11's DTensor refuses."""
-    H, Hkv = q.shape[2], k.shape[2]
-    heads = "tp" if H % max(1, ctx.tp) == 0 else None
-    bshd = ("dp", None, heads, None)
+    """``fn(q, k, v, first)``, attention on plain tensors whose query row i
+    is the whole query's row ``first + i``, or on each rank's local shards
+    of DTensors, in the reference's layouts: the batch stays sharded over
+    'dp', and the query heads over 'tp' when they divide; when they do
+    not, a prefill's query stays split on the sequence over 'tp' (its
+    rows are ``first`` onwards, by DTensor's own chunking), and a decode
+    step's single query is gathered.  K and V are gathered over 'tp'; with
+    split heads each rank slices the KV heads its query heads read
+    (``_kv_span``; MQA keeps KV head 0 on every rank).  Either split makes
+    the local K/V grads partial sums over 'tp'.  A decode step's K/V
+    caches, sharded on their capacity over 'tp', are gathered too.
+    Per-rank code also keeps clear of the flatten of two sharded dims in a
+    batched matmul, which torch 2.11's DTensor refuses."""
+    S, H, Hkv = q.shape[1], q.shape[2], k.shape[2]
+    tp = max(1, ctx.tp)
+    if H % tp == 0:
+        bshd = ("dp", None, "tp", None)
+    elif S > 1:
+        bshd = ("dp", "tp", None, None)
+    else:
+        bshd = ("dp", None, None, None)
     kv = ("dp", None, None, None)
 
     def run(ql, kl, vl):
-        n = ql.shape[2]
+        n, rows = ql.shape[2], ql.shape[1]
         if n != H:                          # this rank's H / tp query heads
             lo, hi = _kv_span(ctx.mesh.get_local_rank(ctx.tp_axis) * n, n, H // Hkv)
             kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
-        return fn(ql, kl, vl)
+        first = 0
+        if rows != S:                       # this rank's rows of the sequence
+            first = ctx.mesh.get_local_rank(ctx.tp_axis) * -(-S // tp)
+        return fn(ql, kl, vl, first)
 
-    split = (ctx.tp_axis,) if heads and ctx.tp > 1 else ()
+    # a dim that does not divide over 'tp' stays whole (``ShardCtx.spec``)
+    split = ((ctx.tp_axis,) if tp > 1 and ctx.tp_axis in ctx.spec(bshd, tuple(q.shape))
+             else ())
     return ctx.local_call(run, (q, k, v), (bshd, kv, kv), [(bshd, tuple(q.shape))],
                           grad_partial=((), split, split))
 
 
 def _flash(q, k, v, *, causal: bool, window: int, ctx: ShardCtx):
-    """The flash-attention kernel, on each rank's heads under a mesh."""
-    def kernel(q, k, v):
+    """The flash-attention kernel, on each rank's heads or rows under a
+    mesh; a rank's rows of a masked call start at position ``Skv - S +
+    first`` (the whole query keeps the kernel's default, aligned ends)."""
+    S, Skv = q.shape[1], k.shape[1]
+
+    def kernel(q, k, v, first):
+        kw = {}
+        if q.shape[1] != S and (causal or window):
+            kw["q_offset"] = Skv - S + first
         with record_function("attn_scores"):
             return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=causal, window=window)
+                                   causal=causal, window=window, **kw)
 
     return _on_rank_heads(kernel, q, k, v, ctx)
 
@@ -258,13 +283,7 @@ def attention_block(p, x, *, cfg, positions, causal=True, window=0,
     else:
         o = attention_core(q, k, v, positions, kpos, causal=causal,
                            window=window, chunk=chunk, ctx=ctx)
-    o = reshape(o, B, S, H * Dh)
-    if H % max(1, ctx.tp):
-        # heads that do not divide over 'tp': the cotangent from the
-        # row-parallel wo, split on H * Dh, is gathered before it is viewed
-        # back as [B, S, H, Dh]
-        o = ctx.cstr(o, "dp", None, None)
-    return mm(o, p["wo"]), (k, v)
+    return mm(reshape(o, B, S, H * Dh), p["wo"]), (k, v)
 
 
 # ------------------------------------------------------------------- MLP

@@ -168,7 +168,9 @@ def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False,
         out = ctx.cstr(out, "dp", None, None)
     out = rmsnorm(p["ln_out"], out)
     out = mm((out.to(F32) * g).to(x.dtype), p["wo"])
-    return out, x[:, -1, :], sT
+    # a copy: the view would pin the whole [B, T, D] input until the caches
+    # are stacked (a JAX slice is a copy)
+    return out, x[:, -1, :].clone(), sT
 
 
 def timemix_step(p, x1, shift_prev, s0, head_dim: int):
@@ -183,7 +185,7 @@ def channelmix_apply(p, x, shift_prev):
     x_r = x + xx * p["mu_r"]
     k = torch.square(torch.relu(mm(x_k, p["wk"]).to(F32))).to(x.dtype)
     out = torch.sigmoid(mm(x_r, p["wr"]).to(F32)).to(x.dtype) * mm(k, p["wv"])
-    return out, x[:, -1, :]
+    return out, x[:, -1, :].clone()          # a copy, as above
 
 
 def rwkv_state_init(batch: int, d_model: int, head_dim: int, device=None, lead=()):

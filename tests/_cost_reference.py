@@ -7,14 +7,16 @@ host devices, which must not reach the test process.
 Writes ``model_flops`` and the three kernel models of ``repro.launch.perf``
 for every (arch x shape) cell on both production meshes, and the
 per-device ``dot_flops`` of ``analyze_hlo_text`` for the reduced cells of
-``HLO_CELLS`` on a (2, 2) mesh of 4 forced host devices (``Auto`` axes,
-as ``tests/_sharded_reference.py`` builds it), each built as the
-reference's ``build_cell`` builds a cell.
+``HLO_CELLS`` on a (2, 2) mesh of 4 of 8 forced host devices (``Auto``
+axes, as ``tests/_sharded_reference.py`` builds it), and those of the
+``attn_scores`` region (``region_costs``) for ``TP8_CELLS`` on a (1, 8)
+mesh of all 8, whose 4 query heads do not divide over 'model'; each cell
+built as the reference's ``build_cell`` builds a cell.
 """
 
 import os
 
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 
 import json  # noqa: E402
 import sys  # noqa: E402
@@ -26,11 +28,11 @@ HLO_CELLS = (("internlm2-1.8b", "prefill_32k"), ("internlm2-1.8b", "decode_32k")
              ("olmoe-1b-7b", "prefill_32k"), ("recurrentgemma-9b", "prefill_32k"),
              ("internlm2-1.8b", "train_4k"), ("olmoe-1b-7b", "train_4k"),
              ("whisper-medium", "train_4k"), ("rwkv6-3b", "train_4k"))
+TP8_CELLS = (("internlm2-1.8b", "prefill_32k"), ("internlm2-1.8b", "train_4k"))
 
 
-def hlo_dot_flops(arch, shape_name, mesh):
+def compiled_text(arch, shape_name, mesh):
     from repro.configs import SHAPES, get_arch
-    from repro.launch.hlo_analysis import analyze_hlo_text
     from repro.launch.mesh import make_ctx
     from repro.launch.shardings import (
         batch_specs,
@@ -58,13 +60,13 @@ def hlo_dot_flops(arch, shape_name, mesh):
     donate = (0, 1) if shape.kind == "train" else ((1,) if shape.kind == "decode" else ())
     fn = jax.jit(step, donate_argnums=donate, out_shardings=out_sh)
     with mesh:
-        text = fn.lower(*args).compile().as_text()
-    return analyze_hlo_text(text).dot_flops
+        return fn.lower(*args).compile().as_text()
 
 
 def main():
-    jax.devices()                   # 4 host devices, before perf's import
+    jax.devices()                   # 8 host devices, before perf's import
     from repro.configs import SHAPES, all_archs, cells
+    from repro.launch.hlo_analysis import analyze_hlo_text, region_costs
     from repro.launch.perf import (
         flash_kernel_model,
         model_flops,
@@ -83,9 +85,14 @@ def main():
                     "wkv": wkv_kernel_model(cfg, shape, n_dev),
                     "rglru": rglru_kernel_model(cfg, shape, n_dev)}
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
-    hlo = {f"{a}|{s}": hlo_dot_flops(a, s, mesh) for a, s in HLO_CELLS}
+    hlo = {f"{a}|{s}": analyze_hlo_text(compiled_text(a, s, mesh)).dot_flops
+           for a, s in HLO_CELLS}
+    mesh8 = jax.sharding.Mesh(np.array(jax.devices()).reshape(1, 8), ("data", "model"))
+    tp8 = {f"{a}|{s}": region_costs(compiled_text(a, s, mesh8),
+                                    ["attn_scores"])["attn_scores"].dot_flops
+           for a, s in TP8_CELLS}
     with open(sys.argv[1], "w") as f:
-        json.dump({"models": models, "hlo_dot_flops": hlo}, f)
+        json.dump({"models": models, "hlo_dot_flops": hlo, "tp8_attn_dot_flops": tp8}, f)
 
 
 if __name__ == "__main__":

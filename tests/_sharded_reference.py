@@ -9,7 +9,8 @@ embedding's bf16 cast, whose cotangent is rounded to bf16 op by op).
 The ``serve`` case runs the reference's ``DiffusionServer(ctx=)`` on the
 stream of ``_torch_sharded_jobs.serve_prompts`` on the bridged bf16
 weights, and its jitted prefill and decode steps under the mesh on the
-same weights in f32.  The mesh is built with ``jax.sharding.Mesh`` (``Auto`` axes): under jax
+same weights in f32.  ``_torch_sharded_jobs.SPLIT_ARCH`` (query heads that
+do not divide over 'model') joins the loss and the serve cases.  The mesh is built with ``jax.sharding.Mesh`` (``Auto`` axes): under jax
 0.9, ``jax.make_mesh`` gives ``Explicit`` axes, on which the reference's
 ``with_sharding_constraint`` calls refuse to run.  Inputs and outputs are
 flat npz files keyed ``<case>/<path>``.
@@ -88,8 +89,10 @@ def main(src: str, dst: str) -> None:
     # sharded loss and grads, f32 params
     tokens = jnp.asarray(inputs["tokens"], jnp.int32)
     shape = ShapeConfig("t", "train", tokens.shape[1], tokens.shape[0])
-    for arch in ARCHS:
-        cfg = get_arch(arch).reduced()
+    from _torch_sharded_jobs import SPLIT_ARCH, reduced_cfg
+
+    for arch in ARCHS + (SPLIT_ARCH,):
+        cfg = reduced_cfg(get_arch, arch)
         like = jax.eval_shape(lambda: init_params(cfg, jax.random.PRNGKey(0)))
         params = _fill(like, inputs, f"params/{arch}")
         loss_fn = make_loss_fn(cfg, shape, ctx)
@@ -122,12 +125,13 @@ def serve_case(inputs, out, ctx):
     import json
 
     from _torch_sharded_jobs import (SERVE_ARCHS, SERVE_COUNTERS, SERVE_KW,
-                                     SERVE_PROMPT, serve_prompts, serve_tokens)
+                                     SERVE_PROMPT, SPLIT_ARCH, reduced_cfg,
+                                     serve_prompts, serve_tokens)
     from repro.models import cache_init
     from repro.runtime.serve_loop import DiffusionServer, _merge_prefill_caches
 
-    for arch in SERVE_ARCHS:
-        cfg = get_arch(arch).reduced()
+    for arch in SERVE_ARCHS + (SPLIT_ARCH,):
+        cfg = reduced_cfg(get_arch, arch)
         like = jax.eval_shape(lambda: init_params(cfg, jax.random.PRNGKey(0)))
         f32 = _fill(like, inputs, f"params/{arch}")
         bf16 = jax.tree_util.tree_map(lambda x, l: x.astype(l.dtype), f32, like)

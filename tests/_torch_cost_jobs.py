@@ -11,8 +11,9 @@ twice in this fresh process (the sharding propagator's shape-inference op
 on its cache miss must not count), a matmul sharded on both operands, a
 replicated one, one sharded on the contracting dim (a reduction
 collective) and a Shard(0) -> Shard(1) move (one all-to-all); the loss's
-label pick on batch-sharded logits, backward included; reduced train
-cells whose 4 heads do not divide over a (1, 8) mesh's 'model' axis.
+label pick on batch-sharded logits, backward included; the matmul flops
+of the ``attn_scores`` region of reduced internlm2 x ``TP8_SHAPES`` on a
+(1, 8) mesh, whose 4 heads do not divide over its 'model' axis.
 ``cells <i> <n>``: ``run_cell`` on every n-th reduced cell from the i-th,
 on a fake (2, 2) mesh.
 ``regions``: the region costs of reduced internlm2, rwkv6 and
@@ -42,6 +43,7 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 sys.path.insert(0, str(SRC))
 
 REGION_ARCHS = ("internlm2-1.8b", "rwkv6-3b", "recurrentgemma-9b")
+TP8_ARCH, TP8_SHAPES = "internlm2-1.8b", ("prefill_32k", "train_4k")
 FULL_CELL = ("internlm2-1.8b", "decode_32k")
 
 
@@ -134,13 +136,15 @@ def job_mesh():
         out["pick_global_bytes"] = 8 * 16 * 32 * 4
     finally:
         dist.destroy_process_group()
-    # heads that do not divide over 'model': 4 heads at tp = 8
-    for arch in ("internlm2-1.8b", "rwkv6-3b"):
-        from repro_torch.launch.dryrun import run_cell
+    # heads that do not divide over 'model': 4 heads at tp = 8, whose
+    # attention each rank runs on its own S / 8 query rows
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.perf import REGIONS
 
-        r = run_cell(arch, "train_4k", False, verbose=False, reduced=True,
-                     mesh_shape=(1, 8))
-        out[f"tp8|{arch}"] = r["ok"]
+    for shape in TP8_SHAPES:
+        tr = trace_cell(TP8_ARCH, shape, False, reduced=True, mesh_shape=(1, 8),
+                        regions=REGIONS)[-1]
+        out[f"tp8|{shape}"] = tr.regions["attn_scores"].dot_flops
     return out
 
 

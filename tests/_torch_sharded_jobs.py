@@ -14,7 +14,10 @@ recurrentgemma and rwkv6 under the mesh and on one device (f32 params;
 bf16 params with MoE routing replayed from one device),
 the sharded ``DiffusionServer`` on the stream of ``test_torch_payload.py``
 (bf16 modeled and real payload, f32 params) and on one device (f32), and
-the flash-attention kernel's GQA head mapping at tp = 2.
+the flash-attention kernel's GQA head mapping at tp = 2.  Then ``split``:
+``SPLIT_ARCH``, whose query heads do not divide over 'tp', trained,
+prefilled, decoded and served under the mesh, each rank's attention calls
+recorded.
 Jobs ``psum``: ``compressed_psum`` over a ("pod",) mesh of every rank.
 Jobs ``bf16_readings``: the readings behind the bf16 logits bounds
 (``bf16_readings``; ``<inputs.npz>`` unused, pass ``none``).
@@ -39,12 +42,23 @@ import torch.distributed as dist
 
 
 ARCHS = ("internlm2-1.8b", "olmoe-1b-7b", "rwkv6-3b")
+# reduced gemma3-1b with 3 query heads, which do not divide over the (2, 2)
+# mesh's 'tp': attention takes the reference's sequence split (its sliding
+# window comes along)
+SPLIT_ARCH = "gemma3-1b-h3"
 SRC = Path(__file__).resolve().parents[1] / "src"
 RUN_TIMEOUT = 420       # ~70 s alone; 137 s beside five busy test workers
 
 
 def _np(t):
     return t.detach().to(torch.float32).numpy()
+
+
+def reduced_cfg(get_arch, name):
+    """The reduced config of ``name`` from either package's ``get_arch``."""
+    if name == SPLIT_ARCH:
+        return dataclasses.replace(get_arch("gemma3-1b").reduced(), num_heads=3)
+    return get_arch(name).reduced()
 
 
 def _fill(like, inputs, prefix):
@@ -119,35 +133,57 @@ def moe_job(ctx, inputs, out):
 
 
 def loss_jobs(ctx, inputs, out, rank):
+    for arch in ARCHS:
+        loss_case(ctx, inputs, out, arch)
+        if rank == 0:
+            loss_single(inputs, out, arch)
+
+
+def _loss_inputs(inputs, arch):
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.models import init_params, make_loss_fn
-    from repro_torch.models.sharding import ShardCtx, full
+    from repro_torch.models import init_params
 
     tokens = torch.from_numpy(inputs["tokens"]).long()
     shape = ShapeConfig("t", "train", tokens.shape[1], tokens.shape[0])
-    batch = {"tokens": tokens}
-    for arch in ARCHS:
-        cfg = get_arch(arch).reduced()
-        like = init_params(cfg, device="cpu", seed=0)
-        params = _fill(like, inputs, f"params/{arch}")
-        loss, aux, grads = _value_and_grads(make_loss_fn(cfg, shape, ctx=ctx),
-                                            _placed(ctx, params), batch, ctx)
-        out[f"loss/{arch}"] = np.float32(loss)
-        out[f"aux/{arch}"] = np.float32(aux)
-        for path, g in grads.items():
-            out[f"grads/{arch}/{path}"] = g
-        if rank == 0 and arch != "olmoe-1b-7b":     # its sharded MoE is other math
-            _, _, grads1 = _value_and_grads(make_loss_fn(cfg, shape), params, batch,
-                                            ShardCtx())
-            for path, g in grads1.items():
-                out[f"grads1/{arch}/{path}"] = g
-        # bf16: the port's own params, sharded against one device
-        with torch.no_grad():
-            sharded, _ = make_loss_fn(cfg, shape, ctx=ctx)(_placed(ctx, like), batch)
-            single, _ = make_loss_fn(cfg, shape)(like, batch)
-        out[f"bf16/sharded/{arch}"] = np.float32(float(full(sharded)))
-        out[f"bf16/single/{arch}"] = np.float32(float(single))
+    cfg = reduced_cfg(get_arch, arch)
+    like = init_params(cfg, device="cpu", seed=0)
+    return cfg, shape, {"tokens": tokens}, like, _fill(like, inputs, f"params/{arch}")
+
+
+def loss_case(ctx, inputs, out, arch):
+    """The sharded loss and grads on f32 params, and the sharded bf16 loss
+    on the port's own params."""
+    from repro_torch.models import make_loss_fn
+    from repro_torch.models.sharding import full
+
+    cfg, shape, batch, like, params = _loss_inputs(inputs, arch)
+    loss, aux, grads = _value_and_grads(make_loss_fn(cfg, shape, ctx=ctx),
+                                        _placed(ctx, params), batch, ctx)
+    out[f"loss/{arch}"] = np.float32(loss)
+    out[f"aux/{arch}"] = np.float32(aux)
+    for path, g in grads.items():
+        out[f"grads/{arch}/{path}"] = g
+    with torch.no_grad():
+        sharded, _ = make_loss_fn(cfg, shape, ctx=ctx)(_placed(ctx, like), batch)
+    out[f"bf16/sharded/{arch}"] = np.float32(float(full(sharded)))
+
+
+def loss_single(inputs, out, arch):
+    """``loss_case``'s one-device counterparts: the f32 grads (not olmoe's:
+    its sharded MoE is other math) and the bf16 loss."""
+    from repro_torch.models import make_loss_fn
+    from repro_torch.models.sharding import ShardCtx
+
+    cfg, shape, batch, like, params = _loss_inputs(inputs, arch)
+    if arch != "olmoe-1b-7b":
+        _, _, grads1 = _value_and_grads(make_loss_fn(cfg, shape), params, batch,
+                                        ShardCtx())
+        for path, g in grads1.items():
+            out[f"grads1/{arch}/{path}"] = g
+    with torch.no_grad():
+        single, _ = make_loss_fn(cfg, shape)(like, batch)
+    out[f"bf16/single/{arch}"] = np.float32(float(single))
 
 
 class _f32_params:
@@ -557,6 +593,99 @@ def gqa_job(ctx, rank, out, flags):
     flags["gqa/kv_span"] = _kv_span(ctx.mesh.get_local_rank("model") * 2, 2, 2)
 
 
+class _AttentionRows:
+    """Within: every attention call of the port's layers (the kernel's
+    entry ``flash_attention`` and the plain ``_attention``) records the
+    query rows it got and the position of its first row."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.calls = layers, []
+        self.orig = layers.flash_attention, layers._attention
+
+    def __enter__(self):
+        flash, plain = self.orig
+
+        def flash_rec(q, k, v, *, q_offset=None, **kw):
+            first = k.shape[1] - q.shape[1] if q_offset is None else q_offset
+            self.calls.append(("kernel", q.shape[1], k.shape[1], int(first)))
+            if q_offset is not None:
+                kw["q_offset"] = q_offset
+            return flash(q, k, v, **kw)
+
+        def plain_rec(q, k, v, qpos, kpos, *a):
+            self.calls.append(("plain", q.shape[1], k.shape[1], int(qpos[0])))
+            return plain(q, k, v, qpos, kpos, *a)
+
+        self.layers.flash_attention, self.layers._attention = flash_rec, plain_rec
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.flash_attention, self.layers._attention = self.orig
+
+
+def split_heads_job(ctx, inputs, rank, out, flags):
+    """``SPLIT_ARCH`` under the mesh: ``loss_case``, prefill and decode
+    logits on f32 params, the server's stream (bf16, modeled payload), each
+    beside one device on rank 0; every rank's attention calls under the
+    mesh recorded and gathered to rank 0 as (route, query rows, keys,
+    position of the first row), in call order."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.sharding import ShardCtx
+    from repro_torch.tree import tree_map
+
+    cfg = reduced_cfg(get_arch, SPLIT_ARCH)
+    f32 = tree_map(lambda x: x.float(), _fill(_own_params(SPLIT_ARCH, cfg), inputs,
+                                              f"params/{SPLIT_ARCH}"))
+    rec = {}
+    with _AttentionRows() as calls:
+        loss_case(ctx, inputs, out, SPLIT_ARCH)
+        rec["train"], calls.calls = calls.calls, []
+        out[f"serve/{SPLIT_ARCH}/f32/mesh"] = _logits_run(cfg, _placed(ctx, f32), ctx)
+        rec["serve"] = calls.calls
+    log, counters, _, _ = _serve_stream(cfg, ctx, "modeled")
+    runs = {"modeled": {"log": log, "counters": counters}}
+    if rank == 0:
+        loss_single(inputs, out, SPLIT_ARCH)
+        out[f"serve/{SPLIT_ARCH}/f32/single"] = _logits_run(cfg, f32, ShardCtx())
+        log, counters, _, _ = _serve_stream(cfg, ShardCtx(), "modeled")
+        runs["single"] = {"log": log, "counters": counters}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {"rank": rank, "tp_rank": ctx.mesh.get_local_rank("model"),
+                                   "calls": rec})
+    flags[f"split/{SPLIT_ARCH}"] = {"ranks": every, "train_seq": inputs["tokens"].shape[1],
+                                    **runs}
+
+
+def split_rows_problems(flags):
+    """What is wrong with the attention calls ``split_heads_job`` recorded:
+    in training and prefill each rank must run its own S / tp query rows
+    (by 'model' coordinate) against all S keys, from their own first
+    position, on the plain route and on the kernel's; a decode step runs
+    its one query whole."""
+    from repro_torch.configs import get_arch
+
+    tp = 2                                  # the (2, 2) mesh's 'model' axis
+    layers = reduced_cfg(get_arch, SPLIT_ARCH).num_layers
+    split, bad = flags[f"split/{SPLIT_ARCH}"], []
+    train_seq = split["train_seq"]
+    for r in split["ranks"]:
+        t, calls = r["tp_rank"], r["calls"]
+        n = train_seq // tp
+        if len(calls["train"]) < layers or any(
+                c != ["plain", n, train_seq, t * n] for c in calls["train"]):
+            bad.append(f"rank {r['rank']} train: {calls['train']}")
+        prefill, decode = calls["serve"][:layers], calls["serve"][layers:]
+        n = SERVE_PROMPT // tp
+        if any(c != ["kernel", n, SERVE_PROMPT, t * n] for c in prefill):
+            bad.append(f"rank {r['rank']} prefill: {prefill}")
+        if len(decode) != layers * SERVE_STEPS or any(
+                c[0] != "plain" or c[1] != 1 for c in decode):
+            bad.append(f"rank {r['rank']} decode: {decode}")
+    return bad
+
+
 def _wait(procs, deadline):
     import pytest
 
@@ -606,8 +735,8 @@ def make_inputs(path):
 
     rng = np.random.default_rng(0)
     out = {"tokens": rng.integers(0, 256, (4, 64)).astype(np.int32)}
-    for arch in sorted(set(ARCHS) | set(SERVE_ARCHS)):
-        params = _own_params(arch, get_arch(arch).reduced())
+    for arch in sorted(set(ARCHS) | set(SERVE_ARCHS) | {SPLIT_ARCH}):
+        params = _own_params(arch, reduced_cfg(get_arch, arch))
         paths, leaves, _ = tree_flatten_with_paths(params)
         for p, x in zip(paths, leaves):
             out[f"params/{arch}/{p}"] = x.float().numpy()
@@ -638,7 +767,7 @@ def port_checks(out, flags):
     c["moe_ffn_sharded drops"] = np.abs(
         out["moe/drop/out"] - out["moe/nodrop/out"]).max() > 1e-3
     c["moe on replicated operands (1e-6)"] = float(out["moe/replicated/err"]) < 1e-6
-    for arch in ARCHS:
+    for arch in ARCHS + (SPLIT_ARCH,):
         tol = 0.05 if arch == "olmoe-1b-7b" else 2e-3
         c[f"{arch} bf16 loss sharded = one device ({tol})"] = abs(
             float(out[f"bf16/sharded/{arch}"]) - float(out[f"bf16/single/{arch}"])) < tol
@@ -685,13 +814,21 @@ def port_checks(out, flags):
     c["K3 GQA heads at tp = 2"] = (float(out["gqa/gqa/err"]) < 1e-6
                                    and float(out["gqa/gqa/naive_err"]) > 1e-2)
     c["K3 MQA heads at tp = 2"] = float(out["gqa/mqa/err"]) < 1e-6
+    split = flags[f"split/{SPLIT_ARCH}"]
+    c[f"{SPLIT_ARCH}: each rank attends its own S / tp query rows"] = (
+        not split_rows_problems(flags))
+    c[f"{SPLIT_ARCH} f32 prefill/decode logits = one device (1e-4)"] = _logits_close(
+        out[f"serve/{SPLIT_ARCH}/f32/mesh"], out[f"serve/{SPLIT_ARCH}/f32/single"], SPLIT_ARCH)
+    c[f"{SPLIT_ARCH} server: log, counters = one device"] = (
+        split["modeled"]["log"] == split["single"]["log"]
+        and split["modeled"]["counters"] == split["single"]["counters"])
     return c
 
 
 def _logits_close(t, o, arch, tol=1e-4):
     from repro_torch.configs import get_arch
 
-    V = get_arch(arch).reduced().vocab_size
+    V = reduced_cfg(get_arch, arch).vocab_size
     return all(np.abs(a - b).max() / np.abs(b).max() < tol
                for a, b in zip(t[..., :V], o[..., :V]))
 
@@ -736,6 +873,7 @@ def main(rank: int, world: int, store: str, src: str, outdir: str, jobs: str) ->
         mesh_jobs(flags)
         timed("serve", serve_jobs, ctx, rank, out, flags, bridged)
         timed("gqa", gqa_job, ctx, rank, out, flags)
+        timed("split", split_heads_job, ctx, inputs, rank, out, flags)
         flags["seconds"] = times
     dist.barrier()
     if rank == 0:

@@ -448,3 +448,52 @@ def test_moe_ffn_train_value_and_grads_match_reference(dtype):
     for name, t, j in zip(("router", "w1", "w3", "w2", "x"), g_t, want):
         assert t.dtype == leaves[("router", "w1", "w3", "w2", "x").index(name)].dtype
         check(t, j, dtype, name)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_rwkv_prefill_shift_states_are_copies(monkeypatch, B):
+    """A prefill's token-shift states (time mix and channel mix, every
+    layer) share no storage with any layer's input, which a view would pin
+    until the caches are stacked (at B = 1 the slice is contiguous, so
+    ``.contiguous()`` would copy nothing); they equal the last position,
+    and the prefill's logits and caches are those of the views, bit for
+    bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import init_params, make_prefill_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch("rwkv6-3b").reduced()
+    params = init_params(cfg, device="cpu", seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.vocab_size, (B, 24)))
+    seen = []
+
+    def recorded(fn, as_view):
+        def run(p, x, *a, **k):
+            out = fn(p, x, *a, **k)
+            seen.append((x, out[1]))
+            if as_view:
+                out = (out[0], x[:, -1, :]) + tuple(out[2:])
+            return out
+        return run
+
+    runs = []
+    for as_view in (False, True):
+        seen.clear()
+        with monkeypatch.context() as m:
+            m.setattr(trw, "timemix_apply", recorded(trw.timemix_apply, as_view))
+            m.setattr(trw, "channelmix_apply", recorded(trw.channelmix_apply, as_view))
+            with torch.no_grad():
+                runs.append(make_prefill_step(cfg, ShapeConfig("p", "prefill", 24, B))(
+                    params, {"tokens": tokens}))
+        if not as_view:
+            assert len(seen) == 2 * cfg.num_layers
+            inputs = {x.untyped_storage().data_ptr() for x, _ in seen}
+            for x, shift in seen:
+                assert torch.equal(shift, x[:, -1, :])
+                assert shift.untyped_storage().data_ptr() not in inputs
+    (logits, caches), (logits_v, caches_v) = runs
+    assert torch.equal(logits, logits_v)
+    a, b = tree_leaves(caches), tree_leaves(caches_v)
+    assert len(a) == len(b) == 3          # S, shift_tm, shift_cm: layers stacked
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

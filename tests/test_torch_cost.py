@@ -23,6 +23,9 @@ and regions); the region costs of reduced train and prefill cells
 (a train step's region holds more than twice its forward's);
 ``model_flops`` and the kernel models equal to the reference's for all 33
 cells on both meshes; every reduced cell through ``run_cell``; per-device
+matmul flops of the ``attn_scores`` region against the reference's HLO
+region count where the query heads do not divide over 'model' (reduced
+internlm2, (1, 8) mesh, prefill and train); per-device
 matmul flops against the reference's HLO count for eight reduced cells
 (prefill and decode within 1%, train within 0.8-1.25: torch's
 ``checkpoint`` runs a checkpointed function whole again in backward, where
@@ -479,9 +482,17 @@ def test_label_pick_backward_stays_local(jobs):
             >= m["pick_global_bytes"] - local)
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "rwkv6-3b"])
-def test_train_step_with_heads_that_do_not_divide_tp(jobs, arch):
-    assert _job(jobs, "mesh")[f"tp8|{arch}"] is True
+@pytest.mark.parametrize("shape", ["prefill_32k", "train_4k"])
+def test_attention_flops_with_heads_that_do_not_divide_tp(jobs, shape):
+    """Reduced internlm2's 4 query heads on a (1, 8) mesh: each rank runs
+    attention on its own S / 8 query rows, as the reference lays it out, so
+    the ``attn_scores`` region's per-device matmul flops match the
+    reference's HLO region count (a rank that gathered the whole query
+    would count 8 times as many)."""
+    got = _job(jobs, "mesh")[f"tp8|{shape}"]
+    want = _job(jobs, "reference")["tp8_attn_dot_flops"][f"internlm2-1.8b|{shape}"]
+    lo, hi = HLO_TOL[shape.split("_")[0]]
+    assert want > 0 and lo <= got / want <= hi, (got, want, got / want)
 
 
 @pytest.mark.parametrize("arch,region", [

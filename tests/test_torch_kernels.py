@@ -131,6 +131,73 @@ def test_flash_wrapper_rejects_bad_shapes():
         flash_attention(q[0], k[0], k[0])
 
 
+# (B, S, H, Hkv, D, window, [(first row, rows)]): one sequence shard of a
+# prefill at a time; GQA at 1, 2 and 8 query heads a KV head, causal and
+# windowed, the direct and the chunked reference paths
+OFFSET_CASES = [
+    (2, 64, 2, 2, 16, 0, [(0, 16), (16, 16), (48, 16), (5, 11)]),
+    (1, 128, 4, 2, 32, 24, [(0, 32), (64, 32), (96, 32), (70, 3)]),
+    (2, 256, 8, 1, 16, 0, [(0, 64), (192, 64), (100, 1)]),
+    (1, 256, 8, 1, 64, 48, [(128, 32), (224, 32)]),
+]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,blocks", OFFSET_CASES)
+def test_attention_ref_with_offset_matches_reference_attention_core(
+        jref, B, S, H, Hkv, D, window, blocks, dtype):
+    """Rows ``a .. a + n`` of the query at ``q_offset = a`` against the
+    reference model's ``attention_core`` with ``qpos = arange(a, a + n)``
+    over keys at ``arange(S)`` (chunked at 64 keys past 128)."""
+    _, jnp = jref
+    from repro.models.layers import attention_core
+
+    q, k, v = attn_inputs(B, S, S, H, Hkv, D, seed=2)
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tq, tk, tv = _torch((q, k, v), dtype)
+    kpos = jnp.arange(S)
+    for a, n in blocks:
+        ref = attention_core(jnp.asarray(q[:, a:a + n]).astype(jdt),
+                             jnp.asarray(k).astype(jdt), jnp.asarray(v).astype(jdt),
+                             jnp.arange(a, a + n), kpos, causal=True, window=window,
+                             chunk=64 if S > 128 else 1024)
+        out = attention_ref(tq[:, a:a + n], tk, tv, causal=True, window=window,
+                            q_offset=a)
+        tol = 2e-2 if dtype == "bf16" else 2e-5
+        assert rel_err(_np(out), _np(ref)) < tol, (a, n)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,blocks", OFFSET_CASES)
+def test_attention_ref_with_offset_is_the_whole_sequence_rows(B, S, H, Hkv, D, window,
+                                                              blocks):
+    """In f32 a shard's rows at their offset are, bit for bit, the same rows
+    of the whole sequence's attention.  A single row's scores come from a
+    matrix-vector product, whose summation order differs: within 1e-6."""
+    q, k, v = _torch(attn_inputs(B, S, S, H, Hkv, D, seed=3), "f32")
+    whole = attention_ref(q, k, v, causal=True, window=window)
+    for a, n in blocks:
+        part = flash_attention(q[:, a:a + n], k, v, causal=True, window=window,
+                               q_offset=a)
+        if n > 1:
+            assert torch.equal(part, whole[:, a:a + n]), (a, n)
+        else:
+            assert rel_err(part.numpy(), whole[:, a:a + n].numpy()) < 1e-6, (a, n)
+
+
+def test_flash_wrapper_refuses_bad_offsets():
+    q, k, v = (torch.from_numpy(a) for a in attn_inputs(1, 8, 16, 2, 2, 16))
+    with pytest.raises(ValueError, match=">= 0"):
+        flash_attention(q, k, v, q_offset=-1)
+    with pytest.raises(ValueError, match="q_offset \\+ Sq <= Skv"):
+        flash_attention(q, k, v, q_offset=9)                 # causal
+    with pytest.raises(ValueError, match="q_offset \\+ Sq <= Skv"):
+        flash_attention(q, k, v, causal=False, window=4, q_offset=9)
+    # unmasked, the offset cannot matter; the default is the aligned end
+    assert torch.equal(flash_attention(q, k, v, causal=False, q_offset=9),
+                       flash_attention(q, k, v, causal=False))
+    assert torch.equal(flash_attention(q, k, v, q_offset=8), flash_attention(q, k, v))
+
+
 # ----------------------------------------------------------- dispatch scoring
 def score_inputs(W, O, E, density):
     rng = np.random.default_rng(42)
@@ -606,6 +673,30 @@ def test_flash_kernel_unmasked_and_wide_gqa_on_card(cuda_device, B, Sq, Skv, H, 
     torch.cuda.synchronize()
     ref = attention_ref(q, k, v, causal=causal)
     assert rel_err(_np(out), _np(ref)) < (2e-2 if dtype == "bf16" else 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,blocks", OFFSET_CASES + [
+    (1, 4608, 56, 8, 128, 0, [(r, 288) for r in range(0, 4608, 288)]),   # llava over 16
+    (1, 2048, 16, 1, 256, 2048, [(r, 128) for r in range(0, 2048, 128)]),
+])
+def test_flash_kernel_with_offset_matches_plain_on_card(cuda_device, B, S, H, Hkv, D,
+                                                        window, blocks, dtype):
+    """Each sequence shard at its own offset against the plain version, and
+    against the same rows of the kernel over the whole sequence."""
+    q, k, v = _torch(attn_inputs(B, S, S, H, Hkv, D), dtype, cuda_device)
+    whole = flash_attention(q, k, v, causal=True, window=window)
+    tol = 2e-2 if dtype == "bf16" else 2e-5
+    for a, n in blocks:
+        qa = q[:, a:a + n].contiguous()
+        before = flash_attention.launches
+        out = flash_attention(qa, k, v, causal=True, window=window, q_offset=a)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        ref = attention_ref(qa, k, v, causal=True, window=window, q_offset=a)
+        assert rel_err(_np(out), _np(ref)) < tol, (a, n)
+        assert rel_err(_np(out), _np(whole[:, a:a + n])) < tol, (a, n)
 
 
 @pytest.mark.cuda

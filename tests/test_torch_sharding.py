@@ -36,6 +36,11 @@ bridged weights:
     within 1e-4 of the reference's sharded steps, and on bf16 params
     within per-arch bounds of the port's on one device; greedy tokens on
     f32 params equal to one device's; K3's KV heads per rank at tp = 2;
+  * query heads that do not divide over 'tp' (reduced gemma3-1b with 3
+    heads, its sliding window along): the f32 loss and grads, prefill and
+    decode logits and the server against the reference's sharded runs,
+    each rank attending its own S / tp query rows (K3 at its offset in
+    prefill, the plain route in training);
   * ``port_checks``, what ``chip_smoke.py``'s ``gloo4`` phase holds these
     runs to without the reference, all passing.
 
@@ -71,12 +76,14 @@ from repro_torch.models.api import cache_init, is_encdec
 from repro_torch.optim.adamw import adamw8bit_init
 from repro_torch.tree import tree_flatten_with_paths, tree_map
 
-from _torch_sharded_jobs import (BF16_LOGITS_TOL, BF16_TIE, SERVE_ARCHS, make_inputs,
-                                 port_checks, run_ranks)
+from _torch_sharded_jobs import (BF16_LOGITS_TOL, BF16_TIE, SERVE_ARCHS, SPLIT_ARCH,
+                                 make_inputs, port_checks, reduced_cfg, run_ranks,
+                                 split_rows_problems)
 
 TESTS = Path(__file__).resolve().parent
 SRC = TESTS.parent / "src"
 ARCHS = ("internlm2-1.8b", "olmoe-1b-7b", "rwkv6-3b")
+LOSS_ARCHS = ARCHS + (SPLIT_ARCH,)
 
 
 class FakeMesh:
@@ -303,14 +310,14 @@ def test_moe_ffn_sharded_matches_dense_when_nothing_drops(runs):
     assert np.abs(t["moe/nodrop/out"] - t["moe/dense/out"]).max() < 1e-5
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LOSS_ARCHS)
 def test_sharded_loss_matches_reference_f32(runs, arch):
     t, j = runs["port"], runs["ref"]
     assert abs(float(t[f"loss/{arch}"]) - float(j[f"loss/{arch}"])) < 1e-4
     assert abs(float(t[f"aux/{arch}"]) - float(j[f"aux/{arch}"])) < 1e-4
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LOSS_ARCHS)
 def test_sharded_grads_match_reference_f32(runs, arch):
     """Every leaf within 1e-4 relative L2 of the reference's sharded grad,
     but the embedding: both models cast its rows to bf16, so its grad is a
@@ -329,7 +336,7 @@ def test_sharded_grads_match_reference_f32(runs, arch):
         assert _rel_l2(t[emb], t["grads1" + emb[len("grads"):]]) < 1e-4
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LOSS_ARCHS)
 def test_sharded_loss_matches_single_device_bf16(runs, arch):
     t = runs["port"]
     tol = 0.05 if arch == "olmoe-1b-7b" else 2e-3
@@ -511,6 +518,40 @@ def test_sharded_real_payload_moves_local_shards(runs, arch):
     assert real["params_dtensor"] is True
     assert real["dtensor_leaves"] is True
     assert real["swap_in_bytes_per_s"] > 0.0
+
+
+def test_split_heads_prefill_and_decode_logits_match_reference(runs):
+    """Query heads that do not divide over 'tp' (``SPLIT_ARCH``, 3 heads at
+    tp = 2): the prefill on each rank's sequence rows through K3's entry
+    (its plain version here) and decode on the whole query, f32 params,
+    every step's logits within 1e-4 of the reference's sharded steps."""
+    t = runs["port"][f"serve/{SPLIT_ARCH}/f32/mesh"]
+    j = runs["ref"][f"serve/{SPLIT_ARCH}/f32/ref"]
+    cfg = reduced_cfg(get_arch, SPLIT_ARCH)
+    assert cfg.num_heads % 2 and t.shape == j.shape == (5, 1, cfg.padded_vocab)
+    for step, (a, b) in enumerate(zip(t[..., :cfg.vocab_size], j[..., :cfg.vocab_size])):
+        err = np.abs(a - b).max() / np.abs(b).max()
+        assert err < 1e-4, (step, err)
+
+
+def test_split_heads_server_matches_reference(runs):
+    """The sharded server on ``SPLIT_ARCH``: assignment log and counters
+    equal to the reference's sharded server's, and to one device's."""
+    ref = json.loads(str(runs["ref"][f"serve/{SPLIT_ARCH}/stream"]))
+    port = runs["flags"][f"split/{SPLIT_ARCH}"]
+    assert ref["counters"]["swap_ins"] >= 1 and len(ref["log"]) == 6
+    assert port["modeled"]["log"] == ref["log"] == port["single"]["log"]
+    assert port["modeled"]["counters"] == ref["counters"] == port["single"]["counters"]
+
+
+def test_split_heads_attention_runs_on_each_ranks_rows(runs):
+    """Every rank's attention calls under the mesh: training (plain route)
+    and prefill (K3's entry) on the rank's own S / tp query rows from their
+    own first position (rank t of 'model' from row t * S / tp), against
+    all S keys; no rank runs the whole query but in decode."""
+    assert split_rows_problems(runs["flags"]) == []
+    ranks = runs["flags"][f"split/{SPLIT_ARCH}"]["ranks"]
+    assert sorted(r["tp_rank"] for r in ranks) == [0, 0, 1, 1]
 
 
 @pytest.mark.parametrize("heads", ["gqa", "mqa"])
