@@ -117,11 +117,14 @@ Phases (any failure exits non-zero before the result line):
                --reduced --steps 3`` on the card;
      dryrun  - the cost model under this machine's torch: (a) started
                beside the build, ``python -m repro_torch.launch.dryrun`` on
-               internlm2-1.8b x train_4k, olmoe-1b-7b x decode_32k,
-               rwkv6-3b x train_4k (its loops over time counted by their
-               trip counts) and ``DRYRUN_SPLIT_CELL``, whose query heads do
-               not divide over 'tp' (its matmul flops held to torch
-               2.13's count on a CPU host), 256 fake ranks (16 x 16, the
+               internlm2-1.8b x train_4k, olmoe-1b-7b x decode_32k (each
+               rank's block of the capacity buffer), rwkv6-3b x train_4k
+               (its loops over time counted by their trip counts),
+               gemma3-1b x prefill_32k and llama3.2-3b x decode_32k, whose
+               query heads do not divide over 'tp' (each rank's own query
+               rows, and its own cache slots), the last three held to
+               torch 2.13's matmul flops on a CPU host
+               (``DRYRUN_DOT_FLOPS``), 256 fake ranks (16 x 16, the
                card hidden, nothing allocated): each cell's terms, dominant term, peak
                GiB and collective counts, ``ok`` required; (b) after phase
                9, the cost model's counts at world size 1 on FakeTensors of
@@ -195,7 +198,10 @@ Phases (any failure exits non-zero before the result line):
                window scoring at
                (W, O, E) = (256, 512, 64), the rank-K update at (256, 64,
                64), WKV6 at T = 16 and 2,048, K4 at qwen3-moe-235b-a22b's
-               down product at one decode token's routing (E = 128, top 8).
+               down product at one decode token's routing (E = 128, top 8)
+               and at the block one rank runs in olmoe-1b-7b x decode_32k
+               on 16 x 16 (E = 4 of 64 experts, C = 2 of 24 slots, the gate
+               product with the block's fills).
                The RG-LRU's row is the gated
                entry at one decode token; rows for the plain entry at T = 1
                (beside one ``addcmul``) and for both entries at T = 16 and
@@ -518,6 +524,20 @@ def routed_counts(T, E, K, C, D, seed=0):
     n = torch.zeros(E, dtype=torch.int32, device="cuda")
     n.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
     return torch.clamp(n, max=C)
+
+
+def decode_block(cfg, T, dp, tp):
+    """((E, C, D, F), fills) of the block of the MoE capacity buffer rank (0,
+    0) runs in a decode step of T tokens on a (dp, tp) mesh: its E / tp
+    experts and its chunk of C over 'dp', each expert's fill (from a
+    seeded routing, ``routed_counts``) less the block's first slot."""
+    import torch
+    from repro_torch.models.moe import capacity
+    E, C = cfg.num_experts, capacity(T, cfg.moe_top_k, cfg.num_experts,
+                                     cfg.capacity_factor)
+    n_e, n_c = E // tp, -(-C // dp)
+    fill = routed_counts(T, E, cfg.moe_top_k, C, cfg.d_model)[:n_e]
+    return (n_e, n_c, cfg.d_model, cfg.d_ff), torch.clamp(fill, 0, n_c)
 
 
 def cycling(fns):
@@ -2477,13 +2497,18 @@ def gloo4_finish(h, card):
 
 
 # ------------------------------------------------------------------ dryrun
-# a cell whose query heads do not divide over 'tp' (each rank attends its own
-# S / 16 query rows), and its per-device matmul flops as torch 2.13 counts
+# cells laid out per rank where the reference's compiled step splits them:
+# gemma3-1b's prefill and llama3.2-3b's decode, whose query heads do not
+# divide over 'tp' (each rank attends its own S / 16 query rows, or its own
+# cap / 16 cache slots), and olmoe-1b-7b's decode (each rank's block of the
+# MoE capacity buffer); their per-device matmul flops as torch 2.13 counts
 # them on a CPU host, which this machine's torch must count too
-DRYRUN_SPLIT_CELL = ("gemma3-1b", "prefill_32k")
-DRYRUN_SPLIT_DOT_FLOPS = 20_009_791_258_624.0
+DRYRUN_DOT_FLOPS = {("gemma3-1b", "prefill_32k"): 20_009_791_258_624.0,
+                    ("olmoe-1b-7b", "decode_32k"): 4_667_211_776.0,
+                    ("llama3.2-3b", "decode_32k"): 8_850_505_728.0}
 DRYRUN_CELLS = (("internlm2-1.8b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
-                ("rwkv6-3b", "train_4k"), DRYRUN_SPLIT_CELL)
+                ("rwkv6-3b", "train_4k"), ("gemma3-1b", "prefill_32k"),
+                ("llama3.2-3b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 600
 DECODE_CAP, DECODE_POS = 128, 16        # the serve phase's cache, a short prompt
 COST_FLOPS_BAND, COST_MEMORY_BAND = (0.8, 1.5), (0.5, 2.0)
@@ -2549,10 +2574,11 @@ def _dryrun_cells(h, card):
                    "useful_flops_ratio": res["useful_flops_ratio"]}
             say(f"dryrun {arch} x {shape} @ {res['mesh']} (fake ranks, {card}): "
                 + json.dumps(row))
-            if (arch, shape) == DRYRUN_SPLIT_CELL and not math.isclose(
-                    row["dot_flops"], DRYRUN_SPLIT_DOT_FLOPS, rel_tol=1e-9):
+            want = DRYRUN_DOT_FLOPS.get((arch, shape))
+            if want is not None and not math.isclose(row["dot_flops"], want,
+                                                     rel_tol=1e-9):
                 fail(f"dryrun {arch} x {shape}: matmul flops {row['dot_flops']}, "
-                     f"torch 2.13 counts {DRYRUN_SPLIT_DOT_FLOPS}")
+                     f"torch 2.13 counts {want}")
             rows.append(row)
         if proc.returncode != 0 or not (tmp / "trips.json").exists():
             fail(f"dryrun: rc {proc.returncode}\n{(tmp / 'dryrun.log').read_text()[-2500:]}")
@@ -2828,12 +2854,12 @@ def empty_batch_check(ops):
     return sorted(cases)
 
 
-def moe_gather_bytes(cfg, tp: int) -> float:
-    """Bytes each rank receives a decode token when a MoE layer at tp > 1
-    runs ``moe_ffn`` on DTensors: every expert weight gathered whole onto
-    every rank, the (tp - 1) / tp it does not hold crossing the links."""
-    experts = 3 * cfg.num_experts * cfg.d_model * cfg.d_ff * 2       # bf16
-    return cfg.num_layers * experts * (tp - 1) / tp
+def moe_block_bytes(cfg, tp: int) -> float:
+    """Bytes each rank receives a decode token when the MoE layers run on
+    each rank's block of the capacity buffer (``moe_ffn`` on DTensors) on
+    a (1, tp) mesh: the f32 partial output [1, D] all-reduced over 'tp'
+    (2 (tp - 1) / tp of it on a ring), every expert staying in place."""
+    return cfg.num_layers * 2 * (tp - 1) / tp * cfg.d_model * 4
 
 
 def mesh_serve_phase(ops, card, served):
@@ -2881,8 +2907,7 @@ def mesh_serve_phase(ops, card, served):
                    "peak_gb": perf["peak_gb"], "unsharded_peak_gb": base["peak_gb"],
                    "seconds": time.perf_counter() - t0, "nvidia_smi": card}
             if get_arch(arch).num_experts:
-                row["moe_decode_gather_gb_per_token_tp2"] = moe_gather_bytes(
-                    get_arch(arch), 2) / 1e9
+                row["moe_decode_bytes_per_token_tp2"] = moe_block_bytes(get_arch(arch), 2)
             rows[arch] = row
             say(f"mesh_serve {arch} [{card}]: " + json.dumps(row))
             say(f"mesh_serve {arch}: decode {row['decode_ms_per_token_after_first']:.2f} "
@@ -3000,7 +3025,7 @@ def main() -> None:
                 if "Used" in line or "spill" in line:
                     say(f"  ptxas {src}: {line.strip()}")
 
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import SHAPES, get_arch
     from repro_torch.models.moe import capacity
     ops = kernel_ops()
 
@@ -3242,6 +3267,8 @@ def main() -> None:
     }
     q3 = get_arch("qwen3-moe-235b-a22b")
     q3_C = capacity(1, q3.moe_top_k, q3.num_experts, q3.capacity_factor)
+    olmoe_block, olmoe_block_fill = decode_block(get_arch("olmoe-1b-7b"),
+                                                 SHAPES["decode_32k"].global_batch, 16, 16)
     long_prompt = {(1, 2048, 2048, 16, 8, 128): "flash_attention S=2048 D=128 (causal)",
                    (1, 512, 512, 16, 1, 256): "flash_attention S=512 D=256 (window 2048)",
                    (1, 1024, 1024, 16, 16, 64):
@@ -3270,6 +3297,9 @@ def main() -> None:
         "moe_gmm qwen3 w2, decode routing (E=128, D=4096, F=1536)": gmm_case(
             q3.num_experts, q3_C, q3.d_ff, q3.d_model, timed=True,
             counts=routed_counts(1, q3.num_experts, q3.moe_top_k, q3_C, q3.d_model)),
+        "moe_gmm w1/w3 (f32 out), one rank's block of olmoe-1b-7b x decode_32k "
+        "on 16x16 (E=4, C=2)": gmm_case(*olmoe_block, out_dtype=torch.float32,
+                                         counts=olmoe_block_fill, timed=True),
         "rglru_scan plain entry T=1": rglru_case(1, 1, rg.rnn_width, timed=True),
         "rglru_scan plain entry T=16 (prefill)": rglru_case(1, 16, rg.rnn_width,
                                                             timed=True),

@@ -20,7 +20,8 @@ query heads stay sharded, and each rank takes the KV heads its own query
 heads read (``_kv_span``); when the heads do not divide, a prefill's query
 stays split on the sequence over 'tp', as the reference lays it out, and
 each rank runs its own rows from their own first position (K3's
-``q_offset``).
+``q_offset``); a decode step there attends each rank's own slots of the
+capacity-sharded cache, combined over 'tp' as a split-KV softmax.
 The scores, mask and softmax, and the kernel's call, run in the
 ``record_function`` region "attn_scores", the reference's named scope,
 which the cost model reads (``launch/op_analysis.py``).
@@ -38,7 +39,8 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import flash_attention
-from .sharding import ShardCtx, gather_inner, gather_last, mm, reshape, unshard_dim
+from .sharding import (ShardCtx, gather_inner, gather_last, is_dtensor, mm, reshape,
+                       unshard_dim)
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -122,8 +124,11 @@ def attention_core(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
     mode each chunk is recomputed in backward (the reference's per-chunk
     ``jax.checkpoint``) instead of keeping its scores for it.  Under a mesh
     it runs on each rank's heads or sequence rows (``_on_rank_heads``), as
-    the kernel does.
+    the kernel does; a decode step whose heads do not divide over 'tp' runs
+    on each rank's own cache slots (``_on_rank_slots``).
     """
+    if q.shape[1] == 1 and ctx.mesh is not None and q.shape[2] % ctx.tp:
+        return _on_rank_slots(q, k, v, qpos, kpos, causal, window, ctx)
     return _on_rank_heads(
         lambda q, k, v, first: _attention(q, k, v, qpos[first:first + q.shape[1]], kpos,
                                           causal, window, chunk),
@@ -174,6 +179,63 @@ def _attention(q, k, v, qpos, kpos, causal: bool, window: int, chunk: int):
     return out.permute(0, 2, 1, 3).contiguous()  # [B, Sq, H, Dh]
 
 
+def _partial_attention(q, k, v, qpos, kpos, causal: bool, window: int):
+    """One rank's part of a split-KV softmax, on plain tensors: (o = the
+    sum of p * v [B, Sq, H, Dh], the row max m and the sum l of p [B, Sq,
+    H], all f32), p = exp(s - m) over the keys given (none: m = NEG_INF)."""
+    B, Sq, H, Dh = q.shape
+    with record_function("attn_scores"):     # region of the cost model
+        if k.shape[1] == 0:
+            zero = torch.zeros((B, Sq, H), dtype=F32, device=q.device)
+            return (torch.zeros((B, Sq, H, Dh), dtype=F32, device=q.device),
+                    zero + NEG_INF, zero)
+        rep = H // k.shape[2]
+        kk, vv = _repeat_kv(k, rep), _repeat_kv(v, rep)
+        s = torch.einsum("bqhd,bkhd->bqhk", q.to(F32), kk.to(F32)) * Dh ** -0.5
+        s = s + _mask_bias(qpos, kpos, causal, window)[None, :, None, :]
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        o = torch.einsum("bqhk,bkhd->bqhd", p.to(v.dtype).to(F32), vv.to(F32))
+        return o, m, p.sum(dim=-1)
+
+
+def _all_reduce(x, op: str, group):
+    """``x`` reduced by ``op`` ("sum", "max") over ``group``: the functional
+    collective, which the cost model counts."""
+    return torch.ops._c10d_functional.wait_tensor(
+        torch.ops._c10d_functional.all_reduce(x, op, group.group_name))
+
+
+def _on_rank_slots(q, k, v, qpos, kpos, causal: bool, window: int, ctx: ShardCtx):
+    """A decode step's attention where the query heads do not divide over
+    'tp', as the reference lays it out: the K/V caches stay on their
+    capacity shards over 'tp' (``cache_leaf_spec``; a capacity that does
+    not divide stays whole, and each rank takes its chunk of it), and each
+    rank runs every head of its one-token query against its own slots,
+    masked by their global positions (``_partial_attention``).  The f32
+    partials combine over 'tp' as a split-KV softmax: the row max
+    all-reduced, each rank's sums rescaled to it and all-reduced, then o /
+    l.  A rank whose slots are all masked adds exp(NEG_INF - M) = 0.  A
+    decode step has no backward, and the reductions have none."""
+    cap = k.shape[1]
+    bshd, kv = ("dp", None, None, None), ("dp", "tp", None, None)
+    split = ctx.tp_axis in ctx.spec(kv, tuple(k.shape))
+    group = ctx.mesh.get_group(ctx.tp_axis)
+
+    def run(ql, kl, vl):
+        lo, n = ctx.span(ctx.tp_axis, cap)
+        if not split:
+            kl, vl = kl[:, lo:lo + n], vl[:, lo:lo + n]
+        o, m, l = _partial_attention(ql, kl, vl, qpos, kpos[lo:lo + n], causal, window)
+        big = _all_reduce(m, "max", group)
+        scale = torch.exp(m - big)
+        l = _all_reduce(l * scale, "sum", group)
+        o = _all_reduce(o * scale[..., None], "sum", group)
+        return (o / l[..., None]).to(ql.dtype)
+
+    return ctx.local_call(run, (q, k, v), (bshd, kv, kv), [(bshd, tuple(q.shape))])
+
+
 def _kv_span(first: int, n: int, rep: int) -> Tuple[int, int]:
     """The KV heads [lo, hi) that query heads [first, first + n) read at
     ``rep`` query heads a KV head, such that the kernel's own mapping (local
@@ -191,23 +253,19 @@ def _on_rank_heads(fn, q, k, v, ctx: ShardCtx):
     is the whole query's row ``first + i``, or on each rank's local shards
     of DTensors, in the reference's layouts: the batch stays sharded over
     'dp', and the query heads over 'tp' when they divide; when they do
-    not, a prefill's query stays split on the sequence over 'tp' (its
-    rows are ``first`` onwards, by DTensor's own chunking), and a decode
-    step's single query is gathered.  K and V are gathered over 'tp'; with
-    split heads each rank slices the KV heads its query heads read
-    (``_kv_span``; MQA keeps KV head 0 on every rank).  Either split makes
-    the local K/V grads partial sums over 'tp'.  A decode step's K/V
-    caches, sharded on their capacity over 'tp', are gathered too.
-    Per-rank code also keeps clear of the flatten of two sharded dims in a
-    batched matmul, which torch 2.11's DTensor refuses."""
+    not, the query stays split on the sequence over 'tp' (its rows are
+    ``first`` onwards, by DTensor's own chunking; one row does not divide
+    and stays whole, but ``attention_core`` sends such a decode step to
+    ``_on_rank_slots``).  K and V are gathered over 'tp', a decode step's
+    caches too (sharded on their capacity; where the heads divide the
+    reference gathers them as well); with split heads each rank slices the
+    KV heads its query heads read (``_kv_span``; MQA keeps KV head 0 on
+    every rank).  Either split makes the local K/V grads partial sums over
+    'tp'.  Per-rank code also keeps clear of the flatten of two sharded
+    dims in a batched matmul, which torch 2.11's DTensor refuses."""
     S, H, Hkv = q.shape[1], q.shape[2], k.shape[2]
     tp = max(1, ctx.tp)
-    if H % tp == 0:
-        bshd = ("dp", None, "tp", None)
-    elif S > 1:
-        bshd = ("dp", "tp", None, None)
-    else:
-        bshd = ("dp", None, None, None)
+    bshd = ("dp", None, "tp", None) if H % tp == 0 else ("dp", "tp", None, None)
     kv = ("dp", None, None, None)
 
     def run(ql, kl, vl):
@@ -296,7 +354,16 @@ def mlp_init(gen, d_model: int, d_ff: int, lead=()):
 
 
 def mlp(p, x, ctx: ShardCtx = ShardCtx()):
+    """SwiGLU.  Under a mesh a decode step's input (one position) is laid
+    out batch over 'dp' and whole on every other dim before the
+    column-parallel gate and up products, so that each rank computes its
+    own F / tp columns: it can arrive split on D or as partial sums over
+    'tp', and DTensor would then gather the weights' F instead."""
     x = gather_inner(x)             # read by the gate and up projections
+    if is_dtensor(x) and x.shape[1] == 1:
+        want = ctx.placements(ctx.spec(("dp",) + (None,) * (x.ndim - 1), tuple(x.shape)))
+        if tuple(x.placements) != want:
+            x = x.redistribute(x.device_mesh, want)
     g = mm(x, p["w_gate"])
     u = mm(x, p["w_up"])
     h = F.silu(g.to(F32)).to(x.dtype) * u

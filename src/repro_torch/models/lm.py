@@ -166,7 +166,9 @@ def _add_aux(total, aux):
 def _ffn_apply(bp, cfg: ArchConfig, h2, train: bool, ctx: ShardCtx = ShardCtx()):
     """Dense or MoE FFN on [B, S, D]; returns (out, aux), aux None when
     dense.  Under a mesh whose model axis divides the sequence and the
-    experts, a MoE FFN runs expert-parallel (``moe_ffn_sharded``)."""
+    experts, a MoE FFN runs expert-parallel (``moe_ffn_sharded``); under
+    any other (a decode step) on each rank's block of the capacity buffer
+    in serving (``moe_ffn``)."""
     if cfg.num_experts:
         B, S, D = h2.shape
         kw = dict(n_experts=cfg.num_experts, top_k=cfg.moe_top_k,
@@ -178,7 +180,8 @@ def _ffn_apply(bp, cfg: ArchConfig, h2, train: bool, ctx: ShardCtx = ShardCtx())
         )
         if use_smap:
             return moe_ffn_sharded(bp["moe"], h2, ctx=ctx, train=train, **kw)
-        out, aux = moe_ffn(bp["moe"], reshape(h2, B * S, D), train=train, **kw)
+        out, aux = moe_ffn(bp["moe"], reshape(h2, B * S, D), train=train, ctx=ctx,
+                           **kw)
         return reshape(out, B, S, D), aux
     return mlp(bp["ffn"], h2, ctx=ctx), None
 

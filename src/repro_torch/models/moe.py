@@ -52,6 +52,11 @@ buffer with its experts' fills, as ``moe_ffn`` does on one device.  The
 gradients of
 the replicated operands (the row's tokens, the router, the experts over
 "data") are partial sums on each rank, summed by DTensor.
+
+Where the model axis cannot split the tokens (a decode step, S < tp),
+serving lays the capacity buffer out as the reference's GSPMD path does,
+experts over "model" and slots over "data" (``_moe_ffn_blocks``): every
+rank routes all T tokens alike and runs the kernel on its own block.
 """
 
 from __future__ import annotations
@@ -133,28 +138,41 @@ def _expert_mlp(w, buf, counts=None, train=False):
     return moe_gmm(h, w["w2"], counts=counts)
 
 
+def _dispatch(p, x2d, E: int, K: int, C: int):
+    """Routing of x2d's T tokens into a capacity-C buffer: (gate values and
+    expert ids [T, K], each expert's fill ``min(assigned, C)``, aux, and the
+    keep flag and slot of each of the T * K picks)."""
+    T = x2d.shape[0]
+    probs, gate_vals, gate_idx = _router(p, x2d, K)
+    flat_e = gate_idx.reshape(T * K)
+    assigned = _expert_counts(flat_e, E)
+    aux = _aux_loss(probs, assigned, T * K)
+    pos = _rank_positions(flat_e)
+    return (gate_vals, gate_idx, torch.clamp(assigned, max=C), aux, pos < C,
+            torch.clamp(pos, 0, C - 1))
+
+
 def moe_ffn(p, x2d, *, n_experts: int, top_k: int, capacity_factor: float,
-            train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            train: bool = False, ctx: ShardCtx = ShardCtx()
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x2d: [T, D] -> ([T, D], aux).  ``train``: the experts run the
     reference's einsums instead of the kernel.  Given DTensors (a mesh
-    whose model axis ``moe_ffn_sharded`` cannot split the tokens over),
-    every rank runs the whole dispatch on replicated operands, the global
-    math of the reference's GSPMD path."""
+    whose model axis ``moe_ffn_sharded`` cannot split the tokens over:
+    a decode step), serving runs each rank's block of the capacity buffer
+    (``_moe_ffn_blocks``, on ``ctx``'s mesh), as the reference lays it
+    out; training, which no cell reaches there, runs the whole dispatch on
+    replicated operands on every rank."""
     if is_dtensor(x2d):
+        if not train:
+            return _moe_ffn_blocks(p, x2d, n_experts=n_experts, top_k=top_k,
+                                   capacity_factor=capacity_factor, ctx=ctx)
         return _replicated(moe_ffn, p, x2d, n_experts=n_experts, top_k=top_k,
                            capacity_factor=capacity_factor, train=train)
     T, D = x2d.shape
     E, K = n_experts, top_k
     C = capacity(T, K, E, capacity_factor)
-    probs, gate_vals, gate_idx = _router(p, x2d, K)
+    gate_vals, gate_idx, fill, aux, keep, slot = _dispatch(p, x2d, E, K, C)
     flat_e = gate_idx.reshape(T * K)
-    assigned = _expert_counts(flat_e, E)
-    aux = _aux_loss(probs, assigned, T * K)
-    fill = torch.clamp(assigned, max=C)
-
-    pos = _rank_positions(flat_e)
-    keep = pos < C
-    slot = torch.clamp(pos, 0, C - 1)
     row = flat_e * C + slot                                           # into [E*C]
 
     buf = torch.zeros((E * C, D), dtype=x2d.dtype, device=x2d.device)
@@ -167,6 +185,74 @@ def moe_ffn(p, x2d, *, n_experts: int, top_k: int, capacity_factor: float,
         w = (gate_vals[:, k] * keep[k::K]).to(F32)
         out = out + y[row[k::K]].to(F32) * w[:, None]
     return out.to(x2d.dtype), aux
+
+
+def _moe_ffn_blocks(p, x2d, *, n_experts: int, top_k: int, capacity_factor: float,
+                    ctx: ShardCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn`` in serving on DTensors, laid out as the reference's
+    GSPMD path lays its capacity buffer out (``cstr(buf, "tp", "dp",
+    None)``).  Every rank gathers the T tokens and routes them all alike:
+    the gates, slots, fills and aux of one device.  Rank (i, j) keeps the
+    kept picks that fall in its block of the [E, C, D] buffer, experts over
+    'tp' and slots over 'dp', each split as DTensor's ``Shard`` splits a
+    dim (``ShardCtx.span``; a rank past the last chunk holds an empty
+    block and launches nothing), and runs K4 on it with each expert's fill
+    less the block's first slot.  Each weight gathers its FSDP dim over
+    'dp' only; no expert crosses 'tp'.  The f32 contributions of the
+    block's picks are summed over every rank (another order of addition
+    than one device's), and each 'dp' row keeps its own tokens, laid out as
+    ``x2d`` was."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = ctx.mesh
+    T, D = x2d.shape
+    E, K = n_experts, top_k
+    C = capacity(T, K, E, capacity_factor)
+    every = [Replicate()] * mesh.ndim
+    x = x2d.redistribute(mesh, every).to_local()                     # the T tokens
+    router = p["router"].redistribute(mesh, every).to_local()
+    gate_vals, gate_idx, fill, aux, keep, slot = _dispatch({"router": router}, x, E, K, C)
+
+    e_lo, n_e = ctx.span(ctx.tp_axis, E)
+    c_lo, n_c = ctx.span(ctx.dp_axes, C)
+    out = torch.zeros((T, D), dtype=F32, device=x.device)
+    if n_e and n_c:
+        w = {k: _block_experts(ctx, p["experts"][k], e_lo, n_e) for k in ("w1", "w3", "w2")}
+        flat_e = gate_idx.reshape(T * K)
+        mine = (keep & (flat_e >= e_lo) & (flat_e < e_lo + n_e)
+                & (slot >= c_lo) & (slot < c_lo + n_c))
+        n = n_e * n_c
+        # the block's picks, in order; every other pick lands in row n,
+        # sliced off before the GEMMs
+        row = torch.where(mine, (flat_e - e_lo) * n_c + slot - c_lo,
+                          torch.full_like(flat_e, n))
+        buf = torch.zeros((n + 1, D), dtype=x.dtype, device=x.device)
+        for k in range(K):
+            buf.index_add_(0, row[k::K], x)
+        y = _expert_mlp(w, buf[:n].view(n_e, n_c, D),
+                        torch.clamp(fill[e_lo:e_lo + n_e] - c_lo, 0, n_c)).view(n, D)
+        row = torch.clamp(row, max=n - 1)
+        for k in range(K):
+            wk = (gate_vals[:, k] * mine[k::K]).to(F32)
+            out = out + y[row[k::K]].to(F32) * wk[:, None]
+    out = DTensor.from_local(out, mesh, [Partial()] * mesh.ndim, run_check=False,
+                             shape=torch.Size((T, D)), stride=(D, 1))
+    out = out.redistribute(mesh, x2d.placements).to(x2d.dtype)
+    return out, DTensor.from_local(aux, mesh, every, run_check=False)
+
+
+def _block_experts(ctx: ShardCtx, w, e_lo: int, n_e: int):
+    """Experts [e_lo, e_lo + n_e) of an expert weight [E, ., .], its FSDP
+    dim gathered over 'dp' (the other mesh axes); split over 'tp' when E
+    divides it, else whole on every rank and sliced here."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = ctx.mesh.mesh_dim_names
+    want = [p if a == ctx.tp_axis else Replicate() for a, p in zip(names, w.placements)]
+    local = w.redistribute(ctx.mesh, want).to_local()
+    if not isinstance(w.placements[names.index(ctx.tp_axis)], Shard):
+        local = local[e_lo:e_lo + n_e]
+    return local.contiguous()
 
 
 def _replicated(fn, p, x, **kw):

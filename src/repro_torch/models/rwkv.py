@@ -16,7 +16,8 @@ for T > 1 (each chunk recomputed in backward, as the reference's
 Python loops over time that autograd differentiates on the CPU and on the
 card alike; both loops are marked (``trips.scan``), so the cost model
 counts them by their trip counts.  Under a mesh the kernel runs on each
-rank's local batch shard, the layout the reference gives r, k, v and w.
+rank's local batch and head shard (heads over 'tp' where they divide), the
+split the reference's compiled step makes of the recurrence.
 The recurrence, the loop's steps or the kernel's call, runs in the
 ``record_function`` region "wkv_scan" (the reference's named scope; the
 cost model reads it).  Dtypes
@@ -34,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import trips
 from ..kernels.rwkv6_scan.ops import wkv6
 from .layers import BF16, F32, dense_init, rmsnorm, rmsnorm_init
-from .sharding import ShardCtx, einsum, mm, reshape
+from .sharding import ShardCtx, einsum, is_dtensor, mm, reshape
 
 LORA_MIX = 32
 LORA_DECAY = 64
@@ -128,6 +129,36 @@ def _wkv6_kernel(*operands):
         return wkv6(*operands)
 
 
+def _lora_mix(dyn, mix_b, ctx: ShardCtx):
+    """``einsum("btzl,zld->btzd", dyn, mix_b)``, the dynamic mix's second
+    LoRA product.  A decode step (T = 1) under a mesh multiplies each
+    rank's own block of ``mix_b`` as its param spec lays it out (the LoRA
+    dim over 'dp', the width over 'tp', where they divide) by the same
+    slice of the LoRA dim of the whole ``dyn``; the partial sums over 'dp'
+    are reduced and the width gathered into ``dyn``'s batch layout, as the
+    whole product gives it.  One product a rank: no flatten of two sharded
+    dims, which torch 2.11's DTensor refuses."""
+    if dyn.shape[1] != 1 or not (is_dtensor(dyn) and is_dtensor(mix_b)):
+        return einsum("btzl,zld->btzd", dyn, mix_b)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = mix_b.device_mesh
+    lora = [Shard(3) if p == Shard(1) else Replicate() for p in mix_b.placements]
+    out = torch.einsum("btzl,zld->btzd", dyn.redistribute(mesh, lora).to_local(),
+                       mix_b.to_local())
+    B, T, Z, _ = dyn.shape
+    shape = (B, T, Z, mix_b.shape[2])
+    out = DTensor.from_local(
+        out, mesh, [Partial() if p == Shard(1) else Shard(3) if p == Shard(2)
+                    else Replicate() for p in mix_b.placements],
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+    # the sums reduced onto the batch while the width is still split, then
+    # the width gathered (DTensor would gather it first, and reduce tp
+    # times the bytes)
+    return ctx.cstr(ctx.cstr(out, "dp", None, None, "tp"), "dp", None, None, None)
+
+
 def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False,
                   ctx: ShardCtx = ShardCtx()):
     """x: [B, T, D].  Returns (out, new_shift [B, D], sT).  ``train``: the
@@ -136,8 +167,8 @@ def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False,
     H = D // head_dim
     xx = _token_shift(x, shift_prev) - x
     mixed = x + xx * p["mu"][0]  # base for the dynamic mix coefficients
-    dyn = reshape(torch.tanh(mm(mixed, p["mix_a"])), B, T, 5, LORA_MIX)
-    dyn = einsum("btzl,zld->btzd", dyn, p["mix_b"])
+    dyn = _lora_mix(reshape(torch.tanh(mm(mixed, p["mix_a"])), B, T, 5, LORA_MIX),
+                    p["mix_b"], ctx)
     x_r, x_k, x_v, x_w, x_g = (x + xx * (p["mu"][z] + dyn[:, :, z]) for z in range(5))
 
     r = ctx.cstr(reshape(mm(x_r, p["wr"]), B, T, H, head_dim), "dp", None, None, None)
@@ -153,10 +184,13 @@ def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False,
     u = reshape(p["u"], H, head_dim)
 
     if not train:
-        bthn = ("dp", None, None, None)
+        # each rank's batch and heads (heads that do not divide stay whole);
+        # the state comes back laid out as the cache holds it, batch only
+        bthn, bhnn = ("dp", None, "tp", None), ("dp", "tp", None, None)
         out, sT = ctx.local_call(
-            _wkv6_kernel, (r, k, v, w, u, s0), (bthn,) * 4 + ((None, None), bthn),
-            [(bthn, (B, T, H, head_dim)), (bthn, (B, H, head_dim, head_dim))])
+            _wkv6_kernel, (r, k, v, w, u, s0), (bthn,) * 4 + (("tp", None), bhnn),
+            [(bthn, (B, T, H, head_dim)), (bhnn, (B, H, head_dim, head_dim))])
+        sT = ctx.cstr(sT, "dp", None, None, None)
     elif T > 1:
         out, sT = wkv_chunked(r, k, v, w, u, s0, ctx=ctx)
     else:

@@ -99,6 +99,22 @@ class ShardCtx:
             return None  # would not divide: replicate instead
         return axes if len(axes) > 1 else axes[0]
 
+    def span(self, axes, size: int) -> Tuple[int, int]:
+        """(first index, length) of this rank's chunk of a dim of ``size``
+        split over mesh ``axes`` (a name or names, outer first) as DTensor's
+        ``Shard`` splits it, ``torch.chunk`` on each axis in turn: a size
+        that does not divide leaves the last ranks less or nothing.  (0,
+        size) without a mesh."""
+        start = 0
+        if self.mesh is None:
+            return start, size
+        sizes = mesh_sizes(self.mesh)
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            chunk, i = -(-size // sizes[a]), self.mesh.get_local_rank(a)
+            start += i * chunk
+            size = max(0, min(chunk, size - i * chunk))
+        return start, size
+
     def spec(self, logical_dims: Sequence, shape: Sequence[int]) -> P:
         return P(*[self._resolve(l, s) for l, s in zip(logical_dims, shape)])
 

@@ -7,10 +7,12 @@ host devices, which must not reach the test process.
 Writes ``model_flops`` and the three kernel models of ``repro.launch.perf``
 for every (arch x shape) cell on both production meshes, and the
 per-device ``dot_flops`` of ``analyze_hlo_text`` for the reduced cells of
-``HLO_CELLS`` on a (2, 2) mesh of 4 of 8 forced host devices (``Auto``
-axes, as ``tests/_sharded_reference.py`` builds it), and those of the
-``attn_scores`` region (``region_costs``) for ``TP8_CELLS`` on a (1, 8)
-mesh of all 8, whose 4 query heads do not divide over 'model'; each cell
+``HLO_CELLS`` (every decode cell among them) on a (2, 2) mesh of 4 of 8
+forced host devices (``Auto`` axes, as ``tests/_sharded_reference.py``
+builds it), those of the ``attn_scores`` region (``region_costs``) for
+``TP8_CELLS`` on a (1, 8) mesh of all 8, whose 4 query heads do not
+divide over 'model', and the whole step's for ``TP8_DECODE`` there (its
+decode attention is not in the region of the compiled step); each cell
 built as the reference's ``build_cell`` builds a cell.
 """
 
@@ -24,11 +26,20 @@ import sys  # noqa: E402
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-HLO_CELLS = (("internlm2-1.8b", "prefill_32k"), ("internlm2-1.8b", "decode_32k"),
-             ("olmoe-1b-7b", "prefill_32k"), ("recurrentgemma-9b", "prefill_32k"),
-             ("internlm2-1.8b", "train_4k"), ("olmoe-1b-7b", "train_4k"),
-             ("whisper-medium", "train_4k"), ("rwkv6-3b", "train_4k"))
+# every reduced decode cell, and a prefill and train cell of each kind of block
+DECODE_CELLS = (("llama3-8b", "decode_32k"), ("gemma3-1b", "decode_32k"),
+                ("gemma3-1b", "long_500k"), ("internlm2-1.8b", "decode_32k"),
+                ("llama3.2-3b", "decode_32k"), ("whisper-medium", "decode_32k"),
+                ("recurrentgemma-9b", "decode_32k"), ("recurrentgemma-9b", "long_500k"),
+                ("llava-next-34b", "decode_32k"), ("rwkv6-3b", "decode_32k"),
+                ("rwkv6-3b", "long_500k"), ("olmoe-1b-7b", "decode_32k"),
+                ("qwen3-moe-235b-a22b", "decode_32k"))
+HLO_CELLS = DECODE_CELLS + (
+    ("internlm2-1.8b", "prefill_32k"), ("olmoe-1b-7b", "prefill_32k"),
+    ("recurrentgemma-9b", "prefill_32k"), ("internlm2-1.8b", "train_4k"),
+    ("olmoe-1b-7b", "train_4k"), ("whisper-medium", "train_4k"), ("rwkv6-3b", "train_4k"))
 TP8_CELLS = (("internlm2-1.8b", "prefill_32k"), ("internlm2-1.8b", "train_4k"))
+TP8_DECODE = ("internlm2-1.8b", "decode_32k")
 
 
 def compiled_text(arch, shape_name, mesh):
@@ -91,8 +102,10 @@ def main():
     tp8 = {f"{a}|{s}": region_costs(compiled_text(a, s, mesh8),
                                     ["attn_scores"])["attn_scores"].dot_flops
            for a, s in TP8_CELLS}
+    tp8_decode = analyze_hlo_text(compiled_text(*TP8_DECODE, mesh8)).dot_flops
     with open(sys.argv[1], "w") as f:
-        json.dump({"models": models, "hlo_dot_flops": hlo, "tp8_attn_dot_flops": tp8}, f)
+        json.dump({"models": models, "hlo_dot_flops": hlo, "tp8_attn_dot_flops": tp8,
+                   "tp8_decode_dot_flops": tp8_decode}, f)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ replicated one, one sharded on the contracting dim (a reduction
 collective) and a Shard(0) -> Shard(1) move (one all-to-all); the loss's
 label pick on batch-sharded logits, backward included; the matmul flops
 of the ``attn_scores`` region of reduced internlm2 x ``TP8_SHAPES`` on a
-(1, 8) mesh, whose 4 heads do not divide over its 'model' axis.
+(1, 8) mesh, whose 4 heads do not divide over its 'model' axis, and of
+its ``decode_32k`` step there (the region's and the whole step's) and on
+one device (the region's).
 ``cells <i> <n>``: ``run_cell`` on every n-th reduced cell from the i-th,
 on a fake (2, 2) mesh.
 ``regions``: the region costs of reduced internlm2, rwkv6 and
@@ -145,6 +147,13 @@ def job_mesh():
         tr = trace_cell(TP8_ARCH, shape, False, reduced=True, mesh_shape=(1, 8),
                         regions=REGIONS)[-1]
         out[f"tp8|{shape}"] = tr.regions["attn_scores"].dot_flops
+    # a decode step there: each rank's own cache slots
+    for mesh_shape in ((1, 8), (1, 1)):
+        tr = trace_cell(TP8_ARCH, "decode_32k", False, reduced=True,
+                        mesh_shape=mesh_shape, regions=REGIONS)[-1]
+        tag = "x".join(map(str, mesh_shape))
+        out[f"decode|{tag}|attn"] = tr.regions["attn_scores"].dot_flops
+        out[f"decode|{tag}|total"] = tr.total.dot_flops
     return out
 
 

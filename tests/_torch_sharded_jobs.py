@@ -111,7 +111,8 @@ def moe_job(ctx, inputs, out):
     out["moe/dense/out"] = _np(dense.reshape(B, S, D))
     out["moe/dense/aux"] = _np(aux_d)
     # 3 tokens a row: the model axis cannot split them, so lm's _ffn_apply
-    # takes moe_ffn on DTensors, the whole dispatch on every rank
+    # takes moe_ffn on DTensors: in training the whole dispatch on every
+    # rank, in serving each rank's block of the capacity buffer
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
 
@@ -127,9 +128,16 @@ def moe_job(ctx, inputs, out):
         r3, raux3 = moe_ffn(p, x3p.reshape(-1, D), n_experts=E, top_k=K,
                             capacity_factor=1.0, train=True)
         (rg3,) = torch.autograd.grad((r3 * r3).sum() + raux3, x3p)
+    # serving on the same tokens: each rank's block of the capacity buffer
+    with torch.no_grad(), ctx.scope():
+        s3, saux3 = lm._ffn_apply({"moe": pd}, cfg,
+                                  distribute(ctx, x3, P("data", None, None)), False, ctx)
+    q3, qaux3 = moe_ffn(p, x3.reshape(-1, D), n_experts=E, top_k=K, capacity_factor=1.0)
     out["moe/replicated/err"] = np.float32(max(
         float((full(y3) - r3.reshape(x3.shape)).abs().max()),
-        float((full(g3) - rg3).abs().max()), abs(float(full(aux3)) - float(raux3))))
+        float((full(g3) - rg3).abs().max()), abs(float(full(aux3)) - float(raux3)),
+        float((full(s3) - q3.reshape(x3.shape)).abs().max()),
+        abs(float(full(saux3)) - float(qaux3))))
 
 
 def loss_jobs(ctx, inputs, out, rank):
@@ -367,12 +375,14 @@ def serve_tokens(vocab, seed=5):
             rng.integers(0, vocab, (SERVE_STEPS,)))
 
 
-def _logits_run(cfg, params, ctx, f32=True, seed=5):
+def _logits_run(cfg, params, ctx, f32=True, seed=5, decoding=None):
     """Prefill of the seeded prompt, then SERVE_STEPS teacher-forced decode
     steps on the server's cache capacity; every step's whole logits.
     ``f32``: f32 caches for f32 params (the reference's decode writes K/V in
     its params' dtype); else the caches ``cache_init`` makes, as the server
-    does."""
+    does.  ``decoding``: a context the decode steps run in."""
+    import contextlib
+
     from repro_torch.tree import tree_map
 
     from repro_torch.configs.base import ShapeConfig
@@ -393,10 +403,72 @@ def _logits_run(cfg, params, ctx, f32=True, seed=5):
     decode = make_decode_step(cfg, ctx=ctx)
     for i, t in enumerate(forced):
         token = distribute(ctx, torch.tensor([int(t)]), P(None))
-        logits, caches = decode(params, {"token": token, "pos": SERVE_PROMPT + i,
-                                         "caches": caches})
+        with decoding or contextlib.nullcontext():
+            logits, caches = decode(params, {"token": token, "pos": SERVE_PROMPT + i,
+                                             "caches": caches})
         out.append(_np(full(logits)))
     return np.stack(out)
+
+
+class _ExpertBlocks:
+    """Within: the shapes of x and w that each K4 call of the MoE FFN got,
+    and every redistribute of an expert weight (an [E, ., .] DTensor) that
+    gathers its experts over 'model'."""
+
+    def __init__(self, n_experts):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.models import moe
+
+        self.moe, self.E = moe, n_experts
+        self.orig = moe.moe_gmm, DTensor.redistribute
+        self.calls, self.model_gathers = [], []
+
+    def __enter__(self):
+        from torch.distributed.tensor import DTensor, Shard
+
+        gmm, redistribute = self.orig
+
+        def gmm_rec(x, w, *a, **kw):
+            self.calls.append([list(x.shape), list(w.shape)])
+            return gmm(x, w, *a, **kw)
+
+        def redistribute_rec(t, device_mesh=None, placements=None, **kw):
+            if t.ndim == 3 and t.shape[0] == self.E and placements is not None:
+                m = list(t.device_mesh.mesh_dim_names).index("model")
+                if t.placements[m] == Shard(0) and placements[m] != Shard(0):
+                    self.model_gathers.append(list(t.shape))
+            return redistribute(t, device_mesh, placements, **kw)
+
+        self.moe.moe_gmm, DTensor.redistribute = gmm_rec, redistribute_rec
+        return self
+
+    def __exit__(self, *exc):
+        from torch.distributed.tensor import DTensor
+
+        self.moe.moe_gmm, DTensor.redistribute = self.orig
+
+
+def expert_block_problems(flags, arch="olmoe-1b-7b"):
+    """What is wrong with the K4 calls of ``arch``'s sharded decode steps
+    (``serve_jobs``, f32, one token a step): each rank's three GEMMs a
+    layer must run on its own [E / tp, C / dp] block of the capacity
+    buffer, with its own E / tp experts, and no expert weight may be
+    gathered over 'model'."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe import capacity
+
+    cfg = get_arch(arch).reduced()
+    tp = dp = 2                             # the (2, 2) mesh
+    E, D, F = cfg.num_experts // tp, cfg.d_model, cfg.d_ff
+    C = capacity(1, cfg.moe_top_k, cfg.num_experts, cfg.capacity_factor) // dp
+    want = [[[E, C, D], [E, D, F]], [[E, C, D], [E, D, F]], [[E, C, F], [E, F, D]]]
+    bad = []
+    for r in flags[f"serve/{arch}/blocks"]:
+        if r["calls"] != want * (cfg.num_layers * SERVE_STEPS) or r["model_gathers"]:
+            bad.append(f"rank {r['rank']}: {r['calls'][:3]} ... "
+                       f"({len(r['calls'])} calls), gathers {r['model_gathers']}")
+    return bad
 
 
 # bf16 prefill/decode logits under the mesh against one device, max abs
@@ -537,7 +609,14 @@ def serve_jobs(ctx, rank, out, flags, params_of):
         cfg = get_arch(arch).reduced()
         bf16 = params_of(arch, cfg)
         f32 = tree_map(lambda p: p.float(), bf16)
-        out[f"serve/{arch}/f32/mesh"] = _logits_run(cfg, _placed(ctx, f32), ctx)
+        blocks = _ExpertBlocks(cfg.num_experts)
+        out[f"serve/{arch}/f32/mesh"] = _logits_run(cfg, _placed(ctx, f32), ctx,
+                                                    decoding=blocks)
+        if cfg.num_experts:
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, {"rank": rank, "calls": blocks.calls,
+                                           "model_gathers": blocks.model_gathers})
+            flags[f"serve/{arch}/blocks"] = every
         if rank == 0:
             out[f"serve/{arch}/f32/single"] = _logits_run(cfg, f32, ShardCtx())
         (out[f"serve/{arch}/bf16/mesh"], out[f"serve/{arch}/bf16/single"],
@@ -595,17 +674,18 @@ def gqa_job(ctx, rank, out, flags):
 
 class _AttentionRows:
     """Within: every attention call of the port's layers (the kernel's
-    entry ``flash_attention`` and the plain ``_attention``) records the
-    query rows it got and the position of its first row."""
+    entry ``flash_attention``, the plain ``_attention`` and a decode step's
+    split-KV part ``_partial_attention``) records the query rows and the
+    keys it got and the position of its first row."""
 
     def __init__(self):
         from repro_torch.models import layers
 
         self.layers, self.calls = layers, []
-        self.orig = layers.flash_attention, layers._attention
+        self.orig = layers.flash_attention, layers._attention, layers._partial_attention
 
     def __enter__(self):
-        flash, plain = self.orig
+        flash, plain, part = self.orig
 
         def flash_rec(q, k, v, *, q_offset=None, **kw):
             first = k.shape[1] - q.shape[1] if q_offset is None else q_offset
@@ -618,11 +698,17 @@ class _AttentionRows:
             self.calls.append(("plain", q.shape[1], k.shape[1], int(qpos[0])))
             return plain(q, k, v, qpos, kpos, *a)
 
-        self.layers.flash_attention, self.layers._attention = flash_rec, plain_rec
+        def part_rec(q, k, v, qpos, kpos, *a):
+            self.calls.append(("slots", q.shape[1], k.shape[1], int(qpos[0])))
+            return part(q, k, v, qpos, kpos, *a)
+
+        (self.layers.flash_attention, self.layers._attention,
+         self.layers._partial_attention) = flash_rec, plain_rec, part_rec
         return self
 
     def __exit__(self, *exc):
-        self.layers.flash_attention, self.layers._attention = self.orig
+        (self.layers.flash_attention, self.layers._attention,
+         self.layers._partial_attention) = self.orig
 
 
 def split_heads_job(ctx, inputs, rank, out, flags):
@@ -663,11 +749,21 @@ def split_rows_problems(flags):
     in training and prefill each rank must run its own S / tp query rows
     (by 'model' coordinate) against all S keys, from their own first
     position, on the plain route and on the kernel's; a decode step runs
-    its one query whole."""
+    its one query against the rank's own cap / tp cache slots of each
+    layer (a ring of the window for a sliding-window layer)."""
     from repro_torch.configs import get_arch
+    from repro_torch.models.lm import group_counts, group_pattern
 
     tp = 2                                  # the (2, 2) mesh's 'model' axis
-    layers = reduced_cfg(get_arch, SPLIT_ARCH).num_layers
+    cfg = reduced_cfg(get_arch, SPLIT_ARCH)
+    layers = cfg.num_layers
+    n_groups, rem = group_counts(cfg)
+    pat = group_pattern(cfg)
+    cap = SERVE_KW["cache_cap"]
+    widths = [cap if k == "A" else min(cfg.window_size, cap)
+              for k in pat * n_groups + pat[:rem]]
+    decode_want = [["slots", 1, w // tp, SERVE_PROMPT + i]
+                   for i in range(SERVE_STEPS) for w in widths]
     split, bad = flags[f"split/{SPLIT_ARCH}"], []
     train_seq = split["train_seq"]
     for r in split["ranks"]:
@@ -680,8 +776,7 @@ def split_rows_problems(flags):
         n = SERVE_PROMPT // tp
         if any(c != ["kernel", n, SERVE_PROMPT, t * n] for c in prefill):
             bad.append(f"rank {r['rank']} prefill: {prefill}")
-        if len(decode) != layers * SERVE_STEPS or any(
-                c[0] != "plain" or c[1] != 1 for c in decode):
+        if len(widths) != layers or [list(c) for c in decode] != decode_want:
             bad.append(f"rank {r['rank']} decode: {decode}")
     return bad
 
@@ -811,11 +906,13 @@ def port_checks(out, flags):
             _logits_close(out[f"serve/{arch}/bf16/mesh"], out[f"serve/{arch}/bf16/single"],
                           arch, tol)
             and all(m < BF16_TIE for m in flags[f"serve/{arch}/bf16/flips"]))
+    c["olmoe-1b-7b decode: K4 on each rank's block, experts in place"] = (
+        not expert_block_problems(flags))
     c["K3 GQA heads at tp = 2"] = (float(out["gqa/gqa/err"]) < 1e-6
                                    and float(out["gqa/gqa/naive_err"]) > 1e-2)
     c["K3 MQA heads at tp = 2"] = float(out["gqa/mqa/err"]) < 1e-6
     split = flags[f"split/{SPLIT_ARCH}"]
-    c[f"{SPLIT_ARCH}: each rank attends its own S / tp query rows"] = (
+    c[f"{SPLIT_ARCH}: each rank attends its own query rows, or cache slots"] = (
         not split_rows_problems(flags))
     c[f"{SPLIT_ARCH} f32 prefill/decode logits = one device (1e-4)"] = _logits_close(
         out[f"serve/{SPLIT_ARCH}/f32/mesh"], out[f"serve/{SPLIT_ARCH}/f32/single"], SPLIT_ARCH)

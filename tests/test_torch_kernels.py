@@ -330,6 +330,36 @@ def test_gmm_ref_with_counts_matches_jax_ref(jref, E, C, D, F, kind, dtype):
     assert not _np(out)[dead_rows(E, C, counts)].any()
 
 
+@pytest.mark.parametrize("e_lo,n_e,c_lo,n_c", [
+    (0, 4, 0, 6), (4, 4, 6, 6), (2, 3, 10, 2), (4, 4, 12, 0)])
+def test_gmm_ref_on_a_block_with_shifted_counts_is_that_block(jref, e_lo, n_e, c_lo, n_c):
+    """A rank's block of the capacity buffer (experts [e_lo, e_lo + n_e),
+    slots [c_lo, c_lo + n_c)) with each expert's fill less the block's
+    first slot, ``clamp(fill - c_lo, 0, n_c)``, as the MoE FFN's decode
+    step under a mesh passes it: that block of the whole product with the
+    whole fills (zero past each fill), within f32 rounding; and of the JAX
+    reference on the block with its dead rows zeroed.  An empty block
+    gives an empty result."""
+    kernels, jnp = jref
+    E, C, D, F = 8, 12, 32, 24
+    x, w = gmm_inputs(E, C, D, F, seed=7)
+    fill = gmm_counts(E, C, "ragged", seed=8)
+    whole = gmm_ref(torch.from_numpy(x), torch.from_numpy(w), torch.float32,
+                    torch.from_numpy(fill))
+    xb = np.ascontiguousarray(x[e_lo:e_lo + n_e, c_lo:c_lo + n_c])
+    counts = np.clip(fill[e_lo:e_lo + n_e] - c_lo, 0, n_c).astype(np.int32)
+    block = gmm_ref(torch.from_numpy(xb), torch.from_numpy(w[e_lo:e_lo + n_e]),
+                    torch.float32, torch.from_numpy(counts))
+    want = whole[e_lo:e_lo + n_e, c_lo:c_lo + n_c]
+    assert block.shape == want.shape == (n_e, n_c, F)
+    if n_c == 0:
+        return
+    assert rel_err(block.numpy(), want.numpy()) < 1e-6
+    xb[dead_rows(n_e, n_c, counts)] = 0.0
+    ref = kernels.gmm_ref(jnp.asarray(xb), jnp.asarray(w[e_lo:e_lo + n_e]))
+    assert rel_err(block.numpy(), np.asarray(ref)) < GMM_TOL["f32"]
+
+
 @pytest.mark.parametrize("out_dtype", [None, torch.float32])
 def test_gmm_ref_counts_mask_nan_in_dead_rows(out_dtype):
     """NaN planted in x's dead rows, and in the weights of experts with no
@@ -476,6 +506,24 @@ def test_wkv6_ref_matches_jax_ref_with_state(jref, B, T, H, N):
                         None if init is None else torch.from_numpy(init))
         assert rel_err(o.numpy(), o_j) < 1e-4
         assert rel_err(s.numpy(), s_j) < 1e-4
+
+
+@pytest.mark.parametrize("T", [1, 16])
+@pytest.mark.parametrize("lo,hi", [(0, 2), (2, 4), (1, 2)])
+def test_wkv6_ref_on_a_head_slice_is_that_slice_of_the_whole(jref, T, lo, hi):
+    """A rank's heads under a mesh (heads over 'tp'): the plain version on
+    heads [lo, hi) of r, k, v, w, u and the state equals, bit for bit in
+    f32, heads [lo, hi) of its output and final state on all heads; and the
+    JAX reference on the slice."""
+    kernels, jnp = jref
+    *arrs, s0 = wkv_inputs(2, T, 4, 16, seed=9)
+    o, s = wkv6_ref(*(torch.from_numpy(a) for a in arrs), torch.from_numpy(s0))
+    cut = [a[:, :, lo:hi] for a in arrs[:4]] + [arrs[4][lo:hi]]
+    o_s, s_s = wkv6_ref(*(torch.from_numpy(np.ascontiguousarray(a)) for a in cut),
+                        torch.from_numpy(np.ascontiguousarray(s0[:, lo:hi])))
+    assert torch.equal(o_s, o[:, :, lo:hi]) and torch.equal(s_s, s[:, lo:hi])
+    o_j, s_j = kernels.wkv6_ref(*(jnp.asarray(a) for a in cut), jnp.asarray(s0[:, lo:hi]))
+    assert rel_err(o_s.numpy(), o_j) < 1e-4 and rel_err(s_s.numpy(), s_j) < 1e-4
 
 
 def test_wkv6_ref_strong_decay_matches_jax_ref(jref):

@@ -35,12 +35,15 @@ bridged weights:
     modeled and real payload; prefill and decode logits on f32 params
     within 1e-4 of the reference's sharded steps, and on bf16 params
     within per-arch bounds of the port's on one device; greedy tokens on
-    f32 params equal to one device's; K3's KV heads per rank at tp = 2;
+    f32 params equal to one device's; olmoe's decode steps running K4 on
+    each rank's [E / tp, C / dp] block, no expert gathered over 'model';
+    K3's KV heads per rank at tp = 2;
   * query heads that do not divide over 'tp' (reduced gemma3-1b with 3
     heads, its sliding window along): the f32 loss and grads, prefill and
     decode logits and the server against the reference's sharded runs,
     each rank attending its own S / tp query rows (K3 at its offset in
-    prefill, the plain route in training);
+    prefill, the plain route in training), and in decode its own cap / tp
+    cache slots (a split-KV softmax);
   * ``port_checks``, what ``chip_smoke.py``'s ``gloo4`` phase holds these
     runs to without the reference, all passing.
 
@@ -77,8 +80,8 @@ from repro_torch.optim.adamw import adamw8bit_init
 from repro_torch.tree import tree_flatten_with_paths, tree_map
 
 from _torch_sharded_jobs import (BF16_LOGITS_TOL, BF16_TIE, SERVE_ARCHS, SPLIT_ARCH,
-                                 make_inputs, port_checks, reduced_cfg, run_ranks,
-                                 split_rows_problems)
+                                 expert_block_problems, make_inputs, port_checks,
+                                 reduced_cfg, run_ranks, split_rows_problems)
 
 TESTS = Path(__file__).resolve().parent
 SRC = TESTS.parent / "src"
@@ -299,9 +302,10 @@ def test_moe_ffn_sharded_drops_where_the_reference_does(runs):
 
 
 def test_moe_on_a_mesh_that_cannot_split_the_tokens_is_the_global_math(runs):
-    """S = 3 on a model axis of 2: ``_ffn_apply`` falls back to ``moe_ffn``
-    on replicated operands; out, aux and the input grad equal one
-    device's."""
+    """S = 3 on a model axis of 2: ``_ffn_apply`` takes ``moe_ffn`` on
+    DTensors; in training (replicated operands) out, aux and the input grad
+    equal one device's, and in serving (each rank's block of the capacity
+    buffer, summed over the mesh) out and aux do."""
     assert float(runs["port"]["moe/replicated/err"]) < 1e-6
 
 
@@ -548,10 +552,20 @@ def test_split_heads_attention_runs_on_each_ranks_rows(runs):
     """Every rank's attention calls under the mesh: training (plain route)
     and prefill (K3's entry) on the rank's own S / tp query rows from their
     own first position (rank t of 'model' from row t * S / tp), against
-    all S keys; no rank runs the whole query but in decode."""
+    all S keys; decode on the one query against the rank's own cap / tp
+    cache slots of each layer."""
     assert split_rows_problems(runs["flags"]) == []
     ranks = runs["flags"][f"split/{SPLIT_ARCH}"]["ranks"]
     assert sorted(r["tp_rank"] for r in ranks) == [0, 0, 1, 1]
+
+
+def test_sharded_moe_decode_runs_experts_in_place(runs):
+    """Reduced olmoe's decode steps under the (2, 2) mesh: on every rank
+    each layer's three K4 calls (their plain version here) get the rank's
+    [E / tp, C / dp, .] block of the capacity buffer and its own E / tp
+    experts, and no expert weight is gathered over 'model'."""
+    assert expert_block_problems(runs["flags"]) == []
+    assert len(runs["flags"]["serve/olmoe-1b-7b/blocks"]) == 4
 
 
 @pytest.mark.parametrize("heads", ["gqa", "mqa"])
