@@ -123,10 +123,13 @@ Phases (any failure exits non-zero before the result line):
                gemma3-1b x prefill_32k and llama3.2-3b x decode_32k, whose
                query heads do not divide over 'tp' (each rank's own query
                rows, and its own cache slots), the last three held to
-               torch 2.13's matmul flops on a CPU host
-               (``DRYRUN_DOT_FLOPS``), 256 fake ranks (16 x 16, the
+               torch 2.13's matmul flops on a CPU host and the two train
+               cells to this machine's first count (``DRYRUN_DOT_FLOPS``), 256 fake ranks (16 x 16, the
                card hidden, nothing allocated): each cell's terms, dominant term, peak
-               GiB and collective counts, ``ok`` required; (b) after phase
+               GiB and collective counts, ``ok`` required; five reduced
+               cells on a fake (2, 2) mesh held to the matmul flops torch
+               2.13 counts, equal to the reference's compiled step's
+               (``DRYRUN_REDUCED_DOT_FLOPS``); (b) after phase
                9, the cost model's counts at world size 1 on FakeTensors of
                phase 9's internlm2-1.8b step and of one decode step beside
                what the card measured: matmul flops over ``_step_bound``'s
@@ -2502,10 +2505,23 @@ def gloo4_finish(h, card):
 # divide over 'tp' (each rank attends its own S / 16 query rows, or its own
 # cap / 16 cache slots), and olmoe-1b-7b's decode (each rank's block of the
 # MoE capacity buffer); their per-device matmul flops as torch 2.13 counts
-# them on a CPU host, which this machine's torch must count too
+# them on a CPU host, which this machine's torch must count too; and the
+# two train cells, as this script's own first run counted them here
+# (torch 2.11; their reduced cells are held to torch 2.13 below)
 DRYRUN_DOT_FLOPS = {("gemma3-1b", "prefill_32k"): 20_009_791_258_624.0,
                     ("olmoe-1b-7b", "decode_32k"): 4_667_211_776.0,
-                    ("llama3.2-3b", "decode_32k"): 8_850_505_728.0}
+                    ("llama3.2-3b", "decode_32k"): 8_850_505_728.0,
+                    ("internlm2-1.8b", "train_4k"): 67_143_695_597_568.0,
+                    ("rwkv6-3b", "train_4k"): 98_010_147_061_760.0}
+# reduced cells on a fake (2, 2) mesh whose per-device matmul flops torch
+# 2.13 counts on a CPU host equal to the reference's compiled step's (the
+# attention output product, rwkv6's mix LoRA and WKV, whisper's MLP):
+# this machine's torch must count them too
+DRYRUN_REDUCED_DOT_FLOPS = {("internlm2-1.8b", "train_4k"): 52_297_728.0,
+                            ("rwkv6-3b", "train_4k"): 80_347_136.0,
+                            ("whisper-medium", "train_4k"): 28_377_088.0,
+                            ("rwkv6-3b", "prefill_32k"): 18_120_704.0,
+                            ("whisper-medium", "prefill_32k"): 7_192_576.0}
 DRYRUN_CELLS = (("internlm2-1.8b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
                 ("rwkv6-3b", "train_4k"), ("gemma3-1b", "prefill_32k"),
                 ("llama3.2-3b", "decode_32k"))
@@ -2536,6 +2552,8 @@ def dryrun_start():
             f"for arch, shape in {DRYRUN_CELLS!r}:\n"
             "    main(['--arch', arch, '--shape', shape, '--out', sys.argv[1]])\n"
             "import chip_smoke\n"
+            "red = chip_smoke.reduced_dot_flops()\n"
+            "open(os.path.join(sys.argv[1], 'reduced.json'), 'w').write(json.dumps(red))\n"
             f"trip = chip_smoke.trip_count_readings({layers}, {FAMILY_SEQ}, {FAMILY_BATCH})\n"
             "open(os.path.join(sys.argv[1], 'trips.json'), 'w').write(json.dumps(trip))\n")
     with open(tmp / "dryrun.log", "w") as log:
@@ -2578,16 +2596,31 @@ def _dryrun_cells(h, card):
             if want is not None and not math.isclose(row["dot_flops"], want,
                                                      rel_tol=1e-9):
                 fail(f"dryrun {arch} x {shape}: matmul flops {row['dot_flops']}, "
-                     f"torch 2.13 counts {want}")
+                     f"DRYRUN_DOT_FLOPS {want}")
             rows.append(row)
         if proc.returncode != 0 or not (tmp / "trips.json").exists():
             fail(f"dryrun: rc {proc.returncode}\n{(tmp / 'dryrun.log').read_text()[-2500:]}")
+        reduced = json.loads((tmp / "reduced.json").read_text())
+        say(f"dryrun reduced cells @ 2x2 (fake ranks, {card}): " + json.dumps(reduced))
+        bad = {k: (v, DRYRUN_REDUCED_DOT_FLOPS[tuple(k.split("|"))])
+               for k, v in reduced.items() if v != DRYRUN_REDUCED_DOT_FLOPS[tuple(k.split("|"))]}
+        if bad:
+            fail(f"dryrun reduced cells: matmul flops (this torch, torch 2.13): {bad}")
         trip = json.loads((tmp / "trips.json").read_text())
     finally:
         if proc.poll() is None:
             proc.kill()
         shutil.rmtree(tmp, ignore_errors=True)
     return rows, trip
+
+
+def reduced_dot_flops():
+    """The per-device matmul flops of ``DRYRUN_REDUCED_DOT_FLOPS``'s
+    reduced cells, each traced on a fake (2, 2) mesh."""
+    from repro_torch.launch.dryrun import trace_cell
+    return {f"{a}|{s}": trace_cell(a, s, False, reduced=True,
+                                   mesh_shape=(2, 2))[-1].total.dot_flops
+            for a, s in DRYRUN_REDUCED_DOT_FLOPS}
 
 
 def cost_model_readings(seq, batch):

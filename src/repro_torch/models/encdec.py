@@ -185,6 +185,10 @@ def _decoder_stack(params, h, enc_out, cfg: ArchConfig, mode: str, caches=None,
         positions = torch.full((1,), pos, dtype=torch.int64, device=h.device)
     else:
         positions = torch.arange(h.shape[1], device=h.device)
+    if mode != "decode":
+        # the first layer's input laid out as every later layer's is (the
+        # reference's scan carry takes the layout of its body's output)
+        h = ctx.cstr(h, "dp", "tp", None)
     built = []
     for i, bp in enumerate(_unbind(params["dec"], cfg.decoder_layers)):
         if mode == "train":

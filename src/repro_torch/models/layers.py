@@ -354,13 +354,13 @@ def mlp_init(gen, d_model: int, d_ff: int, lead=()):
 
 
 def mlp(p, x, ctx: ShardCtx = ShardCtx()):
-    """SwiGLU.  Under a mesh a decode step's input (one position) is laid
-    out batch over 'dp' and whole on every other dim before the
-    column-parallel gate and up products, so that each rank computes its
-    own F / tp columns: it can arrive split on D or as partial sums over
-    'tp', and DTensor would then gather the weights' F instead."""
+    """SwiGLU.  Under a mesh the input is laid out batch over 'dp' and
+    whole on every other dim before the column-parallel gate and up
+    products, so that each rank computes its own F / tp columns: it can
+    arrive split on D or as partial sums over 'tp', and DTensor would then
+    gather the weights' F instead."""
     x = gather_inner(x)             # read by the gate and up projections
-    if is_dtensor(x) and x.shape[1] == 1:
+    if is_dtensor(x):
         want = ctx.placements(ctx.spec(("dp",) + (None,) * (x.ndim - 1), tuple(x.shape)))
         if tuple(x.placements) != want:
             x = x.redistribute(x.device_mesh, want)

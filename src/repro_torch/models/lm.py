@@ -237,6 +237,10 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
         h = ctx.cstr(h + tm_out, "dp", "tp", None)
         hn2 = rmsnorm(bp["norm2"], h, cfg.norm_eps)
         cm_out, shift_cm = rw.channelmix_apply(bp["cm"], hn2, st["shift_cm"])
+        # split on the width as its column-parallel products give it, and
+        # so its cotangent: one that came back split on the sequence would
+        # be gathered whole before the products' weight grads
+        cm_out = ctx.cstr(cm_out, "dp", None, "tp")
         new_state = {"S": S_new, "shift_tm": shift_tm, "shift_cm": shift_cm}
         h = ctx.cstr(h + cm_out, "dp", "tp", None)
         return h, None, _store(cache, new_state, mode)

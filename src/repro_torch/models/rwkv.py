@@ -15,9 +15,10 @@ for T > 1 (each chunk recomputed in backward, as the reference's
 ``jax.checkpoint`` of its chunk body does) and ``wkv_scan`` for T = 1,
 Python loops over time that autograd differentiates on the CPU and on the
 card alike; both loops are marked (``trips.scan``), so the cost model
-counts them by their trip counts.  Under a mesh the kernel runs on each
-rank's local batch and head shard (heads over 'tp' where they divide), the
-split the reference's compiled step makes of the recurrence.
+counts them by their trip counts.  Under a mesh the kernel, and the train
+route's loops, run on each rank's local batch and head shard (heads over
+'tp' where they divide), the split the reference's compiled step makes of
+the recurrence.
 The recurrence, the loop's steps or the kernel's call, runs in the
 ``record_function`` region "wkv_scan" (the reference's named scope; the
 cost model reads it).  Dtypes
@@ -27,6 +28,9 @@ follow the reference: ``mu``, ``mix_b`` and ``wo`` bf16; ``w0``,
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
@@ -35,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import trips
 from ..kernels.rwkv6_scan.ops import wkv6
 from .layers import BF16, F32, dense_init, rmsnorm, rmsnorm_init
-from .sharding import ShardCtx, einsum, is_dtensor, mm, reshape
+from .sharding import ShardCtx, is_dtensor, mm, reshape
 
 LORA_MIX = 32
 LORA_DECAY = 64
@@ -79,6 +83,42 @@ def _token_shift(x, prev):
     return torch.cat([prev[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
 
 
+# ``on`` while a checkpointed chunk of ``wkv_chunked`` is recomputed for its
+# backward (the checkpoint's recompute context), in the thread running it
+_recomputing = threading.local()
+
+
+@contextlib.contextmanager
+def _recompute():
+    prev, _recomputing.on = getattr(_recomputing, "on", False), True
+    try:
+        yield
+    finally:
+        _recomputing.on = prev
+
+
+class _Read(torch.autograd.Function):
+    """``einsum("bhi,bhij->bhj", r, M)``, a step's read of its state.  Its
+    backward reads ``r`` and ``M`` and never the product, so a chunk's
+    recompute skips it (the chunk's output is not read in backward; the
+    reference's compiled step drops that product from its recompute too).
+    The grads are autograd's, bit for bit; M's, an outer product, is the
+    broadcast multiply it is (not a product over a dim of one)."""
+
+    @staticmethod
+    def forward(ctx, r, M):
+        ctx.save_for_backward(r, M)
+        if getattr(_recomputing, "on", False):
+            return r.new_empty(M.shape[:-2] + M.shape[-1:])
+        return torch.einsum("bhi,bhij->bhj", r, M)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, M = ctx.saved_tensors
+        return (torch.matmul(g[..., None, :], M.transpose(-1, -2))[..., 0, :],
+                r[..., :, None] * g[..., None, :])
+
+
 def wkv_scan(r, k, v, w, u, s0):
     """Exact WKV6 recurrence, a Python loop over time (plain version).
 
@@ -91,7 +131,7 @@ def wkv_scan(r, k, v, w, u, s0):
 
     def step(_, S, r_t, k_t, v_t, w_t):
         kv = k_t[..., :, None] * v_t[..., None, :]                  # [B, H, N, N]
-        out = einsum("bhi,bhij->bhj", r_t, S + u4 * kv)
+        out = _Read.apply(r_t, S + u4 * kv)
         return w_t[..., :, None] * S + kv, out
 
     with record_function("wkv_scan"):           # region of the cost model
@@ -101,13 +141,14 @@ def wkv_scan(r, k, v, w, u, s0):
         return out, S
 
 
-def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128, ctx: ShardCtx = ShardCtx()):
+def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128):
     """WKV6 as an outer loop over time chunks of the exact scan: the
     reference's prompt path, numerically the same as ``wkv_scan``.  Under
     grad mode each chunk is recomputed in backward, so only the
-    chunk-boundary states are kept.  Every operand, ``u`` included, goes
-    to the checkpointed call as an argument: the reentrant form would drop
-    the grads of a tensor the chunk only closes over."""
+    chunk-boundary states are kept; the recompute skips the steps' reads
+    (``_Read``).  Every operand, ``u`` included, goes to the checkpointed
+    call as an argument: the reentrant form would drop the grads of a
+    tensor the chunk only closes over."""
     B, T, H, N = r.shape
     chunk = min(chunk, T)
     assert T % chunk == 0, (T, chunk)
@@ -115,10 +156,11 @@ def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128, ctx: ShardCtx = ShardCtx())
     def step(i, S):
         xs = tuple(a[:, i * chunk:(i + 1) * chunk] for a in (r, k, v, w))
         if torch.is_grad_enabled():
-            out, S = checkpoint(wkv_scan, *xs, u, S, use_reentrant=False)
+            out, S = checkpoint(wkv_scan, *xs, u, S, use_reentrant=False,
+                                context_fn=lambda: (contextlib.nullcontext(), _recompute()))
         else:
             out, S = wkv_scan(*xs, u, S)
-        return ctx.cstr(S, "dp", None, None, None), out
+        return S, out
 
     S, out = trips.scan(T // chunk, step, s0.to(F32), join="cat")
     return out, S
@@ -131,15 +173,30 @@ def _wkv6_kernel(*operands):
 
 def _lora_mix(dyn, mix_b, ctx: ShardCtx):
     """``einsum("btzl,zld->btzd", dyn, mix_b)``, the dynamic mix's second
-    LoRA product.  A decode step (T = 1) under a mesh multiplies each
-    rank's own block of ``mix_b`` as its param spec lays it out (the LoRA
-    dim over 'dp', the width over 'tp', where they divide) by the same
-    slice of the LoRA dim of the whole ``dyn``; the partial sums over 'dp'
-    are reduced and the width gathered into ``dyn``'s batch layout, as the
-    whole product gives it.  One product a rank: no flatten of two sharded
-    dims, which torch 2.11's DTensor refuses."""
-    if dyn.shape[1] != 1 or not (is_dtensor(dyn) and is_dtensor(mix_b)):
-        return einsum("btzl,zld->btzd", dyn, mix_b)
+    LoRA product, under a mesh as the reference's compiled step splits it,
+    one product a rank (no flatten of two sharded dims, which torch 2.11's
+    DTensor refuses).  A prompt or a train step (T > 1): each rank's batch
+    of ``dyn`` (whole on the LoRA dim) by its width of ``mix_b`` (the LoRA
+    dim gathered over 'dp'), the width then gathered into ``dyn``'s batch
+    layout.  A decode step (T = 1) multiplies each rank's own block of
+    ``mix_b`` as its param spec lays it out (the LoRA dim over 'dp', the
+    width over 'tp', where they divide) by the same slice of the LoRA dim
+    of the whole ``dyn``; the partial sums over 'dp' are reduced and the
+    width gathered into ``dyn``'s batch layout, as the whole product gives
+    it."""
+    if not (is_dtensor(dyn) and is_dtensor(mix_b)):
+        return torch.einsum("btzl,zld->btzd", dyn, mix_b)
+    if dyn.shape[1] != 1:
+        B, T, Z, _ = dyn.shape
+        batch, width = ("dp", None, None, None), (None, None, "tp")
+        split_b = ctx.spec(batch, tuple(dyn.shape))[0] is not None
+        split_w = ctx.spec(width, tuple(mix_b.shape))[2] is not None
+        out = ctx.local_call(
+            lambda d, m: torch.einsum("btzl,zld->btzd", d, m), (dyn, mix_b),
+            (batch, width), [(("dp", None, None, "tp"), (B, T, Z, mix_b.shape[2]))],
+            grad_partial=((ctx.tp_axis,) if split_w else (),
+                          tuple(ctx.dp_axes) if split_b else ()))
+        return ctx.cstr(out, "dp", None, None, None)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = mix_b.device_mesh
@@ -183,18 +240,18 @@ def timemix_apply(p, x, shift_prev, s0, head_dim: int, train: bool = False,
     w = ctx.cstr(w, "dp", None, None, None)
     u = reshape(p["u"], H, head_dim)
 
-    if not train:
-        # each rank's batch and heads (heads that do not divide stay whole);
-        # the state comes back laid out as the cache holds it, batch only
-        bthn, bhnn = ("dp", None, "tp", None), ("dp", "tp", None, None)
-        out, sT = ctx.local_call(
-            _wkv6_kernel, (r, k, v, w, u, s0), (bthn,) * 4 + (("tp", None), bhnn),
-            [(bthn, (B, T, H, head_dim)), (bhnn, (B, H, head_dim, head_dim))])
-        sT = ctx.cstr(sT, "dp", None, None, None)
-    elif T > 1:
-        out, sT = wkv_chunked(r, k, v, w, u, s0, ctx=ctx)
-    else:
-        out, sT = wkv_scan(r, k, v, w, u, s0)
+    # the kernel, or in training the reference's scans, on each rank's batch
+    # and heads (heads that do not divide stay whole), so u's grad is a
+    # partial sum over the batch's axes; the state comes back laid out as
+    # the cache holds it, batch only
+    scan = _wkv6_kernel if not train else wkv_chunked if T > 1 else wkv_scan
+    bthn, bhnn = ("dp", None, "tp", None), ("dp", "tp", None, None)
+    split_b = ctx.spec(bthn, (B, T, H, head_dim))[0] is not None
+    out, sT = ctx.local_call(
+        scan, (r, k, v, w, u, s0), (bthn,) * 4 + (("tp", None), bhnn),
+        [(bthn, (B, T, H, head_dim)), (bhnn, (B, H, head_dim, head_dim))],
+        grad_partial=((),) * 4 + (tuple(ctx.dp_axes) if split_b else (),))
+    sT = ctx.cstr(sT, "dp", None, None, None)
     out = reshape(out, B, T, D)
     if H % max(1, ctx.tp):
         # heads that do not divide over 'tp': the cotangent, split on D, is

@@ -23,6 +23,7 @@ object whose ``shape`` maps axis names to sizes.
 from __future__ import annotations
 
 import contextlib
+import math
 import re
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -281,12 +282,21 @@ def unshard_dim(x, dim: int):
 def reshape(x, *shape):
     """``x.reshape(shape)``; a DTensor first gathers every dim it shards
     from the first dim the reshape changes on (DTensor cannot split or
-    merge a dim that is not evenly sharded), its leading dims kept."""
+    merge a dim that is not evenly sharded), its leading dims kept.  A
+    merge of dims ``i..j`` into one keeps dim ``i``'s shards where they
+    divide it evenly (the merged dim is then sharded as ``i`` was, as the
+    reference's attention output [B, S, H, Dh] -> [B, S, H * Dh] stays
+    split by heads before the row-parallel output product)."""
     if is_dtensor(x):
         i = 0
         while i < min(x.ndim, len(shape)) and x.shape[i] == shape[i]:
             i += 1
-        for d in range(i, x.ndim):
+        j = x.ndim - (len(shape) - i - 1)       # a merge of dims i..j-1
+        ways = math.prod(n for n, p in zip(x.device_mesh.shape, x.placements)
+                         if p.is_shard(i))
+        keep = (i < len(shape) and j > i + 1 and math.prod(x.shape[i:j]) == shape[i]
+                and tuple(x.shape[j:]) == tuple(shape[i + 1:]) and x.shape[i] % ways == 0)
+        for d in range(i + 1 if keep else i, j if keep else x.ndim):
             x = unshard_dim(x, d)
     return x.reshape(*shape)
 

@@ -2,12 +2,14 @@
 importing ``repro.launch.dryrun`` or ``perf`` sets ``XLA_FLAGS`` to 512
 host devices, which must not reach the test process.
 
-    python tests/_cost_reference.py <out.json>
+    python tests/_cost_reference.py <out.json> [<i> <n>]
 
-Writes ``model_flops`` and the three kernel models of ``repro.launch.perf``
+Part ``i`` of ``n`` (default: all of it, 0 of 1) compiles every n-th cell
+of ``HLO_CELLS`` from the i-th; part 0 also writes the rest.  Writes
+``model_flops`` and the three kernel models of ``repro.launch.perf``
 for every (arch x shape) cell on both production meshes, and the
-per-device ``dot_flops`` of ``analyze_hlo_text`` for the reduced cells of
-``HLO_CELLS`` (every decode cell among them) on a (2, 2) mesh of 4 of 8
+per-device ``dot_flops`` of ``analyze_hlo_text`` for every reduced cell
+(``HLO_CELLS``: 13 decode, 10 prefill, 10 train) on a (2, 2) mesh of 4 of 8
 forced host devices (``Auto`` axes, as ``tests/_sharded_reference.py``
 builds it), those of the ``attn_scores`` region (``region_costs``) for
 ``TP8_CELLS`` on a (1, 8) mesh of all 8, whose 4 query heads do not
@@ -25,19 +27,11 @@ import sys  # noqa: E402
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
+from repro.configs import all_archs, cells  # noqa: E402
 
-# every reduced decode cell, and a prefill and train cell of each kind of block
-DECODE_CELLS = (("llama3-8b", "decode_32k"), ("gemma3-1b", "decode_32k"),
-                ("gemma3-1b", "long_500k"), ("internlm2-1.8b", "decode_32k"),
-                ("llama3.2-3b", "decode_32k"), ("whisper-medium", "decode_32k"),
-                ("recurrentgemma-9b", "decode_32k"), ("recurrentgemma-9b", "long_500k"),
-                ("llava-next-34b", "decode_32k"), ("rwkv6-3b", "decode_32k"),
-                ("rwkv6-3b", "long_500k"), ("olmoe-1b-7b", "decode_32k"),
-                ("qwen3-moe-235b-a22b", "decode_32k"))
-HLO_CELLS = DECODE_CELLS + (
-    ("internlm2-1.8b", "prefill_32k"), ("olmoe-1b-7b", "prefill_32k"),
-    ("recurrentgemma-9b", "prefill_32k"), ("internlm2-1.8b", "train_4k"),
-    ("olmoe-1b-7b", "train_4k"), ("whisper-medium", "train_4k"), ("rwkv6-3b", "train_4k"))
+# every (arch, shape) cell of the configs, each reduced
+HLO_CELLS = tuple((a, s.name) for a, cfg in all_archs().items() for s in cells(cfg))
+
 TP8_CELLS = (("internlm2-1.8b", "prefill_32k"), ("internlm2-1.8b", "train_4k"))
 TP8_DECODE = ("internlm2-1.8b", "decode_32k")
 
@@ -76,7 +70,21 @@ def compiled_text(arch, shape_name, mesh):
 
 def main():
     jax.devices()                   # 8 host devices, before perf's import
-    from repro.configs import SHAPES, all_archs, cells
+    from repro.launch.hlo_analysis import analyze_hlo_text
+
+    i, n = (int(a) for a in sys.argv[2:4]) if len(sys.argv) > 2 else (0, 1)
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    out = {"hlo_dot_flops": {f"{a}|{s}": analyze_hlo_text(compiled_text(a, s, mesh)).dot_flops
+                             for a, s in HLO_CELLS[i::n]}}
+    if i == 0:
+        out.update(rest())
+    with open(sys.argv[1], "w") as f:
+        json.dump(out, f)
+
+
+def rest():
+    """The kernel models of every cell and the (1, 8) mesh's counts."""
+    from repro.configs import SHAPES
     from repro.launch.hlo_analysis import analyze_hlo_text, region_costs
     from repro.launch.perf import (
         flash_kernel_model,
@@ -95,17 +103,12 @@ def main():
                     "flash": flash_kernel_model(cfg, shape, n_dev, mesh_shape),
                     "wkv": wkv_kernel_model(cfg, shape, n_dev),
                     "rglru": rglru_kernel_model(cfg, shape, n_dev)}
-    mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
-    hlo = {f"{a}|{s}": analyze_hlo_text(compiled_text(a, s, mesh)).dot_flops
-           for a, s in HLO_CELLS}
     mesh8 = jax.sharding.Mesh(np.array(jax.devices()).reshape(1, 8), ("data", "model"))
     tp8 = {f"{a}|{s}": region_costs(compiled_text(a, s, mesh8),
                                     ["attn_scores"])["attn_scores"].dot_flops
            for a, s in TP8_CELLS}
     tp8_decode = analyze_hlo_text(compiled_text(*TP8_DECODE, mesh8)).dot_flops
-    with open(sys.argv[1], "w") as f:
-        json.dump({"models": models, "hlo_dot_flops": hlo, "tp8_attn_dot_flops": tp8,
-                   "tp8_decode_dot_flops": tp8_decode}, f)
+    return {"models": models, "tp8_attn_dot_flops": tp8, "tp8_decode_dot_flops": tp8_decode}
 
 
 if __name__ == "__main__":

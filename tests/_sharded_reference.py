@@ -29,11 +29,11 @@ from jax.sharding import Mesh  # noqa: E402
 
 from repro.configs import get_arch  # noqa: E402
 from repro.configs.base import ShapeConfig  # noqa: E402
-from repro.models import init_params, make_loss_fn  # noqa: E402
+from repro.models import init_params, make_loss_fn, make_prefill_step  # noqa: E402
 from repro.models.moe import moe_ffn_sharded  # noqa: E402
 from repro.models.sharding import ShardCtx, tree_shardings  # noqa: E402
 
-ARCHS = ("internlm2-1.8b", "olmoe-1b-7b", "rwkv6-3b")
+from _torch_sharded_jobs import ARCHS, PREFILL_ARCHS  # noqa: E402
 
 
 def _path(kp) -> str:
@@ -96,14 +96,27 @@ def main(src: str, dst: str) -> None:
         like = jax.eval_shape(lambda: init_params(cfg, jax.random.PRNGKey(0)))
         params = _fill(like, inputs, f"params/{arch}")
         loss_fn = make_loss_fn(cfg, shape, ctx)
-        vg = jax.jit(jax.value_and_grad(lambda p: loss_fn(p, {"tokens": tokens}),
-                                        has_aux=True))
+        batch = {"tokens": tokens}
+        if cfg.encoder_layers:
+            batch["audio_embeds"] = jnp.asarray(inputs["audio"])
+        vg = jax.jit(jax.value_and_grad(lambda p, b=batch: loss_fn(p, b), has_aux=True))
         with _loop_scans():
             (loss, ex), grads = vg(jax.device_put(params, tree_shardings(ctx, params)))
         out[f"loss/{arch}"] = np.asarray(loss)
         out[f"aux/{arch}"] = np.asarray(ex.get("aux", 0.0))
         for kp, g in jax.tree_util.tree_flatten_with_path(grads)[0]:
             out[f"grads/{arch}/{_path(kp)}"] = np.asarray(g, np.float32)
+
+    # f32 prefill of the same tokens, the batch split over 'data'
+    pshape = ShapeConfig("p", "prefill", tokens.shape[1], tokens.shape[0])
+    for arch in PREFILL_ARCHS:
+        cfg = reduced_cfg(get_arch, arch)
+        like = jax.eval_shape(lambda: init_params(cfg, jax.random.PRNGKey(0)))
+        params = _fill(like, inputs, f"params/{arch}")
+        with _loop_scans():
+            logits, _ = jax.jit(make_prefill_step(cfg, pshape, ctx))(
+                jax.device_put(params, tree_shardings(ctx, params)), {"tokens": tokens})
+        out[f"prefill/{arch}/ref"] = np.asarray(logits, np.float32)
 
     # moe_ffn_sharded, without and with capacity drops
     p = {"router": jnp.asarray(inputs["moe/router"]),

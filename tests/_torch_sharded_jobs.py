@@ -6,10 +6,13 @@ and ``test_torch_compression.py``: gloo on the CPU, a file store.
 Every rank runs every job in the same order (the collectives must meet);
 rank 0 writes ``<outdir>/result.npz`` and ``<outdir>/flags.json``.  Jobs
 ``sharding``: ``moe_ffn_sharded`` on a (2, 2) mesh; the sharded loss and
-grads of three reduced archs in f32 and their bf16 losses; two ``Trainer``
+grads of four reduced archs in f32 and their bf16 losses (whisper-medium's
+on seeded audio frames); two ``Trainer``
 steps sharded and on one device, with their checkpoints restored across
 mesh shapes; the kernels' DTensor guard; the mesh builders' refusals.
-Then ``serve``: prefill and decode of reduced internlm2, olmoe,
+Then ``prefill``: the f32 prefill logits of ``PREFILL_ARCHS`` on the
+loss inputs' 4 x 64 tokens, the batch split over 'data', under the mesh
+and on one device.  Then ``serve``: prefill and decode of reduced internlm2, olmoe,
 recurrentgemma and rwkv6 under the mesh and on one device (f32 params;
 bf16 params with MoE routing replayed from one device),
 the sharded ``DiffusionServer`` on the stream of ``test_torch_payload.py``
@@ -41,7 +44,9 @@ import torch
 import torch.distributed as dist
 
 
-ARCHS = ("internlm2-1.8b", "olmoe-1b-7b", "rwkv6-3b")
+ARCHS = ("internlm2-1.8b", "olmoe-1b-7b", "rwkv6-3b", "whisper-medium")
+# sharded prefill of the loss inputs' batch (split over 'data'), f32 params
+PREFILL_ARCHS = ("rwkv6-3b",)
 # reduced gemma3-1b with 3 query heads, which do not divide over the (2, 2)
 # mesh's 'tp': attention takes the reference's sequence split (its sliding
 # window comes along)
@@ -84,7 +89,8 @@ def _value_and_grads(loss_fn, params, batch, ctx):
     with torch.enable_grad(), ctx.scope():
         loss, ex = loss_fn(tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
-    return (float(full(loss)), float(full(ex["aux"])),
+    aux = ex.get("aux")                 # the encoder-decoder's loss has none
+    return (float(full(loss)), 0.0 if aux is None else float(full(aux)),
             {p: _np(full(g)) for p, g in zip(paths, grads)})
 
 
@@ -156,7 +162,32 @@ def _loss_inputs(inputs, arch):
     shape = ShapeConfig("t", "train", tokens.shape[1], tokens.shape[0])
     cfg = reduced_cfg(get_arch, arch)
     like = init_params(cfg, device="cpu", seed=0)
-    return cfg, shape, {"tokens": tokens}, like, _fill(like, inputs, f"params/{arch}")
+    batch = {"tokens": tokens}
+    if cfg.encoder_layers:
+        batch["audio_embeds"] = torch.from_numpy(inputs["audio"])
+    return cfg, shape, batch, like, _fill(like, inputs, f"params/{arch}")
+
+
+def prefill_jobs(ctx, inputs, out, rank):
+    """The f32 prefill logits of ``PREFILL_ARCHS`` on the loss inputs'
+    tokens under the mesh (the batch split over 'data'), and on rank 0 on
+    one device."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import make_prefill_step
+    from repro_torch.models.sharding import P, ShardCtx, distribute, full
+
+    for arch in PREFILL_ARCHS:
+        cfg, _, batch, _, params = _loss_inputs(inputs, arch)
+        tokens = batch["tokens"]
+        shape = ShapeConfig("p", "prefill", tokens.shape[1], tokens.shape[0])
+        with torch.no_grad():
+            logits, _ = make_prefill_step(cfg, shape, ctx=ctx)(
+                _placed(ctx, params), {"tokens": distribute(ctx, tokens, P("data", None))})
+            out[f"prefill/{arch}/mesh"] = _np(full(logits))
+            if rank == 0:
+                logits, _ = make_prefill_step(cfg, shape, ctx=ShardCtx())(
+                    params, {"tokens": tokens})
+                out[f"prefill/{arch}/single"] = _np(logits)
 
 
 def loss_case(ctx, inputs, out, arch):
@@ -829,7 +860,9 @@ def make_inputs(path):
     from repro_torch.tree import tree_flatten_with_paths
 
     rng = np.random.default_rng(0)
-    out = {"tokens": rng.integers(0, 256, (4, 64)).astype(np.int32)}
+    out = {"tokens": rng.integers(0, 256, (4, 64)).astype(np.int32),
+           # whisper's audio frames [B, S, d_model], a generator of their own
+           "audio": np.random.default_rng(1).standard_normal((4, 64, 64)).astype(np.float32)}
     for arch in sorted(set(ARCHS) | set(SERVE_ARCHS) | {SPLIT_ARCH}):
         params = _own_params(arch, reduced_cfg(get_arch, arch))
         paths, leaves, _ = tree_flatten_with_paths(params)
@@ -870,6 +903,9 @@ def port_checks(out, flags):
         if one:
             worst = max(rel_l2(out["grads" + k[len("grads1"):]], out[k]) for k in one)
             c[f"{arch} f32 grads sharded = one device (1e-4 L2)"] = worst < 1e-4
+    for arch in PREFILL_ARCHS:
+        c[f"{arch} f32 prefill logits, batch over 'data' = one device (1e-4)"] = (
+            _logits_close(out[f"prefill/{arch}/mesh"], out[f"prefill/{arch}/single"], arch))
     c["trainer losses (1e-5)"] = len(out["trainer/sharded/losses"]) == 2 and np.abs(
         out["trainer/sharded/losses"] - out["trainer/single/losses"]).max() < 1e-5
     keys = [k for k in out if k.startswith("trainer/single/params/")]
@@ -964,6 +1000,7 @@ def main(rank: int, world: int, store: str, src: str, outdir: str, jobs: str) ->
 
         timed("moe", moe_job, ctx, inputs, out)
         timed("loss", loss_jobs, ctx, inputs, out, rank)
+        timed("prefill", prefill_jobs, ctx, inputs, out, rank)
         timed("trainer", trainer_and_checkpoint_jobs, ctx, world, work, rank, out, flags)
         timed("microbatch", microbatch_job, ctx, rank, out)
         guard_job(ctx, flags)

@@ -79,13 +79,13 @@ from repro_torch.models.api import cache_init, is_encdec
 from repro_torch.optim.adamw import adamw8bit_init
 from repro_torch.tree import tree_flatten_with_paths, tree_map
 
-from _torch_sharded_jobs import (BF16_LOGITS_TOL, BF16_TIE, SERVE_ARCHS, SPLIT_ARCH,
-                                 expert_block_problems, make_inputs, port_checks,
-                                 reduced_cfg, run_ranks, split_rows_problems)
+from _torch_sharded_jobs import (ARCHS, BF16_LOGITS_TOL, BF16_TIE, PREFILL_ARCHS,
+                                 SERVE_ARCHS, SPLIT_ARCH, expert_block_problems,
+                                 make_inputs, port_checks, reduced_cfg, run_ranks,
+                                 split_rows_problems)
 
 TESTS = Path(__file__).resolve().parent
 SRC = TESTS.parent / "src"
-ARCHS = ("internlm2-1.8b", "olmoe-1b-7b", "rwkv6-3b")
 LOSS_ARCHS = ARCHS + (SPLIT_ARCH,)
 
 
@@ -480,6 +480,22 @@ def test_sharded_prefill_and_decode_logits_match_reference(runs, arch):
     for step, (a, b) in enumerate(zip(t[..., :V], j[..., :V])):
         err = np.abs(a - b).max() / np.abs(b).max()
         assert err < 1e-4, (step, err)
+
+
+@pytest.mark.parametrize("arch", PREFILL_ARCHS)
+def test_sharded_prefill_logits_with_the_batch_split_match_reference(runs, arch):
+    """A prefill of the loss inputs' 4 x 64 tokens, the batch split over
+    'data' (the serve checks' one prompt cannot split it), on f32 params:
+    the last position's logits (real vocab) within 1e-4 of the reference's
+    sharded step and of the port's on one device, max abs error over max
+    abs."""
+    t, o = (runs["port"][f"prefill/{arch}/{k}"] for k in ("mesh", "single"))
+    j = runs["ref"][f"prefill/{arch}/ref"]
+    V = get_arch(arch).reduced().vocab_size
+    assert t.shape == j.shape == o.shape == (4, get_arch(arch).reduced().padded_vocab)
+    for want in (j, o):
+        err = np.abs(t[:, :V] - want[:, :V]).max() / np.abs(want[:, :V]).max()
+        assert err < 1e-4, err
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
