@@ -34,6 +34,7 @@ from ..optim.adamw import (
     adamw_update,
     cosine_schedule,
 )
+from ..obs.spans import span
 from ..tree import tree_flatten_with_paths, tree_leaves, tree_map, tree_unflatten
 from . import encdec, lm
 from .sharding import ShardCtx, distribute_tree, laid_like
@@ -193,8 +194,10 @@ def make_train_step(cfg: ArchConfig, shape: ShapeConfig,
 
     ``microbatches`` > 1 accumulates grads: the batch is split along dim 0,
     each slice runs forward and backward in turn, and its grads are added
-    into an f32 accumulator, each divided by the slice count.  Returns new
-    trees; the caller's params, optimizer state and batch stay as they were.
+    into an f32 accumulator, each divided by the slice count.  Each slice's
+    forward and backward runs in the span ``train.grad``, the update in
+    ``train.optimizer``.  Returns new trees; the caller's params, optimizer
+    state and batch stay as they were.
     Under a mesh (``ctx``) the params, optimizer state and batch are
     DTensors, and so are the grads, the new trees and the metrics.
     """
@@ -203,17 +206,18 @@ def make_train_step(cfg: ArchConfig, shape: ShapeConfig,
         shape.global_batch)
 
     def grad_of(params, mb):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        # backward recomputes checkpointed chunks: it runs in the scope too
-        with torch.enable_grad(), ctx.scope():
-            loss, extras = loss_fn(tree_unflatten(params, leaves), mb)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # each grad in its param's layout (partial sums reduced), so the
-        # update keeps every param and moment where the mesh placed it
-        grads = [torch.zeros_like(p) if g is None else laid_like(g, p)
-                 for p, g in zip(leaves, grads)]
-        extras = {k: v.detach() for k, v in extras.items()}
-        return (loss.detach(), extras), tree_unflatten(params, grads)
+        with span("train.grad"):
+            leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+            # backward recomputes checkpointed chunks: it runs in the scope too
+            with torch.enable_grad(), ctx.scope():
+                loss, extras = loss_fn(tree_unflatten(params, leaves), mb)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # each grad in its param's layout (partial sums reduced), so the
+            # update keeps every param and moment where the mesh placed it
+            grads = [torch.zeros_like(p) if g is None else laid_like(g, p)
+                     for p, g in zip(leaves, grads)]
+            extras = {k: v.detach() for k, v in extras.items()}
+            return (loss.detach(), extras), tree_unflatten(params, grads)
 
     def train_step(params, opt_state, batch):
         eightbit = use_8bit_opt(cfg)
@@ -241,7 +245,7 @@ def make_train_step(cfg: ArchConfig, shape: ShapeConfig,
             opt_state["step"] + 1, warmup=min(100, max(1, total_steps // 10)),
             total=total_steps)
         update = adamw8bit_update if eightbit else adamw_update
-        with ctx.scope():
+        with span("train.optimizer"), ctx.scope():
             params, opt_state, om = update(grads, opt_state, params, opt, lr_scale)
         metrics = {"loss": extras["loss"], "total_loss": loss, **om}
         return params, opt_state, metrics

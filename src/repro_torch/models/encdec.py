@@ -24,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..obs.spans import span
 from .layers import (
     BF16,
     attention_block,
@@ -246,10 +247,11 @@ def encdec_prefill(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx(),
 
 def encdec_decode(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx()):
     """One decode step.  batch: {token [B], pos int, caches {k, v, ck, cv}}.
-    Returns (logits [B, V], caches) with the caches updated in place."""
+    Returns (logits [B, V], caches) with the caches updated in place.  Runs
+    in the span ``model.decode``."""
     tok = batch["token"]
     pos = int(batch["pos"])
-    with ctx.scope():
+    with span("model.decode"), ctx.scope():
         h = (embed_lookup(params, tok)[:, None, :].to(BF16)
              + params["pos_embed_dec"][pos][None, None])
         h, caches = _decoder_stack(params, h, None, cfg, "decode",

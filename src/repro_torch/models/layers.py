@@ -24,7 +24,9 @@ each rank runs its own rows from their own first position (K3's
 capacity-sharded cache, combined over 'tp' as a split-KV softmax.
 The scores, mask and softmax, and the kernel's call, run in the
 ``record_function`` region "attn_scores", the reference's named scope,
-which the cost model reads (``launch/op_analysis.py``).
+which the cost model reads (``launch/op_analysis.py``); it is opened
+through ``obs.spans.span``, so only a profiler or a dispatch mode pays
+for it.
 The loss functions (``softmax_xent``, ``chunked_lm_loss``) close the file.
 """
 
@@ -35,10 +37,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import flash_attention
+from ..obs.spans import span
 from .sharding import (ShardCtx, gather_inner, gather_last, is_dtensor, mm, reshape,
                        unshard_dim)
 
@@ -143,7 +145,7 @@ def _attention(q, k, v, qpos, kpos, causal: bool, window: int, chunk: int):
     scale = Dh ** -0.5
 
     if Sq == 1 or Skv <= chunk:
-        with record_function("attn_scores"):     # region of the cost model
+        with span("attn_scores"):     # region of the cost model
             kk, vv = _repeat_kv(k, rep), _repeat_kv(v, rep)
             s = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), kk.to(F32)) * scale
             s = s + _mask_bias(qpos, kpos, causal, window)[None, None]
@@ -158,7 +160,7 @@ def _attention(q, k, v, qpos, kpos, causal: bool, window: int, chunk: int):
     qf = q.to(F32)
 
     def body(o, m, l, kc, vc, kp):
-        with record_function("attn_scores"):     # so is its recompute
+        with span("attn_scores"):     # so is its recompute
             kc, vc = _repeat_kv(kc, rep), _repeat_kv(vc, rep)
             s = torch.einsum("bqhd,bkhd->bhqk", qf, kc.to(F32)) * scale
             s = s + _mask_bias(qpos, kp, causal, window)[None, None]
@@ -184,7 +186,7 @@ def _partial_attention(q, k, v, qpos, kpos, causal: bool, window: int):
     sum of p * v [B, Sq, H, Dh], the row max m and the sum l of p [B, Sq,
     H], all f32), p = exp(s - m) over the keys given (none: m = NEG_INF)."""
     B, Sq, H, Dh = q.shape
-    with record_function("attn_scores"):     # region of the cost model
+    with span("attn_scores"):     # region of the cost model
         if k.shape[1] == 0:
             zero = torch.zeros((B, Sq, H), dtype=F32, device=q.device)
             return (torch.zeros((B, Sq, H, Dh), dtype=F32, device=q.device),
@@ -295,7 +297,7 @@ def _flash(q, k, v, *, causal: bool, window: int, ctx: ShardCtx):
         kw = {}
         if q.shape[1] != S and (causal or window):
             kw["q_offset"] = Skv - S + first
-        with record_function("attn_scores"):
+        with span("attn_scores"):
             return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                    causal=causal, window=window, **kw)
 

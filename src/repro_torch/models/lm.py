@@ -46,6 +46,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..obs.spans import span
 from . import rglru as rg
 from . import rwkv as rw
 from .layers import (
@@ -416,11 +417,12 @@ def lm_prefill(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx(),
 
 def lm_decode(params, batch, cfg: ArchConfig, ctx: ShardCtx = ShardCtx()):
     """One decode step.  batch: {token [B], pos int, caches}.  Returns
-    (logits [B, V], caches) with the caches updated in place."""
+    (logits [B, V], caches) with the caches updated in place.  Runs in the
+    span ``model.decode``."""
     check_supported(cfg)
     tok = batch["token"]
     pos = int(batch["pos"])
-    with ctx.scope():
+    with span("model.decode"), ctx.scope():
         h = _embed(params, tok)[:, None, :]
         positions = torch.full((1,), pos, dtype=torch.int64, device=h.device)
         h, _, caches = _run_stack(params, h, cfg=cfg, positions=positions,

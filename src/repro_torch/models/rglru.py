@@ -21,17 +21,17 @@ time that autograd differentiates on the CPU and on the card alike.  The
 GeLU is the tanh approximation, which is what ``jax.nn.gelu`` computes by
 default.  The recurrence step (the loop, or the kernel's call) runs in the
 ``record_function`` region "rglru_rec", the reference's named scope, which
-the cost model reads.
+the cost model reads (opened through ``obs.spans.span``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from .. import trips
 from ..kernels.rglru_scan.ops import rglru_gated_scan
+from ..obs.spans import span
 from .layers import BF16, F32, dense_init
 from .sharding import ShardCtx, gather_inner, mm
 
@@ -77,13 +77,13 @@ def rglru_scan(xi, r, i_gate, lam, h0):
         h = a_t * h + g_t
         return h, h
 
-    with record_function("rglru_rec"):          # region of the cost model
+    with span("rglru_rec"):          # region of the cost model
         h, y = trips.scan(a.shape[1], step, h0.to(F32), (a, gated))
     return y, h
 
 
 def _gated_kernel(*operands):
-    with record_function("rglru_rec"):
+    with span("rglru_rec"):
         return rglru_gated_scan(*operands)
 
 

@@ -21,7 +21,7 @@ route's loops, run on each rank's local batch and head shard (heads over
 the recurrence.
 The recurrence, the loop's steps or the kernel's call, runs in the
 ``record_function`` region "wkv_scan" (the reference's named scope; the
-cost model reads it).  Dtypes
+cost model reads it), opened through ``obs.spans.span``.  Dtypes
 follow the reference: ``mu``, ``mix_b`` and ``wo`` bf16; ``w0``,
 ``decay_b`` and ``u`` fp32.
 """
@@ -33,11 +33,11 @@ import threading
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .. import trips
 from ..kernels.rwkv6_scan.ops import wkv6
+from ..obs.spans import span
 from .layers import BF16, F32, dense_init, rmsnorm, rmsnorm_init
 from .sharding import ShardCtx, is_dtensor, mm, reshape
 
@@ -134,7 +134,7 @@ def wkv_scan(r, k, v, w, u, s0):
         out = _Read.apply(r_t, S + u4 * kv)
         return w_t[..., :, None] * S + kv, out
 
-    with record_function("wkv_scan"):           # region of the cost model
+    with span("wkv_scan"):           # region of the cost model
         # one unbind a tensor: in backward its step grads are stacked once
         # (indexing step by step would add T full-size grads)
         S, out = trips.scan(r.shape[1], step, S, [a.to(F32) for a in (r, k, v, w)])
@@ -167,7 +167,7 @@ def wkv_chunked(r, k, v, w, u, s0, chunk: int = 128):
 
 
 def _wkv6_kernel(*operands):
-    with record_function("wkv_scan"):
+    with span("wkv_scan"):
         return wkv6(*operands)
 
 

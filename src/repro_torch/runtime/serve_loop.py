@@ -28,13 +28,21 @@ local shards.  Greedy decoding takes the argmax of each rank's replicated
 logits.  Every rank runs the same routing on the same stream, so each
 makes the same decisions.  The scoring kernels and the host matrices are
 those of one device.
+
+The server's phases run in named spans (``obs.spans``): ``serve.route``
+(each call into the router), ``serve.score`` (the dispatcher's device
+scoring, opened once the model's queued device work is done),
+``serve.prefill`` with ``serve.cache`` inside it (a miss's prefill and the
+decode cache made and filled from it), ``serve.decode`` (a request's decode
+loop; each step runs in the model's ``model.decode``) and ``serve.payload``
+(a swap-in's KV tensors handed back).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -47,6 +55,7 @@ from ..models import (cache_init, init_params, is_encdec, make_decode_step,
                       make_prefill_step)
 from ..models.sharding import (ShardCtx, copy_into, distribute, distribute_tree,
                                tree_param_specs, write_prefix)
+from ..obs.spans import span
 from .router import (Assignment, AdmissionController, CacheAffinityRouter,
                      RoutedRequest)
 
@@ -197,6 +206,14 @@ class DiffusionServer:
         ctx: ShardCtx = ShardCtx(),
         seed: int = 0,
         device: str = "cuda",
+        # params: the model's weights (a tree as init_params draws it, on
+        # ``device``) in place of the server's own draw from ``seed``.
+        params: Optional[Any] = None,
+        # on_token(request_id, pos, logits) is called after each decode
+        # step a request runs, with the step's input position and logits.
+        # ``logits`` is the decode step's own output buffer, which a later
+        # step may reuse: a caller that keeps it copies it.
+        on_token: Optional[Callable[[int, int, Any], None]] = None,
     ):
         if payload not in ("modeled", "real"):
             raise ValueError(f"payload must be 'modeled' or 'real': {payload!r}")
@@ -214,7 +231,8 @@ class DiffusionServer:
         self.cap = cache_cap
         self.measured = MeasuredBandwidth()
         self.payload_mode = payload
-        params = init_params(cfg, device=self.device, seed=seed)
+        if params is None:
+            params = init_params(cfg, device=self.device, seed=seed)
         self.params = distribute_tree(ctx, params, tree_param_specs(ctx, params))
         shape = ShapeConfig("serve", "prefill", cache_cap, 1)
         self.prefill_fn = make_prefill_step(cfg, shape, ctx=ctx)
@@ -298,6 +316,7 @@ class DiffusionServer:
             self._build_replica(self.router.add_replica())
         self.router.drp.registered = min_replicas
         self.stats = ServeStats()
+        self.on_token = on_token
         self.obs = obs
         self._trace = obs.trace if obs is not None else None
         if obs is not None:
@@ -370,14 +389,15 @@ class DiffusionServer:
                                payload=req, submit_time_s=now, tenant=tenant)
         # enqueue carries the backpressure contract; a REJECTED request is
         # refused at the edge (counted + traced), never silently dropped.
-        req.verdict = self.router.enqueue(routed, now=now)
-        if not self.batch_drain:
-            # The router runs phase 1 (and DRP scaling) immediately;
-            # execution happens in step().  Requests whose policy delays
-            # dispatch stay in the wait queue until a replica frees and
-            # picks them (phase 2).  (Batch plane: only enqueue — step()
-            # drains the accumulated burst in one notify_batch per tick.)
-            self._ready.extend(self.router.tick(now))
+        with span("serve.route"):
+            req.verdict = self.router.enqueue(routed, now=now)
+            if not self.batch_drain:
+                # The router runs phase 1 (and DRP scaling) immediately;
+                # execution happens in step().  Requests whose policy delays
+                # dispatch stay in the wait queue until a replica frees and
+                # picks them (phase 2).  (Batch plane: only enqueue — step()
+                # drains the accumulated burst in one notify_batch per tick.)
+                self._ready.extend(self.router.tick(now))
         return req
 
     # ------------------------------------------------------------- serve
@@ -405,60 +425,51 @@ class DiffusionServer:
                     # continue on those swapped-in tensors (``value`` hands
                     # out a copy, which decode may update in place), not on
                     # the working copy the eviction left behind.
-                    t0 = time.time()
+                    # The ring's "payload" span: the real KV bytes
+                    # returning to the device for this request.
                     backend = store.tiers.payload
-                    restored = (backend.value(session_object(sid))
-                                if backend is not None else None)
+                    with span("serve.payload", self._trace, routed.request_id,
+                              "payload", "dispatch", replica.name,
+                              (found, store.top_tier), ring=session_object(sid)):
+                        restored = (backend.value(session_object(sid))
+                                    if backend is not None else None)
                     if restored is not None:
                         caches = restored
-                        if self._trace is not None:
-                            # Structural span: the real KV bytes returning
-                            # to the device for this request.
-                            self._trace.record(
-                                routed.request_id, session_object(sid),
-                                "payload", t0, time.time(),
-                                replica=replica.name, parent="dispatch",
-                                detail=(found, store.top_tier))
             self.stats.restore_time_s += routed.restore_cost_s
         else:
             # "copy from persistent storage": replay the prompt (prefill).
             self.stats.prefills += 1
-            t0 = time.time()
-            prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
-                                     device=self.device)[None, :]
-            batch = {"tokens": self._on_dp(prompt)}
-            _, pre_caches = self.prefill_fn(self.params, batch)
-            # prefill caches are full-seq; re-home into a decode cache buffer
-            caches = cache_init(self.cfg, 1, self.cap, device=self.device,
-                                ctx=self.ctx)
-            caches = _merge_prefill_caches(caches, pre_caches, self.cfg)
             pos = req.prompt.shape[0]
-            if self._trace is not None:
-                # Segment timestamp for the critical-path analyzer: compute
-                # phases are not attribution segments (they land in
-                # "service" by construction), but the span makes the
-                # prefill-vs-decode split visible in the trace exports.
-                self._trace.record(routed.request_id, "prefill", "compute",
-                                   t0, time.time(), replica=replica.name,
-                                   parent="dispatch",
-                                   detail=(req.prompt.shape[0],))
+            # The ring's "prefill" compute span is a segment timestamp for
+            # the critical-path analyzer: compute phases are not attribution
+            # segments (they land in "service" by construction), but the
+            # span makes the prefill-vs-decode split visible in the exports.
+            with span("serve.prefill", self._trace, routed.request_id, "compute",
+                      "dispatch", replica.name, (pos,)):
+                prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                         device=self.device)[None, :]
+                batch = {"tokens": self._on_dp(prompt)}
+                _, pre_caches = self.prefill_fn(self.params, batch)
+                # prefill caches are full-seq; re-home into a decode cache buffer
+                with span("serve.cache"):
+                    caches = cache_init(self.cfg, 1, self.cap, device=self.device,
+                                        ctx=self.ctx)
+                    caches = _merge_prefill_caches(caches, pre_caches, self.cfg)
 
-        t0 = time.time()
-        token = self._on_dp(torch.tensor([int(req.prompt[-1]) % self.cfg.vocab_size],
-                                         dtype=torch.int64, device=self.device))
-        for _ in range(req.max_new_tokens):
-            if pos >= self.cap - 1:
-                break
-            logits, caches = self.decode_fn(
-                self.params, {"token": token, "pos": pos, "caches": caches}
-            )
-            token = self._greedy(logits)
-            pos += 1
-            self.stats.decode_steps += 1
-        if self._trace is not None:
-            self._trace.record(routed.request_id, "decode", "compute",
-                               t0, time.time(), replica=replica.name,
-                               parent="dispatch", detail=(pos,))
+        steps = max(0, min(req.max_new_tokens, self.cap - 1 - pos))
+        with span("serve.decode", self._trace, routed.request_id, "compute", "dispatch",
+                  replica.name, (pos + steps,)):
+            token = self._on_dp(torch.tensor([int(req.prompt[-1]) % self.cfg.vocab_size],
+                                             dtype=torch.int64, device=self.device))
+            for _ in range(steps):
+                logits, caches = self.decode_fn(
+                    self.params, {"token": token, "pos": pos, "caches": caches}
+                )
+                if self.on_token is not None:
+                    self.on_token(req.request_id, pos, logits)
+                token = self._greedy(logits)
+                pos += 1
+                self.stats.decode_steps += 1
         if use_cache:
             # keep the KV payload iff the router's store admitted the object
             # (first-available ships no location info and caches nothing;
@@ -530,7 +541,8 @@ class DiffusionServer:
                or self.router.pending_admission() > 0):
             if not self._ready:
                 # delayed requests: replicas all freed by now, re-run phase 1
-                self._ready.extend(self.router.tick(time.time()))
+                with span("serve.route"):
+                    self._ready.extend(self.router.tick(time.time()))
                 idle_rounds += 1
                 if not self._ready and idle_rounds > 2:
                     break  # policy refuses the remainder (all holders lost)
@@ -552,8 +564,9 @@ class DiffusionServer:
                         self._run_request(replica, routed)
                         served += 1
                         finished.append(routed)
-                self._ready.extend(
-                    self.router.complete_batch(finished, now=time.time()))
+                with span("serve.route"):
+                    self._ready.extend(
+                        self.router.complete_batch(finished, now=time.time()))
                 continue
             assignment = self._ready.pop(0)
             replica = self.replicas.get(assignment.replica)
@@ -562,7 +575,8 @@ class DiffusionServer:
                     continue            # crashed from under the assignment
                 self._run_request(replica, routed)
                 served += 1
-                self._ready.extend(self.router.complete(routed, now=time.time()))
+                with span("serve.route"):
+                    self._ready.extend(self.router.complete(routed, now=time.time()))
         if self.score_mirror is not None:
             self._flush_scores()
         return served
@@ -574,17 +588,26 @@ class DiffusionServer:
         reference dispatcher); step() owns its flush cadence."""
         return getattr(self.router.dispatcher, "_mirror", None)
 
+    def _wait_for_model(self) -> None:
+        """Wait for the device work already queued (the model's) before a
+        scoring span: the scoring's uploads and read-back wait for it in
+        any case, and ``serve.score`` then times the dispatcher alone."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
     def _rescore_window(self) -> None:
         """Epoch open: the window's bulk rescore (on the device under CUDA)
         must equal the dispatcher's incremental score rows."""
         disp = self.router.dispatcher
-        sb, sw = disp.rebuild_scores()
-        rows = np.sort(np.fromiter(disp._item_row.values(), dtype=np.intp,
-                                   count=len(disp._item_row)))
-        if not (np.array_equal(sb, disp._Sb[rows])
-                and np.array_equal(sw, disp._Sw[rows])):
-            raise RuntimeError("device rescore disagrees with the "
-                               "dispatcher's incremental scores")
+        self._wait_for_model()
+        with span("serve.score"):
+            sb, sw = disp.rebuild_scores()
+            rows = np.sort(np.fromiter(disp._item_row.values(), dtype=np.intp,
+                                       count=len(disp._item_row)))
+            if not (np.array_equal(sb, disp._Sb[rows])
+                    and np.array_equal(sw, disp._Sw[rows])):
+                raise RuntimeError("device rescore disagrees with the "
+                                   "dispatcher's incremental scores")
         st = self.score_stats
         st.epochs += 1
         st.rows_rescored += len(rows)
@@ -593,8 +616,10 @@ class DiffusionServer:
     def _flush_scores(self) -> None:
         """Epoch close: apply the epoch's presence deltas to the device
         mirror, which must then equal the host Sw."""
-        keys = self.score_mirror.flush()
-        err = self.score_mirror.verify()
+        self._wait_for_model()
+        with span("serve.score"):
+            keys = self.score_mirror.flush()
+            err = self.score_mirror.verify()
         if err != 0.0:
             raise RuntimeError(f"device score mirror off by {err} after a flush")
         st = self.score_stats

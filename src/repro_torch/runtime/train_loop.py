@@ -98,8 +98,12 @@ class Trainer:
         return {"params": tree_param_specs(self.ctx, params),
                 "opt": opt_state_specs(self.ctx, params, opt_state)}
 
-    def init_state(self):
-        params = init_params(self.cfg, device=self.device, seed=self.tcfg.seed)
+    def init_state(self, params=None):
+        """Params (drawn from the config's seed unless given, as a tree on
+        the trainer's device) and their fresh optimizer state, placed under
+        the mesh."""
+        if params is None:
+            params = init_params(self.cfg, device=self.device, seed=self.tcfg.seed)
         opt_state = init_opt_state(params, self.cfg)
         if self.ctx.mesh is None:
             return params, opt_state
