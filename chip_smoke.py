@@ -229,6 +229,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+# AdamW's bytes a bf16 param: the norm reads g; the update reads g, p, m, v
+# and writes p, m, v
+ADAMW_BYTES = 24.0
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}   # dense tensor-core bf16; fp32 SIMT
 
 REPLACES = {
@@ -238,6 +241,7 @@ REPLACES = {
     "moe_gmm": "src/repro/kernels/moe_gmm/moe_gmm.py:39",
     "rglru_scan": "src/repro/kernels/rglru_scan/rglru_scan.py:41",
     "wkv6": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:87",
+    "adamw_update": "none: src/repro/optim/adamw.py is jnp code that XLA fuses",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -246,6 +250,7 @@ SOURCES = {
     "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu",
     "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
     "wkv6": "src/repro_torch/csrc/wkv6.cu",
+    "adamw_update": "src/repro_torch/csrc/adamw.cu",
 }
 # each kernel's launches over the serve run of its family (phase 5): the
 # serving path is the same whatever the train route does
@@ -1572,7 +1577,8 @@ def train_full_width(card, args=TRAIN_ARGS, falls=True):
            "tokens_per_s": positions / (med / 1e3),
            "max_memory_allocated": report["max_memory_allocated"],
            "device_name": report["device_name"], "device": report["device"],
-           "mesh": report["mesh"], "nvidia_smi": card,
+           "mesh": report["mesh"], "adamw_launches": report["adamw_launches"],
+           "nvidia_smi": card,
            "command_s": took, "done": lines[-1]}
     say(f"{label} [{card}]: median step {med:.2f} ms over steps {first}-{n}, "
         f"{row['tokens_per_s']:.0f} positions/s, peak "
@@ -1586,43 +1592,97 @@ def train_full_width(card, args=TRAIN_ARGS, falls=True):
 
 def optimizer_timing(arch):
     """The AdamW update alone at ``arch``'s full width on the card (random
-    bf16 grads), CUDA events around each of 3 calls after one warm-up; the
-    bound moves 22 bytes a param (read g, p, m, v; write p, m, v).  Also
-    each leaf's size, for the step's bound (``_step_bound``)."""
+    bf16 grads and f32 moments).  The first call's result is held to the
+    plain version (``kernels/adamw/ref.py``), leaf by leaf: p, m and v
+    bit-equal to ``adamw_apply_ref``'s given the kernels' clip factor, the
+    grad norm within 1e-5 relative of ``global_norm``.  Then CUDA events
+    around each of 3 calls, the fused kernels' launches counted over them
+    (the counter zeroed just before), and the plain version timed the same
+    way.  The bound moves ``ADAMW_BYTES`` a param.  Also each leaf's size,
+    for the step's bound (``_step_bound``)."""
     import statistics
 
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.adamw import ref
+    from repro_torch.kernels.adamw.ops import adamw_fused
     from repro_torch.models import init_params
-    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
-    from repro_torch.tree import tree_flatten_with_paths, tree_map
-    cfg = get_arch(arch)
-    params = init_params(cfg, device="cuda", seed=0)
+    from repro_torch.optim import AdamWConfig, adamw_update, global_norm
+    from repro_torch.optim.adamw import _schedule
+    from repro_torch.tree import tree_flatten_with_paths, tree_leaves, tree_map
+    cfg = AdamWConfig()
+    params = init_params(get_arch(arch), device="cuda", seed=0)
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
-    grads = tree_map(lambda p: (1e-3 * torch.randn(p.shape, generator=g, device="cuda"))
-                     .to(p.dtype), params)
-    state = adamw_init(params)
+    rand = lambda p, scale: scale * torch.randn(p.shape, generator=g, device="cuda")
+    grads = tree_map(lambda p: rand(p, 1e-3).to(p.dtype), params)
+    state = {"m": tree_map(lambda p: rand(p, 1e-4), params),
+             "v": tree_map(lambda p: rand(p, 1e-4).square_(), params),
+             "step": torch.full((), 4, dtype=torch.int32, device="cuda")}
     paths, leaves, _ = tree_flatten_with_paths(params)
     sizes = {p: t.numel() for p, t in zip(paths, leaves)}
     n = sum(sizes.values())
-    adamw_update(grads, state, params, AdamWConfig())
-    times = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        adamw_update(grads, state, params, AdamWConfig())
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    del params, grads, state
+    tables = -(-len(leaves) // 48)
+    ins = [tree_leaves(t) for t in (grads, state["m"], state["v"], params)]
+    hyper = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    _, b1c, b2c, lr = _schedule(state, cfg, 1.0)
+
+    new_p, new_s, met = adamw_update(grads, state, params, cfg)
+    gnorm = met["grad_norm"]
+    clip = ref.clip_factor(gnorm, cfg.grad_clip)
+    outs = [tree_leaves(t) for t in (new_p, new_s["m"], new_s["v"])]
+    del new_p, new_s
+    worst, unequal = 0.0, []
+    for i, path in enumerate(paths):
+        want = ref.adamw_apply_ref(*([x[i]] for x in ins), clip, b1c, b2c, lr, **hyper)
+        for k, (w,) in enumerate(want):
+            got = outs[k][i]
+            worst = max(worst, float((got.float() - w.float()).abs().max()))
+            if not torch.equal(got, w):
+                unequal.append(f"{path}.{'pmv'[k]}")
+        del want
+    del outs
+    plain_norm = float(global_norm(grads))
+    norm_err = abs(float(gnorm) - plain_norm) / plain_norm
+
+    def timed(fn):
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return times
+
+    # the first call above was the kernels' warm-up
+    adamw_fused.launches = 0
+    times = timed(lambda: adamw_update(grads, state, params, cfg))
+    launched = adamw_fused.launches
+    plain_call = lambda: ref.adamw_ref(*ins, b1c, b2c, lr, grad_clip=cfg.grad_clip, **hyper)
+    plain_call()
+    plain = timed(plain_call)
+    del params, grads, state, ins
     gc.collect()
     torch.cuda.empty_cache()
-    return {"params": n, "sizes": sizes, "ms": statistics.median(times),
-            "ms_all": times, "bound_ms": 22.0 * n / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes"}
+    row = {"params": n, "leaves": len(leaves), "sizes": sizes,
+           "ms": statistics.median(times), "ms_all": times,
+           "plain_ms": statistics.median(plain), "plain_ms_all": plain,
+           "library_ms": None, "launches_3_calls": launched,
+           "bound_ms": ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "max_abs_err": worst, "unequal_leaves": unequal, "grad_norm": float(gnorm),
+           "plain_grad_norm": plain_norm, "grad_norm_rel_err": norm_err}
+    problems = [k for k, ok in (
+        ("p, m and v bit-equal to the plain version's", not unequal),
+        ("grad norm within 1e-5 of global_norm", norm_err <= 1e-5),
+        (f"{2 * tables} launches a call", launched == 3 * 2 * tables)) if not ok]
+    if problems:
+        fail(f"train optimizer {arch}: {problems}: "
+             + json.dumps({k: v for k, v in row.items() if k != "sizes"}))
+    return row
 
 
 def train_restart_check(ops):
@@ -1684,8 +1744,8 @@ def _step_bound(leaves, tokens, capacity_rows):
     param a token (forward, backward, the group recompute) at the bf16 peak,
     an expert's weights counted on the C rows of its slot in the [E, C, D]
     buffer (``capacity_rows``; E x C rows in all, as the einsums compute
-    them) instead of the tokens; plus AdamW's 22 bytes a param (read g, p,
-    m, v; write p, m, v) at the memory rate.  ``leaves``: {path: numel};
+    them) instead of the tokens; plus AdamW's ``ADAMW_BYTES`` a param at
+    the memory rate.  ``leaves``: {path: numel};
     matmul params are all but the embedding table and the norm scales."""
     n = sum(leaves.values())
     n_exp = sum(k for p, k in leaves.items() if "experts" in p)
@@ -1693,7 +1753,7 @@ def _step_bound(leaves, tokens, capacity_rows):
                if p != "embed" and not p.endswith("scale")) - n_exp
     expert_ops = 8.0 * n_exp * capacity_rows
     ops = 8.0 * n_mm * tokens + expert_ops
-    adamw_ms = 22.0 * n / HBM_BYTES_PER_S * 1e3
+    adamw_ms = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
     return {"params": n, "matmul_params": n_mm, "expert_params": n_exp,
             "capacity": capacity_rows, "ops": ops, "expert_ops": expert_ops,
             "expert_ops_f32_ms": expert_ops / PEAK_OPS["f32"] * 1e3,
@@ -1706,11 +1766,13 @@ def train_family_full_width(arch, layers, card, ops, steps=FAMILY_TRAIN_STEPS,
     """(b) ``arch`` at full published width with its depth cut to ``layers``,
     trained on the card by the port's ``Trainer`` in this process: 8 x 256
     tokens from the data pipeline, the launcher's AdamW (lr 1e-3), no
-    checkpoint.  Finite losses and grad norms, no kernel launch; the median
-    step ms over steps 4 to the last, tokens/s, peak memory (under 80 GB)
-    and the step's bound.  ``ctx``: under that sharding context (the
-    launcher's ``--mesh host``); ``keep``: a dict that receives the last
-    step's params and batch."""
+    checkpoint.  Finite losses and grad norms, no launch of ``ops``; the
+    fused AdamW kernels' launches, two a step a table of 48 leaves (one
+    under ``ctx``, where DTensor takes the norm); the median step ms over
+    steps 4 to the last, tokens/s, peak memory (under 80 GB) and the step's
+    bound.  ``ctx``: under that sharding context (the launcher's ``--mesh
+    host``); ``keep``: a dict that receives the last step's params and
+    batch."""
     import dataclasses
     import shutil
     import statistics
@@ -1720,6 +1782,7 @@ def train_family_full_width(arch, layers, card, ops, steps=FAMILY_TRAIN_STEPS,
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.adamw.ops import adamw_fused
     from repro_torch.models.moe import capacity
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import TrainConfig, Trainer
@@ -1756,11 +1819,13 @@ def train_family_full_width(arch, layers, card, ops, steps=FAMILY_TRAIN_STEPS,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _zero(ops)
+        adamw_fused.launches = 0
         t0 = time.perf_counter()
         res = tr.run(start_fresh=True)
         torch.cuda.synchronize()
         took = time.perf_counter() - t0
         launched = {k: fn.launches for k, fn in ops.items() if fn.launches}
+        adamw_launched = adamw_fused.launches
         peak = torch.cuda.max_memory_allocated()
         del tr
     finally:
@@ -1779,7 +1844,8 @@ def train_family_full_width(arch, layers, card, ops, steps=FAMILY_TRAIN_STEPS,
            f"median_step_ms_4_{steps}": med, "median_step_ms": med,
            "tokens_per_s": tokens / (med / 1e3), "max_memory_allocated": peak,
            "step_bound_ms": bound["bound_ms"], "bound": bound,
-           "kernel_launches": launched, "seconds": took, "nvidia_smi": card}
+           "kernel_launches": launched, "adamw_launches": adamw_launched,
+           "seconds": took, "nvidia_smi": card}
     label = arch if ctx is None else f"{arch} --mesh host {[ctx.dp, ctx.tp]}"
     row["mesh"] = None if ctx is None else [ctx.dp, ctx.tp]
     say(f"train family {label} full width, {layers} of {row['of_layers']} layers "
@@ -1793,6 +1859,8 @@ def train_family_full_width(arch, layers, card, ops, steps=FAMILY_TRAIN_STEPS,
         ("finite losses and grad norms", len(res.losses) == steps
          and np.isfinite(res.losses).all() and np.isfinite(res.grad_norms).all()),
         ("no kernel launch", not launched),
+        ("AdamW launches", adamw_launched == (1 if ctx is not None else 2)
+         * len(res.losses) * -(-len(leaves) // 48)),
         ("peak under 80 GB", peak < 80e9)) if not ok]
     if problems:
         fail(f"train family {arch}: {problems}: {row}")
@@ -1910,10 +1978,17 @@ def train_phase(ops, card):
     fw["step_bound_ops"] = bound["ops"]
     fw["optimizer_share"] = opt["ms"] / fw["median_step_ms_4_9"]
     say(f"train optimizer [{card}]: AdamW update {opt['ms']:.2f} ms "
-        f"(runs {', '.join(f'{t:.2f}' for t in opt['ms_all'])}) over {opt['params']} "
-        f"params, bound {opt['bound_ms']:.2f} ms (bytes); "
+        f"(runs {', '.join(f'{t:.2f}' for t in opt['ms_all'])}; "
+        f"{opt['launches_3_calls']} kernel launches in 3 calls), plain version "
+        f"{opt['plain_ms']:.2f} ms, over {opt['params']} params in {opt['leaves']} leaves, "
+        f"bound {opt['bound_ms']:.2f} ms (bytes); p, m, v bit-equal to the plain "
+        f"version's, grad norm rel. err {opt['grad_norm_rel_err']:.2e}; "
         f"{100 * fw['optimizer_share']:.1f}% of the median step; step bound "
-        f"{step_bound:.2f} ms ({bound['matmul_params']} matmul params)")
+        f"{step_bound:.2f} ms ({bound['matmul_params']} matmul params); the launcher's "
+        f"{len(fw['losses'])} steps launched the AdamW kernels {fw['adamw_launches']} times")
+    if fw["adamw_launches"] != 2 * len(fw["losses"]) * -(-opt["leaves"] // 48):
+        fail(f"train full width: {fw['adamw_launches']} AdamW launches in "
+             f"{len(fw['losses'])} steps of {opt['leaves']} leaves")
     out["restart"] = train_restart_check(ops)
     out["families"] = [train_family_full_width(arch, layers, card, ops)
                        for arch, layers in FAMILY_FULL_WIDTH]
@@ -1980,7 +2055,8 @@ def mesh_phase(ops, card, none_row):
     the train phase's ``--mesh none`` run of the same configuration
     (``none_row``): every MoE layer through ``moe_ffn_sharded`` and none
     through ``moe_ffn``, the first loss within 2e-3 of ``none_row``'s and
-    every later one within 2e-2 (bf16 steps drift apart), no kernel launch;
+    every later one within 2e-2 (bf16 steps drift apart), no launch of the
+    model's kernels, the AdamW update kernel once a step on the local shards;
     median step ms, tokens/s and peak GB beside ``none_row``'s.  (b)
     ``topk_compress`` and ``compressed_psum`` (world 1, NCCL) on that run's
     full-width grad tree against their plain forms: every leaf of the sent
@@ -2048,6 +2124,8 @@ def mesh_phase(ops, card, none_row):
                "none_tokens_per_s": none_row["tokens_per_s"],
                "peak_gb": row["max_memory_allocated"] / 1e9,
                "none_peak_gb": none_row["max_memory_allocated"] / 1e9,
+               "adamw_launches": row["adamw_launches"],
+               "none_adamw_launches": none_row["adamw_launches"],
                "step_ms": row["step_ms"], "nvidia_smi": card}
         out["train"] = cmp
         say(f"mesh train {MESH_ARCH} [{card}]: " + json.dumps(cmp))
@@ -3297,7 +3375,12 @@ def main() -> None:
         "moe_gmm": gmm_case(E, C, F, D, counts=decode_fill, timed=True),   # w2
         "rglru_scan": rglru_gated_case(1, 1, rg.rnn_width, timed=True),
         "wkv6": wkv6_case(1, 1, H, N, rkv="bf16", timed=True),
+        # internlm2-1.8b's whole tree (the train cell's), held to the plain
+        # version in the train phase
+        "adamw_update": train["optimizer"],
     }
+    # AdamW's launches are read from the train phase's launcher run
+    main_launches = {**launches, "adamw_update": train["full_width"]["adamw_launches"]}
     q3 = get_arch("qwen3-moe-235b-a22b")
     q3_C = capacity(1, q3.moe_top_k, q3.num_experts, q3.capacity_factor)
     olmoe_block, olmoe_block_fill = decode_block(get_arch("olmoe-1b-7b"),
@@ -3361,7 +3444,7 @@ def main() -> None:
     for k, row in main_rows.items():
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
-            "replaces": REPLACES[k], "launches": launches[k],
+            "replaces": REPLACES[k], "launches": main_launches[k],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

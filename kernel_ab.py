@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's scoring (K1, K2), flash-attention (K3), grouped expert
-GEMM (K4), RG-LRU (K5) and WKV6 (K6) kernels of one checkout, for comparing
-two versions on one card.
+GEMM (K4), RG-LRU (K5) and WKV6 (K6) kernels and its AdamW step of one
+checkout, for comparing two versions on one card.
 
     python3 kernel_ab.py --src path/to/checkout/src --label parent
     python3 kernel_ab.py --label change          # this checkout's src/
@@ -17,7 +17,10 @@ checkout has it, the gated one (bf16 logits); K6 at rwkv6-3b's heads (H =
 40, N = 64, bf16 r/k/v) for T = 1, 16, 64 and 2,048.  K4 runs without fill
 counts (every row live) so that a version without them computes the same
 function, and, where the checkout's ``moe_gmm`` takes counts, also at one
-decode token's routing.
+decode token's routing.  AdamW runs ``adamw_update`` at internlm2-1.8b's
+whole tree (1.89 B params, bf16 grads; about 45 GB of the card), and, where
+the checkout has the plain version apart (``kernels/adamw/ref.py``), that
+version on the same leaves.
 Run it for each version in turns (parent, change, change, parent) in one
 call and compare only within the call.  Needs a CUDA card.
 """
@@ -49,7 +52,7 @@ def main() -> None:
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rwkv6_scan.ops import wkv6
-    _build.build(["dispatch_score", "flash_attention", "moe_gmm", "rglru_scan", "wkv6"])
+    _build.build()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     res = {"label": args.label, "src": args.src, "nvidia_smi": smi.stdout.strip()}
@@ -94,7 +97,46 @@ def main() -> None:
     for T in (1, 16, 64, 2048):
         r, k, v, w, u, s0 = cs.wkv6_inputs(1, T, H, N, rkv="bf16")
         res[f"wkv6 T={T}"] = cs.cuda_ms(lambda: wkv6(r, k, v, w, u, s0))
+    res.update(adamw_ms())
     print(json.dumps(res), flush=True)
+
+
+def adamw_ms(arch="internlm2-1.8b"):
+    """{label: ms} of the AdamW step at ``arch``'s whole tree: the
+    checkout's ``adamw_update`` and, where it has one, its plain version."""
+    import importlib
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves, tree_map
+    params = init_params(get_arch(arch), device="cuda", seed=0)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    grads = tree_map(lambda p: (1e-3 * torch.randn(p.shape, generator=g, device="cuda"))
+                     .to(p.dtype), params)
+    state = adamw_init(params)
+    cfg = AdamWConfig()
+    n = sum(p.numel() for p in tree_leaves(params))
+    res = {f"adamw {arch}": cs.cuda_ms(lambda: adamw_update(grads, state, params, cfg),
+                                       iters=5, warmup=2),
+           f"adamw {arch} params": n,
+           f"adamw {arch} bound": 24.0 * n / cs.HBM_BYTES_PER_S * 1e3}
+    try:
+        ref = importlib.import_module("repro_torch.kernels.adamw.ref")
+    except ImportError:
+        ref = None
+    if ref is not None:
+        leaves = [tree_leaves(t) for t in (grads, state["m"], state["v"], params)]
+        one = torch.ones((), device="cuda")
+        res[f"adamw {arch} plain"] = cs.cuda_ms(
+            lambda: ref.adamw_ref(*leaves, one * 0.1, one * 0.05, cfg.lr, b1=cfg.b1,
+                                  b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay,
+                                  grad_clip=cfg.grad_clip), iters=5, warmup=2)
+    del params, grads, state
+    torch.cuda.empty_cache()
+    return res
 
 
 def k5_calls(rg_ops, gated, T, W=4096):

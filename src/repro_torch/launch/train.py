@@ -15,7 +15,7 @@ CPU): params FSDP x tensor-parallel, batches on 'data', and every MoE layer
 through ``moe_ffn_sharded``.  Before the reference's ``done:`` line, a
 ``train:`` line gives each step's loss, grad norm and wall ms as JSON, with
 the device, the mesh's [data, model] sizes and, on CUDA, the peak memory
-allocated.  With several ranks, rank 0 prints.  Give ``torchrun`` a fixed
+allocated and the fused AdamW kernels' launches (``adamw_launches``).  With several ranks, rank 0 prints.  Give ``torchrun`` a fixed
 ``--master-port``: with 0 it hands its workers port 0, which the launcher
 refuses.
 """
@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 from ..configs import get_arch
 from ..configs.base import ShapeConfig
+from ..kernels.adamw.ops import adamw_fused
 from ..models.sharding import ShardCtx
 from ..optim.adamw import AdamWConfig
 from ..runtime.train_loop import TrainConfig, Trainer
@@ -99,6 +100,7 @@ def _train(args, cfg, shape, device, ctx: ShardCtx) -> None:
     if device.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(device)
         report["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+        report["adamw_launches"] = adamw_fused.launches
     print("train: " + json.dumps(report))
     print(f"done: {res.steps_run} steps, final loss {res.final_loss:.4f}, "
           f"pipeline hit-rate {res.pipeline_hit_rate:.0%}, wall {res.wall_s:.0f}s")

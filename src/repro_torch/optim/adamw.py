@@ -4,9 +4,17 @@ A port of the reference's ``optim/adamw.py``: plain functions on trees of
 tensors (nested dicts and lists) with the reference's state tree
 (``{"m", "v", "step"}``, plus ``"ms"`` and ``"vs"`` for 8-bit moments), and
 ``step`` an int32 0-d tensor on the params' device.  The update runs in
-f32 leaf by leaf, in the reference's order of operations, and casts each
-param back to its storage dtype.  Every function returns new tensors and
-changes none of its arguments.  Global-norm clipping included.
+f32, in the reference's order of operations, and casts each param back to
+its storage dtype.  Every function returns new tensors and changes none of
+its arguments.  Global-norm clipping included.
+
+``adamw_update`` takes its path from the tensors it is given, in one place
+(``_update_leaves``): CPU tensors, DTensors on CPU ranks included, go
+through the plain version (``kernels/adamw/ref.py``); plain CUDA tensors
+through the fused kernels (``kernels/adamw``: the global norm and the
+update, one launch each for up to 48 leaves); CUDA DTensors through the
+update kernel on each rank's local shards, given the norm that DTensor
+reduces across ranks.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ from typing import Any, Dict
 
 import torch
 
+from ..kernels.adamw.ops import adamw_fused
+from ..kernels.adamw.ref import adamw_ref, clip_factor, global_norm_ref
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
@@ -47,44 +57,81 @@ def adamw_init(params) -> Dict[str, Any]:
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares, leaves summed in
     the reference's order."""
-    total = 0
-    for leaf in tree_leaves(tree):
-        total = total + torch.sum(torch.square(leaf.to(F32)))
-    return torch.sqrt(torch.as_tensor(total, dtype=F32))
+    return global_norm_ref(tree_leaves(tree))
 
 
-def _prologue(grads, opt_state, cfg: AdamWConfig, lr_scale):
-    """(step, grad norm, clip factor, bias corrections, lr), all f32 0-d
-    tensors but ``step`` (int32).  ``b ** step`` is taken in f32, as the
-    reference's ``b ** step.astype(f32)``."""
+def _schedule(opt_state, cfg: AdamWConfig, lr_scale):
+    """(step, bias corrections, lr): f32 0-d tensors but ``step`` (int32)
+    and ``lr`` (a tensor when ``lr_scale`` is one).  ``b ** step`` is taken
+    in f32, as the reference's ``b ** step.astype(f32)``."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
-    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     s = step.to(F32)
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=F32, device=s.device), s)
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=F32, device=s.device), s)
     lr = cfg.lr * lr_scale
-    return step, gnorm, clip, b1c, b2c, lr
+    return step, b1c, b2c, lr
+
+
+def _prologue(grads, opt_state, cfg: AdamWConfig, lr_scale):
+    """(step, grad norm, clip factor, bias corrections, lr)."""
+    step, b1c, b2c, lr = _schedule(opt_state, cfg, lr_scale)
+    gnorm = global_norm(grads)
+    return step, gnorm, clip_factor(gnorm, cfg.grad_clip), b1c, b2c, lr
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _on_shards(grads, ms, vs, params, b1c, b2c, lr, **hyper):
+    """``adamw_fused`` on each rank's local shards of a CUDA DTensor tree:
+    the norm over the whole tree as DTensor reduces it, every leaf laid out
+    as its param before the update (a grad may come out of backward as a
+    partial sum), results put back as DTensors of the params' layouts."""
+    from torch.distributed.tensor import DTensor
+
+    def like(x, p):
+        if not _is_dtensor(x):
+            raise TypeError("adamw: a tree of DTensor params takes DTensor grads and moments")
+        if x.placements != p.placements:
+            x = x.redistribute(p.device_mesh, p.placements)
+        return x.to_local()
+
+    def value(x):
+        return x.full_tensor() if _is_dtensor(x) else x
+
+    gnorm = global_norm_ref(grads)
+    shards = [[like(x, p) for x, p in zip(xs, params)] for xs in (grads, ms, vs)]
+    new_p, new_m, new_v, _ = adamw_fused(
+        *shards, [p.to_local() for p in params], value(b1c), value(b2c), value(lr),
+        gnorm=value(gnorm), **hyper)
+    wrap = lambda xs: [DTensor.from_local(x, p.device_mesh, p.placements, run_check=False,
+                                          shape=p.shape, stride=p.stride())
+                       for x, p in zip(xs, params)]
+    return wrap(new_p), wrap(new_m), wrap(new_v), gnorm
+
+
+def _update_leaves(grads, ms, vs, params, b1c, b2c, lr, **hyper):
+    """(new params, new m, new v, grad norm) of lists of leaves, by the
+    path their tensors call for."""
+    if not params or params[0].device.type == "cpu":
+        return adamw_ref(grads, ms, vs, params, b1c, b2c, lr, **hyper)
+    if _is_dtensor(params[0]):
+        return _on_shards(grads, ms, vs, params, b1c, b2c, lr, **hyper)
+    return adamw_fused(grads, ms, vs, params, b1c, b2c, lr, **hyper)
 
 
 def adamw_update(grads, opt_state, params, cfg: AdamWConfig, lr_scale=1.0):
     """Returns (new_params, new_opt_state, metrics)."""
-    step, gnorm, clip, b1c, b2c, lr = _prologue(grads, opt_state, cfg, lr_scale)
-
-    def upd(g, m, v, p):
-        g = g.to(F32) * clip
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mhat = m / b1c
-        vhat = v / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(F32)
-        return (p.to(F32) - lr * delta).to(p.dtype), m, v
-
-    out = [upd(g, m, v, p) for g, m, v, p in zip(
-        tree_leaves(grads), tree_leaves(opt_state["m"]),
-        tree_leaves(opt_state["v"]), tree_leaves(params))]
-    unf = lambda i: tree_unflatten(params, [o[i] for o in out])
-    return unf(0), {"m": unf(1), "v": unf(2), "step": step}, {"grad_norm": gnorm}
+    step, b1c, b2c, lr = _schedule(opt_state, cfg, lr_scale)
+    leaves = [tree_leaves(t) for t in (grads, opt_state["m"], opt_state["v"], params)]
+    new_p, new_m, new_v, gnorm = _update_leaves(
+        *leaves, b1c, b2c, lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+        weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip)
+    unf = lambda xs: tree_unflatten(params, xs)
+    return unf(new_p), {"m": unf(new_m), "v": unf(new_v), "step": step}, {"grad_norm": gnorm}
 
 
 # ------------------------------------------------------------ 8-bit moments
