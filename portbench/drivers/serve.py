@@ -2,9 +2,10 @@
 clients, timed on the host clock, traced on request, and judged against
 the plain reference.
 
-Set-up makes the weights from the seed (``weights.py``) and hands them to
-the server in place of its own draw, builds the kernels into the
-checkout's ``build/kernels``, and serves the stream's first
+Set-up makes the weights from the seed (the cell's architecture's
+``make_weights``), hands them to the server in place of its own draw
+(``DiffusionServer(params=)``), builds the kernels into the checkout's
+``build/kernels``, and serves the stream's first
 ``warm_requests`` requests, which fill the session caches and run the
 cell's shapes once.  The window then serves the stream on from there for
 ``seconds``: each client holds one request; a round submits one a client,
@@ -20,8 +21,9 @@ round, each request takes, in the order the server finished them
 session's sequence; so nothing of the server's inner loop is read.  After
 the window, with the server freed, a sample of the served requests drawn
 from the seed, the longest among them, has its session's whole token
-sequence run through the reference once, which covers every token served
-in that session, and these numbers are read: the widest gap by which a
+sequence run once through the architecture's reference
+(``forward_logits``), which covers every token served in that session,
+and these numbers are read: the widest gap by which a
 served token's reference logit lies below the reference's best
 (``served_gap``); of the widest difference of a position's logits from
 the reference's, over the reference's spread there, the median over the
@@ -43,8 +45,6 @@ import numpy as np
 import torch
 
 from .. import spec as specmod
-from .. import weights as wmod
-from ..reference import decoder as ref
 from ..trace import PROFILE_S, Trace
 
 FAR = 0.5                       # a position's logit error over this is far off
@@ -83,8 +83,10 @@ class Served:
 
 @dataclass
 class ServeObs:
-    """What the metric readers read (``metrics/*.py``)."""
+    """What the metric readers read (``metrics/*.py``): ``reference`` is the
+    architecture's module, which counts the operations of ``arch``."""
     arch: Dict[str, Any]
+    reference: Any
     on_card: bool
     setup_s: float
     window_s: float
@@ -101,21 +103,16 @@ def arch_config(config: Dict[str, Any]):
 
 
 def build_server(config: Dict[str, Any], weights, seed: int, device):
-    """The port's server over the benchmark's weights: its own draw of
-    params (``init_params``) is handed the benchmark's tree instead."""
-    import repro_torch.runtime.serve_loop as sl
+    """The port's server over the benchmark's weights, in place of its own
+    draw of params."""
+    from repro_torch.runtime.serve_loop import DiffusionServer
     s = config["serve"]
-    own = sl.init_params
-    sl.init_params = lambda *a, **k: weights
-    try:
-        return sl.DiffusionServer(
-            arch_config(config), policy=s["policy"], max_replicas=s["replicas"],
-            min_replicas=s["replicas"], cache_cap=s["cache_cap"],
-            max_sessions=s["slots"], host_cache_sessions=s["host_cache_sessions"],
-            eviction=s["eviction"], dispatcher_impl=s["dispatcher"],
-            batch_drain=s["batch_drain"], seed=seed, device=str(device))
-    finally:
-        sl.init_params = own
+    return DiffusionServer(
+        arch_config(config), policy=s["policy"], max_replicas=s["replicas"],
+        min_replicas=s["replicas"], cache_cap=s["cache_cap"],
+        max_sessions=s["slots"], host_cache_sessions=s["host_cache_sessions"],
+        eviction=s["eviction"], dispatcher_impl=s["dispatcher"],
+        batch_drain=s["batch_drain"], seed=seed, device=str(device), params=weights)
 
 
 def _counters(srv) -> Dict[str, int]:
@@ -138,7 +135,7 @@ def run(cell: specmod.Cell, seed: int, seconds: float, trace: bool, device,
         from repro_torch.kernels import _build
         _build.BUILD_DIR = specmod.ROOT / "build" / "kernels"
         _build.build()
-    weights = wmod.make_weights(arch, seed, device)
+    weights = cell.reference.make_weights(arch, seed, device)
     clock = {"weights": time.perf_counter()}
     srv = build_server(cfg, weights, seed, device)
     clock["server"] = time.perf_counter()
@@ -246,8 +243,8 @@ def run(cell: specmod.Cell, seed: int, seconds: float, trace: bool, device,
     if prof is not None:
         tr = Trace.from_profiler(prof, t_end - profile_start)
         del prof
-    obs = ServeObs(arch, on_card, t0 - t_start, t_end - t0, records, counters,
-                   tr, None if profile_start is None else profile_start - t0, t0)
+    obs = ServeObs(arch, cell.reference, on_card, t0 - t_start, t_end - t0, records,
+                   counters, tr, None if profile_start is None else profile_start - t0, t0)
 
     # the program's state goes before the reference runs
     srv.decode_fn = None
@@ -256,7 +253,7 @@ def run(cell: specmod.Cell, seed: int, seconds: float, trace: bool, device,
     if on_card:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    checks = compare(cell, weights, records, seed, control)
+    checks = compare(cell, weights, records, seed, control, device)
     notes = {"until_weights_s": clock["weights"] - t_start,
              "server_s": clock["server"] - clock["weights"],
              "warm_s": clock["warm"] - clock["server"],
@@ -291,7 +288,7 @@ def _sample(records: List[Served], seed: int, budget: int) -> List[Lineage]:
     return chosen
 
 
-def compare(cell, weights, records: List[Served], seed: int, control: bool):
+def compare(cell, weights, records: List[Served], seed: int, control: bool, device):
     arch = cell.config["arch"]
     V = arch["vocab_size"]
     out: Dict[str, Any] = {"served_gap": 0.0, "logit_err_p50": 0.0,
@@ -300,17 +297,16 @@ def compare(cell, weights, records: List[Served], seed: int, control: bool):
     if control:
         out["control_served_gap"] = 0.0
     chosen = _sample(records, seed, int(cell.traffic.get("check_tokens", 1 << 30)))
-    dev = weights["embed"].device
     for lin in chosen:
         mine = [s for s in records if s.lineage is lin]
         pos = sorted({p for s in mine for p in s.positions})
         prog = {p: lg for s in mine for p, lg in s.calls}
         n = pos[-1] + 1
-        toks = torch.as_tensor(lin.tokens(n), device=dev)
+        toks = torch.as_tensor(lin.tokens(n), device=device)
         segs = [lin.prefill] + [1] * (n - lin.prefill)
-        r = ref.forward_logits(weights, arch, toks, pos, segments=segs)
+        r = cell.reference.forward_logits(weights, arch, toks, pos, segments=segs)
         p = torch.stack([prog[q][0, :V].to(torch.float32) for q in pos])
-        for name, x in [("", p)] + ([("control_", ref.forward_logits(
+        for name, x in [("", p)] + ([("control_", cell.reference.forward_logits(
                 weights, arch, toks, pos, segments=segs, precision="fp8"))]
                 if control else []):
             gap = (r.max(-1).values - r.gather(1, x.argmax(-1, keepdim=True))[:, 0])

@@ -2,20 +2,22 @@
 step with AdamW) stepped for the window, timed on the host clock, traced on
 request, and its first steps judged against the plain reference.
 
-Set-up makes the weights from the seed (``weights.py``), hands them to the
-trainer in place of its own draw, builds the optimizer state through
-``Trainer.init_state``, gives its pipeline the traffic's shard store
-(``traffic/<kind>.py``), and runs the first ``check_steps`` steps through the
-window's own step: the pipeline's next batch, its tokens on the card, the
-train step, the loss read on the host.  From those it keeps each loss,
-each leaf's gradient as the optimizer got it at step 1 (its first moment
-over 1 - b1), and each leaf's change after the last of them, read before
-the next step drops them.  The window then steps on the same state for
-``seconds``, each step's loss read ``read_lag`` steps after it was sent,
-on ``host_threads`` CPU threads (both keys of the traffic file); with
-``trace`` its last part runs under ``torch.profiler``.
+Set-up makes the weights from the seed (the cell's architecture's
+``make_weights``), hands them to the trainer in place of its own draw
+(``Trainer.init_state(params=)``, which builds the optimizer state), gives
+its pipeline the traffic's shard store (``traffic/<kind>.py``), and runs
+the first ``check_steps`` steps through the window's own step: the
+pipeline's next batch, its tokens on the card, the train step, the loss
+read on the host.  From those it keeps each loss, each leaf's gradient as
+the optimizer got it at step 1 (its first moment over 1 - b1), and each
+leaf's change after the last of them, read before the next step drops
+them.  The window then steps on the same state for ``seconds``, each step's
+loss read ``read_lag`` steps after it was sent, on ``host_threads`` CPU
+threads (both keys of the traffic file); with ``trace`` its last part runs
+under ``torch.profiler``.
 After the window, with the program's state freed, the reference runs the
-same steps on the same batches from the same weights.
+same steps on the same batches from the same weights, with the
+architecture's ``train_loss``.
 """
 
 from __future__ import annotations
@@ -50,8 +52,10 @@ class Step:
 
 @dataclass
 class TrainObs:
-    """What the metric readers read (``metrics/*.py``)."""
+    """What the metric readers read (``metrics/*.py``): ``reference`` is the
+    architecture's module, which counts the operations of ``arch``."""
     arch: Dict[str, Any]
+    reference: Any
     on_card: bool
     setup_s: float
     window_s: float
@@ -94,7 +98,7 @@ def run(cell: specmod.Cell, seed: int, seconds: float, trace: bool, device,
         torch.set_num_threads(int(traffic.get("host_threads", torch.get_num_threads())))
         from repro_torch.kernels import _build
         _build.BUILD_DIR = specmod.ROOT / "build" / "kernels"
-    weights = wmod.make_weights(arch, seed, device)
+    weights = cell.reference.make_weights(arch, seed, device)
     tcfg = tl.TrainConfig(total_steps=sched["total"], seed=int(seed) % (1 << 31),
                           opt=AdamWConfig(**traffic["opt"]),
                           num_hosts=int(traffic["hosts"]), microbatches=1,
@@ -105,12 +109,7 @@ def run(cell: specmod.Cell, seed: int, seconds: float, trace: bool, device,
                                                                 arch["vocab_size"])
     if tamper is not None:
         tamper(trainer)
-    own = tl.init_params
-    tl.init_params = lambda *a, **k: weights
-    try:
-        params, opt_state = trainer.init_state()
-    finally:
-        tl.init_params = own
+    params, opt_state = trainer.init_state(params=weights)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     batches: List[torch.Tensor] = []
 
@@ -135,7 +134,8 @@ def run(cell: specmod.Cell, seed: int, seconds: float, trace: bool, device,
 
     # the initial weights are the reference's: off the card before the
     # first step, so that the program alone sets the card's peak
-    host = {p: x.cpu() for p, x in wmod.leaves(weights)}
+    W = wmod.map_leaves(lambda x: x.cpu(), weights)
+    host = dict(wmod.leaves(W))
     del weights
     n_check = int(traffic["check_steps"])
     b1 = float(traffic["opt"]["b1"])
@@ -193,15 +193,16 @@ def run(cell: specmod.Cell, seed: int, seconds: float, trace: bool, device,
     peak = torch.cuda.max_memory_allocated(device) if on_card else None
     tr = Trace.from_profiler(prof, t_end - profile_start) if prof is not None else None
     del prof
-    obs = TrainObs(arch, on_card, t0 - t_start, t_end - t0, records, counters,
-                   B, S, tr, None if profile_start is None else profile_start - t0, t0)
+    obs = TrainObs(arch, cell.reference, on_card, t0 - t_start, t_end - t0, records,
+                   counters, B, S, tr,
+                   None if profile_start is None else profile_start - t0, t0)
 
     del params, opt_state, trainer
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    W = _tree(host)
-    ref = rtrain.train_steps(W, arch, batches, traffic["opt"], sched, device)
+    loss = cell.reference.train_loss
+    ref = rtrain.train_steps(loss, W, arch, batches, traffic["opt"], sched, device)
     checks = compare(losses, first_grads, change, ref)
     if control:
         # the control (the reference in float8) and a planted fault (the
@@ -209,24 +210,12 @@ def run(cell: specmod.Cell, seed: int, seconds: float, trace: bool, device,
         # put in the program's place
         for name, kw, b in (("control_", {"precision": "fp8"}, batches),
                             ("fault_half_batch_", {}, [x[: x.shape[0] // 2] for x in batches])):
-            other = rtrain.train_steps(W, arch, b, traffic["opt"], sched, device, **kw)
+            other = rtrain.train_steps(loss, W, arch, b, traffic["opt"], sched, device, **kw)
             checks.update({name + k: v for k, v in compare(
                 other["losses"], other["grad_norms"], other["change_norms"], ref).items()
                 if k != "compared"})
     notes = {"losses": losses, "reference_losses": ref["losses"]}
     return {"obs": obs, "checks": checks, "peak": peak, "notes": notes}
-
-
-def _tree(flat: Dict[str, torch.Tensor]):
-    """The weight tree again from its leaves by path."""
-    out: Dict[str, Any] = {}
-    for path, x in flat.items():
-        node, keys = out, path.split("/")
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = x
-    out.setdefault("rem", [])
-    return out
 
 
 def compare(losses, grads, change, ref) -> Dict[str, float]:

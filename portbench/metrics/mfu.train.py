@@ -1,9 +1,9 @@
 """Model flops utilisation of training, in %: the useful operations of
-the steps in the untraced part of the window (``arith.train_step_ops``:
-6 a matmul parameter a token and attention forward and backward, not the
-recompute), over that part's host seconds times the card's bf16 peak
-(989 TFLOP/s at 700 W).  Read in the traced run, before its profiler
-starts; nothing off the card."""
+the steps in the untraced part of the window (the architecture's
+``train_step_ops``: 6 a matmul parameter a token and attention forward
+and backward, not the recompute), over that part's host seconds times the
+card's bf16 peak (989 TFLOP/s at 700 W).  Read in the traced run, before
+its profiler starts; nothing off the card."""
 
 from portbench import arith
 
@@ -15,5 +15,5 @@ def read(obs):
     if not steps:
         return None
     end = max(s.finish for s in steps) - obs.window_start
-    ops = len(steps) * arith.train_step_ops(obs.arch, obs.batch, obs.seq)
+    ops = len(steps) * obs.reference.train_step_ops(obs.arch, obs.batch, obs.seq)
     return 100.0 * ops / (end * arith.PEAK_FLOPS)

@@ -1,6 +1,6 @@
 """Finding a cell's files by name: ``BENCHMARK.json`` at the root of the
 checkout, and under ``portbench/`` one file a configuration, traffic mix,
-cell, traffic kind, driver and metric."""
+cell, traffic kind, driver, metric and architecture."""
 
 from __future__ import annotations
 
@@ -13,6 +13,9 @@ from typing import Any, Dict, List
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+# what an architecture's module gives (``reference/<module>.py``)
+INTERFACE = ("make_weights", "forward_logits", "train_loss", "prefill_ops", "decode_ops",
+             "attention_bound_s", "train_step_ops", "tiny")
 
 
 def load_json(path: Path) -> Dict[str, Any]:
@@ -36,6 +39,7 @@ class Cell:
     config: Dict[str, Any]        # configs/<config>.json
     traffic: Dict[str, Any]       # traffic/<traffic>.json
     cell: Dict[str, Any]          # cells/<name>.json
+    reference: Any                # reference/<config's "reference">.py
     end_to_end: List[Dict[str, Any]] = field(default_factory=list)
     per_layer: List[Dict[str, Any]] = field(default_factory=list)
 
@@ -57,7 +61,19 @@ def find_cell(name: str, bench: Dict[str, Any] | None = None) -> Cell:
     e2e = [m for m in bench["end_to_end"] if _applies(m, name, [])]
     reported = [m["name"] for m in e2e]
     layer = [m for m in bench["per_layer"] if _applies(m, name, reported)]
-    return Cell(name, int(entry["chips"]), config, traffic, cell, e2e, layer)
+    return Cell(name, int(entry["chips"]), config, traffic, cell, reference(config),
+                e2e, layer)
+
+
+def reference(config: Dict[str, Any]):
+    """``reference/<module>.py``, the architecture a configuration names
+    under ``"reference"``: its weights, its plain reference and its counts
+    of operations and bytes (``INTERFACE``)."""
+    mod = importlib.import_module(f"portbench.reference.{config['reference']}")
+    missing = [n for n in INTERFACE if not callable(getattr(mod, n, None))]
+    if missing:
+        raise AttributeError(f"{mod.__name__} lacks {', '.join(missing)}")
+    return mod
 
 
 def traffic_kind(traffic: Dict[str, Any]):

@@ -1,33 +1,34 @@
 """Reduced-width copies of the benchmark's cells for the CPU tests."""
 
+import collections
 import json
+import types
 
 import torch
 
 from portbench import spec
+from portbench.weights import map_leaves
 
 # limits at the tiny widths, where bf16 against float32 reads larger than at
 # the published ones (the cells' own limits are set from full-size runs); a
 # reduced cell compares the numbers its cell compares
 TINY_LIMITS = {"served_gap": 0.5, "logit_err_p50": 0.5, "logit_err_over_half": 0.1,
                "loss_gap": 0.01, "grad_gap": 0.02, "update_gap": 0.05}
-TINY_ARCH = dict(num_layers=2, d_model=64, num_heads=4, d_ff=128, vocab_size=256,
-                 head_dim=16)
 
 
 def bench():
     return json.loads((spec.ROOT / "BENCHMARK.json").read_text())
 
 
-def reduced_cell(name: str) -> spec.Cell:
-    """The cell's files at tiny widths: the same driver, traffic kind and
-    control flow, small enough for a CPU."""
+def reduced_cell(name: str, reference: str = "") -> spec.Cell:
+    """The cell's files at tiny widths (its architecture's ``tiny``): the
+    same driver, traffic kind and control flow, small enough for a CPU.
+    ``reference`` names another architecture module for its config."""
     cell = spec.find_cell(name, bench())
-    a = cell.config["arch"]
-    kv = 2 if a["num_kv_heads"] < a["num_heads"] else 4
-    a.update(TINY_ARCH, num_kv_heads=kv)
-    if a.get("num_experts"):
-        a.update(num_experts=8, moe_top_k=2)
+    if reference:
+        cell.config["reference"] = reference
+        cell.reference = spec.reference(cell.config)
+    cell.config["arch"] = cell.reference.tiny(cell.config["arch"])
     if "serve" in cell.config:
         cell.config["serve"].update(cache_cap=80, slots=2)
     cell.cell["limits"] = {k: TINY_LIMITS[k] for k in cell.cell["limits"]}
@@ -42,11 +43,23 @@ def reduced_cell(name: str) -> spec.Cell:
 
 def zeros(tree):
     """A tree of tensors like ``tree``, all zeros."""
-    if isinstance(tree, dict):
-        return {k: zeros(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(zeros(v) for v in tree)
-    return torch.zeros_like(tree)
+    return map_leaves(torch.zeros_like, tree)
+
+
+def probe(base, name: str = "portbench.reference.probe"):
+    """A module that gives ``base``'s functions of ``spec.INTERFACE`` and
+    counts each call by name in its ``calls``."""
+    mod = types.ModuleType(name)
+    mod.calls = collections.Counter()
+
+    def recorded(fn_name, fn):
+        def call(*args, **kwargs):
+            mod.calls[fn_name] += 1
+            return fn(*args, **kwargs)
+        return call
+    for fn_name in spec.INTERFACE:
+        setattr(mod, fn_name, recorded(fn_name, getattr(base, fn_name)))
+    return mod
 
 
 def one_replica_state_unchanged(srv):

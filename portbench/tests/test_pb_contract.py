@@ -56,3 +56,11 @@ def test_every_name_is_a_file():
             assert m["moves"] in e2e
     for c in b["configs"]:
         assert any(w["config"] == c["name"] for w in b["workloads"])
+
+
+def test_every_config_names_its_architecture():
+    for c in bench()["configs"]:
+        config = spec.load_json(spec.ROOT / c["file"])
+        assert (spec.HERE / "reference" / f"{config['reference']}.py").is_file()
+        mod = spec.reference(config)
+        assert all(callable(getattr(mod, n)) for n in spec.INTERFACE)

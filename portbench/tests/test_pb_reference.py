@@ -1,12 +1,12 @@
 """The plain reference against the port on the CPU at reduced widths, on
-the same weight tree: a prefill and decode steps through the caches, and a
-train step's loss and gradients."""
+the same weight tree, both taken from the cell's architecture module: a
+prefill and decode steps through the caches, and a train step's loss and
+gradients."""
 
 import pytest
 import torch
 
 from portbench import weights as wmod
-from portbench.reference import decoder as ref
 from portbench.reference import train as rtrain
 from pb_helpers import reduced_cell
 
@@ -25,9 +25,9 @@ def test_prefill_then_decode_equals_reference(name):
     from repro_torch.runtime.serve_loop import _merge_prefill_caches
 
     cell = reduced_cell(name)
-    arch = cell.config["arch"]
+    ref, arch = cell.reference, cell.config["arch"]
     cfg = _port(cell.config)
-    W = wmod.make_weights(arch, 11, "cpu")
+    W = ref.make_weights(arch, 11, "cpu")
     g = torch.Generator().manual_seed(3)
     S, steps, cap = 40, 4, 64
     toks = torch.randint(0, arch["vocab_size"], (S + steps,), generator=g)
@@ -50,8 +50,8 @@ def test_prefill_then_decode_equals_reference(name):
 
 def test_fp8_control_is_farther_than_the_port():
     cell = reduced_cell(SERVE[0])
-    arch = cell.config["arch"]
-    W = wmod.make_weights(arch, 12, "cpu")
+    ref, arch = cell.reference, cell.config["arch"]
+    W = ref.make_weights(arch, 12, "cpu")
     toks = torch.randint(0, arch["vocab_size"], (48,), generator=torch.Generator().manual_seed(4))
     pos = list(range(40, 48))
     f32 = ref.forward_logits(W, arch, toks, pos)
@@ -64,9 +64,9 @@ def test_train_loss_and_grads_equal_reference():
     from repro_torch.configs.base import ShapeConfig
 
     cell = reduced_cell("internlm2-1.8b.train")
-    arch = cell.config["arch"]
+    ref, arch = cell.reference, cell.config["arch"]
     cfg = _port(cell.config)
-    W = wmod.make_weights(arch, 13, "cpu")
+    W = ref.make_weights(arch, 13, "cpu")
     toks = torch.randint(0, arch["vocab_size"], (2, 32), generator=torch.Generator().manual_seed(5))
     paths = [p for p, _ in wmod.leaves(W)]
     leaves = {p: x.detach().clone().requires_grad_(True) for p, x in wmod.leaves(W)}
@@ -74,7 +74,7 @@ def test_train_loss_and_grads_equal_reference():
     loss, _ = make_loss_fn(cfg, ShapeConfig("t", "train", 32, 2))(tree, {"tokens": toks})
     grads = torch.autograd.grad(loss, [leaves[p] for p in paths])
     fl = {p: x.detach().float().requires_grad_(True) for p, x in wmod.leaves(W)}
-    want = rtrain.loss(rtrain._unflatten(W, fl), arch, toks)
+    want = ref.train_loss(rtrain._unflatten(W, fl), arch, toks)
     wgrads = torch.autograd.grad(want, [fl[p] for p in paths])
     loss, want = float(loss.detach()), float(want.detach())
     assert abs(loss - want) < 1e-2 * want

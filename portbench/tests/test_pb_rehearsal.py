@@ -2,6 +2,7 @@
 CPU: the driver, the readers and the result line, with ``correct`` true on
 the program as it is and false with its timed path broken underneath."""
 
+import sys
 import time
 
 import pytest
@@ -9,7 +10,7 @@ import torch
 
 from portbench import spec
 from portbench.run import build_result
-from pb_helpers import bench, one_replica_state_unchanged, reduced_cell, zeros
+from pb_helpers import bench, one_replica_state_unchanged, probe, reduced_cell, zeros
 
 CELLS = [w["name"] for w in bench()["workloads"]]
 SERVE = [c for c in CELLS if spec.find_cell(c).cell["driver"] == "serve"]
@@ -19,9 +20,9 @@ DEVICE = {m["name"] for m in bench()["per_layer"] + bench()["end_to_end"]
 SEED = 2**31 + 99
 
 
-def rehearse(name, trace=False, tamper=None, seconds=1.5):
+def rehearse(name, trace=False, tamper=None, seconds=1.5, reference=""):
     torch.manual_seed(0)
-    cell = reduced_cell(name)
+    cell = reduced_cell(name, reference)
     res = spec.driver(cell).run(cell, SEED, seconds, trace, "cpu", time.perf_counter(),
                                 tamper=tamper)
     return build_result(cell, res, trace, "cpu"), res
@@ -38,6 +39,29 @@ def test_cell_rehearsal(name, trace):
     cell = spec.find_cell(name)
     wanted = {m["name"] for m in (cell.per_layer if trace else cell.end_to_end)}
     assert wanted - DEVICE <= set(out["metrics"]) <= wanted
+
+
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("name", CELLS)
+def test_cell_reaches_its_architecture_only_through_its_module(name, trace, monkeypatch):
+    """The cell's config names a probe, which gives its architecture's
+    functions and counts the calls; the architecture's own module raises
+    if any file reaches it by name.  The run is as correct as the cell's."""
+    base = spec.find_cell(name).reference
+    pr = probe(base)
+    monkeypatch.setitem(sys.modules, pr.__name__, pr)
+
+    def by_name(fn_name):
+        def fail(*args, **kwargs):
+            raise AssertionError(f"{base.__name__}.{fn_name} reached by name")
+        return fail
+    for fn_name in spec.INTERFACE:
+        monkeypatch.setattr(base, fn_name, by_name(fn_name))
+    out, res = rehearse(name, trace, reference=pr.__name__.rsplit(".", 1)[1])
+    assert out["correct"], out["checks"]
+    assert res["obs"].reference is pr
+    check = "forward_logits" if spec.find_cell(name).cell["driver"] == "serve" else "train_loss"
+    assert {"tiny", "make_weights", check} <= set(pr.calls), pr.calls
 
 
 def _altered_token(srv):
