@@ -30,7 +30,9 @@ Phases (any failure exits non-zero before the result line):
                prompt in 16 blocks of 288 rows and a 2,048-token prompt
                under a 2,048 window at D = 256 in 16 of 128, each block
                against the plain version and the same rows of K3 over the
-               whole sequence, 2e-2), the two
+               whole sequence, 2e-2; latent attention's qk 192 / v 128
+               at a softmax scale of its own, bf16 at 16 and 2,048
+               positions and f32 at a ragged 100), the two
                dispatch scoring
                kernels (max |out - float64| == 0.0; K1 also at the serving
                window, at W = 1 and at ragged O), the grouped expert GEMM
@@ -39,7 +41,10 @@ Phases (any failure exits non-zero before the result line):
                and 320, and with poisoned weights: NaN in every expert whose
                count is 0 and in every dead row, which must leave the output
                finite, 0 on dead rows and equal to the plain version on live
-               rows), the RG-LRU scan (1e-5; the plain entry and the gated
+               rows; at DeepSeek-V2-Lite's E = 64, D = 2,048, F = 1,408, whose
+               last 256-wide tile over F is half full, with a decode
+               token's fills at C = 8, at C = 200 full, and poisoned), the
+               RG-LRU scan (1e-5; the plain entry and the gated
                one, whose gate chain runs inside the kernel, from T = 1 to
                2,048, and at a ragged last group of steps) and
                WKV6 (1e-4 at rwkv6's heads
@@ -204,7 +209,12 @@ Phases (any failure exits non-zero before the result line):
                down product at one decode token's routing (E = 128, top 8)
                and at the block one rank runs in olmoe-1b-7b x decode_32k
                on 16 x 16 (E = 4 of 64 experts, C = 2 of 24 slots, the gate
-               product with the block's fills).
+               product with the block's fills).  DeepSeek-V2-Lite's rows
+               (``deepseek_rows``): K3 at S = 16,384 with H = 16, qk 192, v
+               128 and scale 0.114721 (SDPA given the same scale) beside
+               D = 128 at the same length, and K4's gate/up and down
+               products at a decode token's routing (C = 8) and at a routed
+               2,048-token prefill group at its fullest count.
                The RG-LRU's row is the gated
                entry at one decode token; rows for the plain entry at T = 1
                (beside one ``addcmul``) and for both entries at T = 16 and
@@ -310,20 +320,22 @@ def rel_err(a, b) -> float:
 
 
 # ------------------------------------------------------------- flash attention
-def attn_inputs(B, Sq, Skv, H, Hkv, D, dtype, seed):
+def attn_inputs(B, Sq, Skv, H, Hkv, D, dtype, seed, Dv=None):
+    """q, k of head width D and v of ``Dv`` (None: D), from a seed."""
     import torch
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     q = torch.randn((B, Sq, H, D), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, Skv, Hkv, D), generator=g, device="cuda").to(dtype)
-    v = torch.randn((B, Skv, Hkv, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, Hkv, Dv or D), generator=g, device="cuda").to(dtype)
     return q, k, v
 
 
-def attn_cost(B, Sq, Skv, H, Hkv, D, causal, window, elem, q_offset=None):
+def attn_cost(B, Sq, Skv, H, Hkv, D, causal, window, elem, q_offset=None, Dv=None):
     """(bytes, operations) the function needs: q, k, v read once, o written
-    once; 4*D operations per unmasked (query, key) pair, query row i at
-    position ``q_offset + i`` (default ``Skv - Sq``)."""
+    once; 2*(D + Dv) operations per unmasked (query, key) pair (Dv, the
+    value width, None: D), query row i at position ``q_offset + i``
+    (default ``Skv - Sq``)."""
     import torch
     qpos = torch.arange(Sq)[:, None] + (Skv - Sq if q_offset is None else q_offset)
     kpos = torch.arange(Skv)[None, :]
@@ -333,19 +345,21 @@ def attn_cost(B, Sq, Skv, H, Hkv, D, causal, window, elem, q_offset=None):
     if window:
         ok &= kpos > qpos - window
     pairs = int(ok.sum())
-    nbytes = elem * (2 * B * Sq * H * D + 2 * B * Skv * Hkv * D)
-    return nbytes, 4.0 * D * pairs * B * H
+    Dv = Dv or D
+    nbytes = elem * (B * Sq * H * (D + Dv) + B * Skv * Hkv * (D + Dv))
+    return nbytes, 2.0 * (D + Dv) * pairs * B * H
 
 
-def sdpa_call(q, k, v, causal, window, q_offset=None):
+def sdpa_call(q, k, v, causal, window, q_offset=None, scale=None):
     """One library call computing the same function (timed only); a mask
-    other than whole-sequence causal goes in as an explicit boolean one."""
+    other than whole-sequence causal goes in as an explicit boolean one.
+    v may be narrower than q and k; ``scale`` None is 1 / sqrt(D)."""
     import torch
     import torch.nn.functional as F
     Sq, Skv = q.shape[1], k.shape[1]
     offset = Skv - Sq if q_offset is None else q_offset
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    kw = {}
+    kw = {} if scale is None else {"scale": scale}
     if q.shape[2] != k.shape[2]:
         kw["enable_gqa"] = True
     if causal and not window and Sq == Skv:
@@ -363,33 +377,33 @@ def sdpa_call(q, k, v, causal, window, q_offset=None):
 
 
 def flash_case(shape, causal=True, window=0, dtype_name="bf16", seed=0,
-               timed=False):
+               timed=False, Dv=None, scale=None):
+    """K3 against its plain version at (B, Sq, Skv, H, Hkv, D), a value
+    width ``Dv`` (None: D) and a softmax ``scale`` (None: 1 / sqrt(D))."""
     import torch
     from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
     B, Sq, Skv, H, Hkv, D = shape
     dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
-    q, k, v = attn_inputs(B, Sq, Skv, H, Hkv, D, dtype, seed)
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    q, k, v = attn_inputs(B, Sq, Skv, H, Hkv, D, dtype, seed, Dv)
+    kw = dict(causal=causal, window=window, scale=scale)
+    out = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    ref = attention_ref(q, k, v, causal=causal, window=window)
+    ref = attention_ref(q, k, v, **kw)
     err = rel_err(out, ref)
     tol = 2e-2 if dtype_name == "bf16" else 2e-5
-    row = {"shape": list(shape), "causal": causal, "window": window,
-           "dtype": dtype_name, "rel_err": err,
+    row = {"shape": list(shape), "dv": Dv or D, "scale": scale, "causal": causal,
+           "window": window, "dtype": dtype_name, "rel_err": err,
            "max_abs_err": float((out.float() - ref.float()).abs().max())}
     if not err < tol:
         fail(f"flash_attention {row} exceeds {tol}")
     if timed:
-        lib = sdpa_call(q, k, v, causal, window)
-        lib_err = rel_err(lib().transpose(1, 2), ref)
-        row["ms"] = cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
-                                                    window=window))
-        row["plain_ms"] = cuda_ms(lambda: attention_ref(q, k, v, causal=causal,
-                                                        window=window))
+        lib = sdpa_call(q, k, v, causal, window, scale=scale)
+        row["library_rel_err"] = rel_err(lib().transpose(1, 2), ref)
+        row["ms"] = cuda_ms(lambda: flash_attention(q, k, v, **kw))
+        row["plain_ms"] = cuda_ms(lambda: attention_ref(q, k, v, **kw))
         row["library_ms"] = cuda_ms(lib)
-        row["library_rel_err"] = lib_err
         nbytes, ops = attn_cost(B, Sq, Skv, H, Hkv, D, causal, window,
-                                q.element_size())
+                                q.element_size(), Dv=Dv)
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, dtype_name)
     return row
 
@@ -606,6 +620,44 @@ def gmm_case(E, C, D, F, dtype_name="bf16", out_dtype=None, counts=None,
             elem * (E * C * D + E * D * F) + out_bytes, 2.0 * E * C * D * F, dtype_name)
         del ws
     return row
+
+
+def deepseek_rows():
+    """DeepSeek-V2-Lite's kernel shapes, each held to its plain version and
+    timed: K3 at the expanded latent attention of its longest served
+    prompt (S = 16,384, H = 16, qk 192, v 128, YaRN's softmax scale) beside
+    internlm2-1.8b's heads at the same length; K4 at its experts (E = 64,
+    top 6, D = 2,048, F = 1,408, whose last 256-wide tile over F is half
+    full) at one decode token's routing at the dropless decode capacity of
+    8, and at a routed prefill group of ``DROPLESS_GROUP`` tokens at its
+    fullest expert's count."""
+    import torch
+    from repro_torch.configs.deepseek_v2_lite import CONFIG as ds
+    from repro_torch.models.layers import mla_softmax_scale
+    from repro_torch.models.moe import DROPLESS_GROUP, dropless_capacity
+    S, H = 16384, ds.num_heads
+    rows = {
+        "flash_attention S=16384 D=128 (causal)": flash_case(
+            (1, S, S, 16, 8, 128), True, 0, "bf16", timed=True),
+        f"flash_attention deepseek-v2-lite prefill S={S} H={H} qk {ds.head_dim} "
+        f"v {ds.v_head_dim} (causal, scale {mla_softmax_scale(ds):.6f})": flash_case(
+            (1, S, S, H, H, ds.head_dim), True, 0, "bf16", timed=True,
+            Dv=ds.v_head_dim, scale=mla_softmax_scale(ds)),
+    }
+    gc.collect()
+    torch.cuda.empty_cache()            # the plain version's [H, S, S] scores
+    E, K, D, F = ds.num_experts, ds.moe_top_k, ds.d_model, ds.d_ff
+    T = DROPLESS_GROUP
+    decode_fill = routed_counts(1, E, K, 8, D)
+    group = routed_counts(T, E, K, T, D, seed=1)
+    C = dropless_capacity(group, T)
+    for label, c, fill in (("decode routing", 8, decode_fill),
+                           (f"a routed {T}-token prefill group (C={C})", C, group)):
+        rows[f"moe_gmm deepseek-v2-lite w1/w3 (f32 out), {label}"] = gmm_case(
+            E, c, D, F, out_dtype=torch.float32, counts=fill, timed=True)
+        rows[f"moe_gmm deepseek-v2-lite w2, {label}"] = gmm_case(
+            E, c, F, D, counts=fill, timed=True)
+    return rows
 
 
 # -------------------------------------------------------------- RG-LRU scan
@@ -3171,6 +3223,12 @@ def main() -> None:
             ((1, 4608, 4608, 56, 8, 128), True, True)):     # llava prefill
         flash_rows.append(flash_case(shape, causal, 0, "bf16", timed=timed))
     flash_rows.append(flash_case((2, 100, 300, 4, 4, 64), False, 0, "f32"))
+    # latent attention's expanded prefill: qk 192, v 128 and a scale of its
+    # own, ragged tiles in f32 (DeepSeek-V2-Lite's 16,384 in phase 13)
+    for shape, dtype_name in (((1, 16, 16, 16, 16, 192), "bf16"),
+                              ((1, 2048, 2048, 16, 16, 192), "bf16"),
+                              ((1, 100, 100, 4, 4, 192), "f32")):
+        flash_rows.append(flash_case(shape, True, 0, dtype_name, Dv=128, scale=0.114721))
     for row in flash_rows:
         say("parity flash_attention: " + json.dumps(row))
     # one sequence shard at a time, each at its own query offset; the llava
@@ -3220,6 +3278,16 @@ def main() -> None:
         for fill, dt in ((fills[0], "bf16"), (fills[1], "bf16"), (fills[0], "f32")):
             say("parity moe_gmm poisoned: " + json.dumps(gmm_case(
                 E, c, D, F, dt, counts=fill, poison=True)))
+    # DeepSeek-V2-Lite's experts: F = 1,408 leaves the last 256-wide tile
+    # half full, as the output width (gate, up) and as the reduction (down)
+    ds_fill = routed_counts(1, 64, 6, 8, 2048)
+    for shape, out_dtype in (((64, 8, 2048, 1408), torch.float32), ((64, 8, 1408, 2048), None),
+                             ((64, 200, 2048, 1408), torch.float32),
+                             ((64, 200, 1408, 2048), None)):
+        say("parity moe_gmm deepseek-v2-lite: " + json.dumps(gmm_case(
+            *shape, out_dtype=out_dtype, counts=ds_fill if shape[1] == 8 else None)))
+    say("parity moe_gmm deepseek-v2-lite poisoned: " + json.dumps(gmm_case(
+        64, 8, 1408, 2048, counts=ds_fill, poison=True)))
     rg = get_arch("recurrentgemma-9b")
     for shape in ((1, 128, 256), (2, 256, 512), (3, 512, 128)):
         for with_h0 in (False, True):
@@ -3428,6 +3496,7 @@ def main() -> None:
         "wkv6 T=2048": wkv6_case(1, 2048, H, N, rkv="bf16", timed=True),
         "dispatch_scores (256, 512, 64)": scores_case(256, 512, 64, density=0.05,
                                                       timed=True),
+        **deepseek_rows(),
     }
 
     def ms(x):

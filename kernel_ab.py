@@ -9,7 +9,12 @@ checkout, for comparing two versions on one card.
 Builds that checkout's kernel sources into its own ``build/kernels`` and
 prints one JSON line: CUDA-event ms (means over back-to-back launches, as in
 ``chip_smoke.py``) at the shapes of the main path and of long prompts, with
-the card's name and power limit.  K1 runs at the serving window (W, O, E) =
+the card's name and power limit.  K3 runs causal at internlm2-1.8b's heads
+(H = 16, Hkv = 8, D = 128) for S = 16, 2,048 and 16,384, at
+recurrentgemma-9b's (D = 256, window 2,048) for S = 16 and 512, and, where
+the checkout's kernel takes a scale and a value width of its own, at
+DeepSeek-V2-Lite's expanded prefill (H = 16, qk 192, v 128) for S =
+16,384.  K1 runs at the serving window (W, O, E) =
 (8, 256, 16) and at (256, 512, 64); K2 at the serving update (W, K, E) =
 (256, 2, 16) and at (256, 64, 64); K5 at recurrentgemma-9b's width (W =
 4,096) for T = 1, 16 and 2,048, through the plain entry and, where the
@@ -62,6 +67,16 @@ def main() -> None:
         q, k, v = cs.attn_inputs(*shape, torch.bfloat16, 0)
         res[f"flash {shape} w={window}"] = cs.cuda_ms(
             lambda: flash_attention(q, k, v, causal=True, window=window))
+    q, k, v = cs.attn_inputs(1, 16384, 16384, 16, 8, 128, torch.bfloat16, 0)
+    res["flash (1, 16384, 16384, 16, 8, 128) w=0"] = cs.cuda_ms(
+        lambda: flash_attention(q, k, v, causal=True), iters=5)
+    if "scale" in inspect.signature(flash_attention).parameters:
+        # latent attention's expanded prefill: qk 192, v 128, YaRN's scale
+        q, k, v = cs.attn_inputs(1, 16384, 16384, 16, 16, 192, torch.bfloat16, 0)
+        v = v[..., :128].contiguous()
+        res["flash mla (1, 16384, 16384, 16, 16, 192/128)"] = cs.cuda_ms(
+            lambda: flash_attention(q, k, v, causal=True, scale=0.114721), iters=5)
+    del q, k, v
 
     E, K, D, F = 64, 8, 2048, 1024          # olmoe-1b-7b
     fill = cs.routed_counts(1, E, K, 8, D) if "counts" in inspect.signature(

@@ -55,6 +55,22 @@ class ArchConfig:
     conv_width: int = 4          # RG-LRU temporal conv
     source: str = ""             # provenance note
     sub_quadratic: bool = False  # eligible for long_500k decode
+    # --- latent attention (MLA, DeepSeek-V2); kv_lora_rank 0 => none ---
+    # head_dim is then the query/key head, qk_nope_head_dim + qk_rope_head_dim
+    kv_lora_rank: int = 0        # the cached latent c_kv's width
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0    # the roped part, k_pe shared by the heads
+    v_head_dim: int = 0
+    # --- YaRN rotary scaling (rope_factor 0 => plain rope; its other
+    # constants are the published model's, in models/layers.py) ---
+    rope_factor: float = 0.0
+    rope_original_max_pos: int = 0
+    # --- DeepSeek-style MoE ---
+    first_dense_layers: int = 0  # leading layers with a dense FFN of dense_d_ff
+    dense_d_ff: int = 0
+    shared_d_ff: int = 0         # the shared experts as one SwiGLU; 0 => none
+    norm_topk_prob: bool = True  # renormalise the top-k gates to sum to 1
+    dropless: bool = False       # capacity always holds the fullest expert
 
     @property
     def padded_vocab(self) -> int:
@@ -78,6 +94,8 @@ class ArchConfig:
     # ---------------------------------------------------------------- params
     def param_count(self) -> int:
         """Total parameters N (analytic; embeddings included)."""
+        if self.kv_lora_rank:
+            return self._mla_param_count(active=False)
         d, f = self.d_model, self.d_ff
         per_attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         per_dense_ffn = 3 * d * f  # SwiGLU (gate, up, down)
@@ -105,6 +123,8 @@ class ArchConfig:
 
     def active_param_count(self) -> int:
         """N_active for MoE (6*N_active*D convention)."""
+        if self.kv_lora_rank:
+            return self._mla_param_count(active=True)
         if not self.num_experts:
             return self.param_count()
         d, f = self.d_model, self.d_ff
@@ -112,6 +132,21 @@ class ArchConfig:
         moe_all = self.num_layers * self.num_experts * 3 * d * f
         moe_active = self.num_layers * self.moe_top_k * 3 * d * f
         return dense_total - moe_all + moe_active
+
+    def _mla_param_count(self, active: bool) -> int:
+        """MLA decoder: leading dense layers, then MoE layers with a shared
+        SwiGLU; ``active`` counts the top-k experts a token reaches."""
+        d, h, r = self.d_model, self.num_heads, self.kv_lora_rank
+        attn = (d * h * self.head_dim + d * (r + self.qk_rope_head_dim) + r
+                + r * h * (self.qk_nope_head_dim + self.v_head_dim)
+                + h * self.v_head_dim * d)
+        experts = self.moe_top_k if active else self.num_experts
+        moe = (experts * 3 * d * self.d_ff + d * self.num_experts
+               + 3 * d * self.shared_d_ff)
+        lead = self.first_dense_layers
+        n = lead * (attn + 3 * d * self.dense_d_ff + 2 * d)
+        n += (self.num_layers - lead) * (attn + moe + 2 * d)
+        return n + d + 2 * self.padded_vocab * d
 
     def train_microbatches(self, global_batch: int) -> int:
         """Gradient-accumulation microbatches for the train step.
@@ -158,6 +193,13 @@ class ArchConfig:
             kw.update(num_patches=8)
         if self.family == "ssm":
             kw.update(rwkv_head_dim=16, num_heads=0, num_kv_heads=0)
+        if self.kv_lora_rank:
+            kw.update(num_kv_heads=kw["num_heads"], kv_lora_rank=32, qk_nope_head_dim=16,
+                      qk_rope_head_dim=8, v_head_dim=16, head_dim=24)
+        if self.first_dense_layers:
+            kw.update(dense_d_ff=192)
+        if self.shared_d_ff:
+            kw.update(shared_d_ff=64)
         return replace(self, **kw)
 
 

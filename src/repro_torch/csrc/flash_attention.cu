@@ -8,7 +8,12 @@
 // sliding-window masks on absolute positions, output in q's dtype.  Query
 // row i sits at position q_offset + i (the Pallas body's `q_offset`): the
 // wrapper passes Skv - Sq (aligned ends, a whole prefill) or, for one
-// sequence shard of a prefill, Skv - S plus the shard's first row.
+// sequence shard of a prefill, Skv - S plus the shard's first row.  Beyond
+// the Pallas kernel: values may be narrower than keys (v [B,Skv,Hkv,DV],
+// out [B,Sq,H,DV]; latent attention's expanded prefill is qk 192 / v 128),
+// and the softmax scale is an argument (0 means 1/sqrt(D)).  Each (D, DV)
+// is its own instantiation, so the key width's products and the value
+// width's accumulator are sized apart: nothing is padded.
 //
 // Design.  The Pallas grid walks KV blocks as a sequential grid axis with
 // the running max/sum/accumulator in VMEM scratch.  Blocks here run in
@@ -50,7 +55,10 @@
 // prompt (H = 16, Hkv = 8, D = 128) the work is 17.2 GFLOP against 25 MB:
 // operations-bound, 0.0174 ms at the 989 TFLOP/s bf16 peak.  mma.sync issues
 // at a fraction of that peak; wgmma fed by TMA, with warp specialisation, is
-// the way to the rest.  Head dims 16, 32, 64, 128 and 256 are instantiated.
+// the way to the rest.  Head dims 16, 32, 64, 128 and 256 are instantiated
+// with DV = D, and (192, 128).  At a 16,384-token MLA prefill (H = Hkv = 16,
+// qk 192, v 128) the work is 2 * 16 * (192 + 128) operations a (query, key)
+// pair over 134 M causal pairs: 1.37 TFLOP, 1.39 ms at the bf16 peak.
 //
 // C entry point: flash_attention_fwd(...) returns cudaGetLastError().
 
@@ -75,15 +83,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
+  return sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * DV + BQ * (BK + 1));
 }
 // The largest head dim keeps the same fp32 layout: 213,760 bytes at D = 256
 // (recurrentgemma's local-attention blocks), under the 232,448-byte opt-in.
-static_assert(smem_bytes<256>() <= 232448, "flash tile exceeds the smem opt-in");
+static_assert(smem_bytes<256, 256>() <= 232448, "flash tile exceeds the smem opt-in");
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(NT)
 flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o,
@@ -91,12 +99,12 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   int window, float scale) {
   constexpr int DP = D + 1;        // padded row: conflict-free column reads
   constexpr int PP = BK + 1;
-  constexpr int DJ = D / 16;       // output columns per thread
+  constexpr int DJ = DV / 16;      // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                // [BQ][DP]
   float* Ks = Qs + BQ * DP;        // [BK][DP]
-  float* Vs = Ks + BK * DP;        // [BK][D]
-  float* Ps = Vs + BK * D;         // [BQ][PP]
+  float* Vs = Ks + BK * DP;        // [BK][DV]
+  float* Ps = Vs + BK * DV;        // [BQ][PP]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -107,10 +115,12 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (H / Hkv);
   const long q_rs = (long)H * D;
   const long kv_rs = (long)Hkv * D;
+  const long v_rs = (long)Hkv * DV;
+  const long o_rs = (long)H * DV;
   const T* qb = q + (long)b * Sq * q_rs + (long)h * D;
   const T* kb = k + (long)b * Skv * kv_rs + (long)hk * D;
-  const T* vb = v + (long)b * Skv * kv_rs + (long)hk * D;
-  T* ob = o + (long)b * Sq * q_rs + (long)h * D;
+  const T* vb = v + (long)b * Skv * v_rs + (long)hk * DV;
+  T* ob = o + (long)b * Sq * o_rs + (long)h * DV;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, d = i % D;
@@ -138,12 +148,25 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();               // previous tile's Ks/Vs/Ps reads are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, d = i % D;
-      const int ki = k0 + r;
-      const bool in = ki < Skv;
-      Ks[r * DP + d] = in ? to_f(kb[(long)ki * kv_rs + d]) : 0.f;
-      Vs[r * D + d] = in ? to_f(vb[(long)ki * kv_rs + d]) : 0.f;
+    if constexpr (D == DV) {
+      for (int i = tid; i < BK * D; i += NT) {
+        const int r = i / D, d = i % D;
+        const int ki = k0 + r;
+        const bool in = ki < Skv;
+        Ks[r * DP + d] = in ? to_f(kb[(long)ki * kv_rs + d]) : 0.f;
+        Vs[r * D + d] = in ? to_f(vb[(long)ki * kv_rs + d]) : 0.f;
+      }
+    } else {
+      for (int i = tid; i < BK * D; i += NT) {
+        const int r = i / D, d = i % D;
+        const int ki = k0 + r;
+        Ks[r * DP + d] = ki < Skv ? to_f(kb[(long)ki * kv_rs + d]) : 0.f;
+      }
+      for (int i = tid; i < BK * DV; i += NT) {
+        const int r = i / DV, d = i % DV;
+        const int ki = k0 + r;
+        Vs[r * DV + d] = ki < Skv ? to_f(vb[(long)ki * v_rs + d]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -208,7 +231,7 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * PP + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        const float vv = Vs[c * D + tx + 16 * j];
+        const float vv = Vs[c * DV + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
       }
@@ -222,7 +245,7 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      ob[(long)qi * q_rs + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
+      ob[(long)qi * o_rs + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
   }
 }
 
@@ -230,28 +253,33 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 using bf16 = __nv_bfloat16;
 constexpr int TC_NT = 128;    // four warps of 16 query rows
 
-template <int D>
+template <int D, int DV>
 struct FlashTC {
-  static constexpr int BKV = D > 128 ? 32 : 64;   // keys a tile
+  // keys a tile: the O accumulator (DV / 2 fp32 registers a thread) sets it
+  static constexpr int BKV = DV > 128 ? 32 : 64;
   static constexpr int LD = D + 8;                // padded rows: conflict-free ldmatrix
-  static constexpr size_t SMEM = sizeof(bf16) * (size_t)(BQ * LD + 4 * BKV * LD);
+  static constexpr int LDV = DV + 8;
+  static constexpr size_t SMEM =
+      sizeof(bf16) * (size_t)(BQ * LD + 2 * BKV * LD + 2 * BKV * LDV);
 };
-static_assert(FlashTC<256>::SMEM <= 232448, "flash tile exceeds the smem opt-in");
+static_assert(FlashTC<256, 256>::SMEM <= 232448, "flash tile exceeds the smem opt-in");
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(TC_NT)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv,
                 int H, int Hkv, int q_offset, int causal, int window,
                 float scale_log2) {
-  constexpr int BKV = FlashTC<D>::BKV, LD = FlashTC<D>::LD;
+  constexpr int BKV = FlashTC<D, DV>::BKV, LD = FlashTC<D, DV>::LD;
+  constexpr int LDV = FlashTC<D, DV>::LDV;
   constexpr int NST = BKV / 8;     // n8 tiles of S a warp
-  constexpr int NDT = D / 8;       // n8 tiles of O a warp
-  constexpr int CH = D / 8;        // 16-byte chunks a row
+  constexpr int NDT = DV / 8;      // n8 tiles of O a warp
+  constexpr int CH = D / 8;        // 16-byte chunks a q or k row
+  constexpr int CHV = DV / 8;      // 16-byte chunks a v row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LD]
   bf16* Ks = Qs + BQ * LD;                         // [2][BKV][LD]
-  bf16* Vs = Ks + 2 * BKV * LD;                    // [2][BKV][LD]
+  bf16* Vs = Ks + 2 * BKV * LD;                    // [2][BKV][LDV]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -262,10 +290,12 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int hk = h / (H / Hkv);
   const long q_rs = (long)H * D;
   const long kv_rs = (long)Hkv * D;
+  const long v_rs = (long)Hkv * DV;
+  const long o_rs = (long)H * DV;
   const bf16* qb = q + (long)b * Sq * q_rs + (long)h * D;
   const bf16* kb = k + (long)b * Skv * kv_rs + (long)hk * D;
-  const bf16* vb = v + (long)b * Skv * kv_rs + (long)hk * D;
-  bf16* ob = o + (long)b * Sq * q_rs + (long)h * D;
+  const bf16* vb = v + (long)b * Skv * v_rs + (long)hk * DV;
+  bf16* ob = o + (long)b * Sq * o_rs + (long)h * DV;
 
   for (int i = tid; i < BQ * CH; i += TC_NT) {
     const int r = i / CH, c = (i % CH) * 8;
@@ -275,13 +305,26 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_kv = [&](int buf, int kt) {
     const int k0 = kt * BKV;
     bf16* ks = Ks + buf * BKV * LD;
-    bf16* vs = Vs + buf * BKV * LD;
-    for (int i = tid; i < BKV * CH; i += TC_NT) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool ok = k0 + r < Skv;
-      const long off = ok ? (long)(k0 + r) * kv_rs + c : 0;
-      tc::cp_async16(ks + r * LD + c, kb + off, ok);
-      tc::cp_async16(vs + r * LD + c, vb + off, ok);
+    bf16* vs = Vs + buf * BKV * LDV;
+    if constexpr (D == DV) {
+      for (int i = tid; i < BKV * CH; i += TC_NT) {
+        const int r = i / CH, c = (i % CH) * 8;
+        const bool ok = k0 + r < Skv;
+        const long off = ok ? (long)(k0 + r) * kv_rs + c : 0;
+        tc::cp_async16(ks + r * LD + c, kb + off, ok);
+        tc::cp_async16(vs + r * LD + c, vb + off, ok);
+      }
+    } else {
+      for (int i = tid; i < BKV * CH; i += TC_NT) {
+        const int r = i / CH, c = (i % CH) * 8;
+        const bool ok = k0 + r < Skv;
+        tc::cp_async16(ks + r * LD + c, kb + (ok ? (long)(k0 + r) * kv_rs + c : 0), ok);
+      }
+      for (int i = tid; i < BKV * CHV; i += TC_NT) {
+        const int r = i / CHV, c = (i % CHV) * 8;
+        const bool ok = k0 + r < Skv;
+        tc::cp_async16(vs + r * LDV + c, vb + (ok ? (long)(k0 + r) * v_rs + c : 0), ok);
+      }
     }
   };
 
@@ -312,7 +355,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::cp_async_wait<1>();                    // tile kt (and Q) landed
     __syncthreads();
     const bf16* ks = Ks + buf * BKV * LD;
-    const bf16* vs = Vs + buf * BKV * LD;
+    const bf16* vs = Vs + buf * BKV * LDV;
 
     float s[NST][4];
 #pragma unroll
@@ -397,7 +440,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NDT; j += 2) {
         uint32_t bb[4];
-        tc::ldsm_x4_trans(bb, tc::bt_frag_ptr(vs, LD, kk * 16, j * 8, lane));
+        tc::ldsm_x4_trans(bb, tc::bt_frag_ptr(vs, LDV, kk * 16, j * 8, lane));
         tc::mma_bf16(acc[j], hi, bb[0], bb[1]);
         tc::mma_bf16(acc[j + 1], hi, bb[2], bb[3]);
         tc::mma_bf16(acc[j], lo, bb[0], bb[1]);
@@ -415,68 +458,73 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NDT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long)qi * q_rs + j * 8 + 2 * t) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long)qi * o_rs + j * 8 + 2 * t) =
           __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int Sq, int Skv, int H, int Hkv, int q_offset, int causal,
-                   int window, cudaStream_t stream) {
+                   int window, float scale, cudaStream_t stream) {
+  const bool given = scale > 0.f;
   if constexpr (sizeof(T) == 2) {
     const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
     if ((any & 15) == 0) {            // cp.async moves 16-byte chunks
-      constexpr size_t smem = FlashTC<D>::SMEM;
+      constexpr size_t smem = FlashTC<D, DV>::SMEM;
       cudaError_t err = cudaFuncSetAttribute(
-          flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          flash_tc_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return err;
       const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-      flash_tc_kernel<D><<<grid, TC_NT, smem, stream>>>(
+      flash_tc_kernel<D, DV><<<grid, TC_NT, smem, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, H, Hkv, q_offset,
-          causal, window, 1.4426950408889634f / sqrtf((float)D));   // log2(e) / sqrt(D)
+          causal, window,            // log2(e) times the scale, 1 / sqrt(D) by default
+          given ? 1.4426950408889634f * scale : 1.4426950408889634f / sqrtf((float)D));
       return cudaGetLastError();
     }
   }
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<D, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_simt_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_simt_kernel<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_simt_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_simt_kernel<T, D, DV><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Sq, Skv, H, Hkv, q_offset, causal, window,
-      1.f / sqrtf((float)D));
+      given ? scale : 1.f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-                       int Sq, int Skv, int H, int Hkv, int D, int q_offset,
-                       int causal, int window, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window,
-                                    stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window,
-                                    stream);
-    default: return cudaErrorInvalidValue;
-  }
+                       int Sq, int Skv, int H, int Hkv, int D, int DV, int q_offset,
+                       int causal, int window, float scale, cudaStream_t stream) {
+#define FLASH_CASE(DQ, DVV)                                                            \
+  if (D == DQ && DV == DVV)                                                            \
+    return launch<T, DQ, DVV>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window, \
+                              scale, stream);
+  FLASH_CASE(16, 16)
+  FLASH_CASE(32, 32)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(256, 256)
+  FLASH_CASE(192, 128)      // latent attention's expanded prefill
+#undef FLASH_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Tensors are contiguous [B,S,heads,D].
-// Query row i is at position q_offset + i; a masked call needs
-// 0 <= q_offset and q_offset + Sq <= Skv.
+// dtype: 0 = float32, 1 = bfloat16.  Tensors are contiguous [B,S,heads,width]:
+// q and k of width D, v and o of width DV.  Query row i is at position
+// q_offset + i; a masked call needs 0 <= q_offset and q_offset + Sq <= Skv.
+// scale multiplies the scores; 0 means 1/sqrt(D).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int Sq, int Skv, int H,
-                                   int Hkv, int D, int dtype, int q_offset,
-                                   int causal, int window, void* stream) {
+                                   int Hkv, int D, int DV, int dtype, int q_offset,
+                                   int causal, int window, float scale, void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this call's
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
@@ -485,10 +533,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_d<float>(q, k, v, o, B, Sq, Skv, H, Hkv, D, q_offset, causal, window, s);
+    err = dispatch_d<float>(q, k, v, o, B, Sq, Skv, H, Hkv, D, DV, q_offset, causal, window,
+                            scale, s);
   else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, Hkv, D, q_offset, causal,
-                                    window, s);
+    err = dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, Hkv, D, DV, q_offset, causal,
+                                    window, scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -5,8 +5,8 @@ Every ``csrc/<name>.cu`` compiles on its own into
 covers the source, the shared headers (``csrc/*.cuh``) and the flags: a
 changed source rebuilds, an unchanged one is loaded as built.  All missing
 libraries build at once, one ``nvcc`` per source started together.  The C
-entry points take ``void*`` for pointers and the stream and ``int`` for
-sizes, and return ``cudaGetLastError()``; ``check`` raises on anything but 0.
+entry points take ``void*`` for pointers and the stream, ``int`` for
+sizes and ``float`` for a scale, and return ``cudaGetLastError()``; ``check`` raises on anything but 0.
 A kernel writes a fresh output through raw pointers, so autograd cannot see
 through it: ``refuse_grad`` raises before a launch that would lose a
 gradient.
@@ -142,3 +142,4 @@ def check(err: int, what: str) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float

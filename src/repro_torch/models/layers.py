@@ -12,6 +12,13 @@ Prefill attention, and cross-attention over a whole encoder output, goes
 through the flash-attention kernel (``kernels.flash_attention``); decode
 stays on the direct path, because the kernel takes no key positions and
 cannot read a partly filled or ring cache.
+Latent attention (MLA, DeepSeek-V2; ``cfg.kv_lora_rank`` > 0) caches one
+latent a token and layer, the normalised ``c_kv`` and the roped ``k_pe``
+shared by the heads: prefill expands it into per-head keys and values and
+runs the kernel at qk ``head_dim`` / v ``v_head_dim`` (``mla_prefill``);
+decode absorbs the key and value up-projections into the query and the
+output and attends over the latent itself (``mla_decode``).  Its rotary
+positions are YaRN's on the published interleaved pairing.
 Training stays on ``attention_core`` too (``use_kernel=False``), as the
 reference trains through its jnp attention: the kernel has no backward.
 Under a mesh the kernel runs on each rank's local shards
@@ -32,6 +39,7 @@ The loss functions (``softmax_xent``, ``chunked_lm_loss``) close the file.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -42,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.flash_attention.ops import flash_attention
 from ..obs.spans import span
 from .sharding import (ShardCtx, gather_inner, gather_last, is_dtensor, mm, reshape,
-                       unshard_dim)
+                       unshard_dim, write_slot)
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -86,6 +94,69 @@ def rope(x, positions, theta: float):
     x1, x2 = x[..., :half].to(F32), x[..., half:].to(F32)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- YaRN RoPE
+# YaRN's constants of the published config (``rope_scaling`` of
+# deepseek-ai/DeepSeek-V2-Lite's config.json): the correction range's
+# beta_fast and beta_slow, and mscale = mscale_all_dim = 0.707, so that the
+# rotation's magnitude mscale(mscale) / mscale(mscale_all_dim) is 1 and
+# only the softmax scale takes mscale(mscale_all_dim)
+YARN_BETA_FAST, YARN_BETA_SLOW, YARN_MSCALE_ALL_DIM = 32.0, 1.0, 0.707
+
+
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's magnitude correction at ``factor`` (1 unscaled)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def _yarn_inv_freq(dim: int, base: float, factor: float, original: int,
+                   device: torch.device) -> torch.Tensor:
+    extra = 1.0 / base ** (torch.arange(0, dim, 2, dtype=F32) / dim)
+    if not factor:
+        return extra.to(device)
+    inter = 1.0 / (factor * base ** (torch.arange(0, dim, 2, dtype=F32) / dim))
+
+    def corr(rotations: float) -> float:
+        return dim * math.log(original / (rotations * 2 * math.pi)) / (2 * math.log(base))
+
+    low = max(math.floor(corr(YARN_BETA_FAST)), 0)
+    high = min(math.ceil(corr(YARN_BETA_SLOW)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=F32) - low) / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp
+    return (inter * (1 - keep) + extra * keep).to(device)
+
+
+def yarn_inv_freq(cfg, device="cpu") -> torch.Tensor:
+    """f32 [qk_rope_head_dim / 2] frequencies of ``DeepseekV2YarnRotaryEmbedding``
+    on ``device``, made once a device: pairs up to the correction range's
+    low end keep base^(-2i/d), pairs past its high end take that over
+    ``rope_factor``, a linear ramp in i blends the two between; plain
+    RoPE's without a ``rope_factor``."""
+    return _yarn_inv_freq(cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_factor,
+                          cfg.rope_original_max_pos, torch.device(device))
+
+
+def mla_softmax_scale(cfg) -> float:
+    """1/sqrt(qk head) times YaRN's mscale(factor, mscale_all_dim) squared."""
+    m = yarn_mscale(cfg.rope_factor, YARN_MSCALE_ALL_DIM) if cfg.rope_factor else 1.0
+    return cfg.head_dim ** -0.5 * m * m
+
+
+def mla_rope(x, positions, cfg):
+    """YaRN rotation of x [..., S, H, d] on the published pairing: the
+    interleaved (even, odd) pairs de-interleaved into halves, then the
+    half-split rotation.  The output keeps the de-interleaved order, as the
+    published model's does."""
+    d = x.shape[-1]
+    x = x.reshape(*x.shape[:-1], d // 2, 2).transpose(-1, -2).reshape(x.shape)
+    ang = positions.to(F32)[..., None] * yarn_inv_freq(cfg, x.device)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :d // 2].to(F32), x[..., d // 2:].to(F32)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
 # -------------------------------------------------------- attention (GQA)
@@ -344,6 +415,88 @@ def attention_block(p, x, *, cfg, positions, causal=True, window=0,
         o = attention_core(q, k, v, positions, kpos, causal=causal,
                            window=window, chunk=chunk, ctx=ctx)
     return mm(reshape(o, B, S, H * Dh), p["wo"]), (k, v)
+
+
+# ------------------------------------------------- latent attention (MLA)
+def mla_init(gen, cfg, lead=()):
+    """q (no low-rank query), the joint latent projection [c_kv | k_pe],
+    the latent's norm, its up-projection to per-head [k_nope | v], out."""
+    D, H, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    return {
+        "wq": dense_init(gen, (D, H * cfg.head_dim), lead=lead),
+        "wkv_a": dense_init(gen, (D, r + cfg.qk_rope_head_dim), lead=lead),
+        "kv_norm": rmsnorm_init(r, gen.device, lead),
+        "wkv_b": dense_init(gen, (r, H * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                            lead=lead),
+        "wo": dense_init(gen, (H * cfg.v_head_dim, D), lead=lead),
+    }
+
+
+def mla_latent_width(cfg) -> int:
+    return cfg.kv_lora_rank + cfg.qk_rope_head_dim
+
+
+def _mla_query(p, x, cfg, positions):
+    """(q_nope [B, S, H, nope], roped q_pe [B, S, H, rope])."""
+    B, S, _ = x.shape
+    q = mm(x, p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    dn = cfg.qk_nope_head_dim
+    return q[..., :dn], mla_rope(q[..., dn:], positions, cfg)
+
+
+def _mla_latent(p, x, cfg, positions):
+    """The cached latent [B, S, r + rope]: RMSNorm(c_kv), then roped k_pe."""
+    r = cfg.kv_lora_rank
+    kv = mm(x, p["wkv_a"])
+    c = rmsnorm(p["kv_norm"], kv[..., :r], cfg.norm_eps)
+    k_pe = mla_rope(kv[..., None, r:], positions, cfg)[..., 0, :]
+    return torch.cat([c, k_pe], dim=-1)
+
+
+def mla_prefill(p, x, *, cfg, positions):
+    """Causal MLA over the whole sequence x [B, S, D], expanded: the latent's
+    up-projection gives each head its k_nope and v, k_pe joins every head,
+    and the kernel runs at qk ``head_dim`` / v ``v_head_dim`` with the
+    YaRN-scaled softmax.  Returns (out [B, S, D], the latent [B, S, 1, r +
+    rope] for the cache)."""
+    B, S, _ = x.shape
+    H, dn, dv, r = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    q_nope, q_pe = _mla_query(p, x, cfg, positions)
+    lat = _mla_latent(p, x, cfg, positions)
+    kv = mm(lat[..., :r], p["wkv_b"]).reshape(B, S, H, dn + dv)
+    k_pe = lat[:, :, None, r:].expand(B, S, H, cfg.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([kv[..., :dn], k_pe], dim=-1)
+    with span("attn_scores"):
+        o = flash_attention(q.contiguous(), k.contiguous(), kv[..., dn:].contiguous(),
+                            causal=True, scale=mla_softmax_scale(cfg))
+    return mm(o.reshape(B, S, H * dv), p["wo"]), lat[:, :, None, :]
+
+
+def mla_decode(p, x, cache, *, cfg, positions, pos: int):
+    """One token x [B, 1, D] at ``pos`` against the latent cache [B, cap, 1,
+    r + rope], absorbed: its latent is written at slot ``pos``; q_nope goes
+    through the key half of the up-projection (W_UK) into the latent's
+    width, the scores are q_lat . c_kv + q_pe . k_pe over positions up to
+    ``pos``, and the latent output sum p c_kv goes back through the value
+    half (W_UV), then the output projection.  f32 from bf16 operands, as
+    the direct attention path."""
+    B = x.shape[0]
+    H, dn, dv, r = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    q_nope, q_pe = _mla_query(p, x, cfg, positions)
+    write_slot(cache, 1, min(pos, cache.shape[1] - 1), _mla_latent(p, x, cfg, positions))
+    w = p["wkv_b"].reshape(r, H, dn + dv)
+    with span("attn_scores"):     # region of the cost model
+        q_lat = torch.einsum("bhd,chd->bhc", q_nope[:, 0].to(F32), w[..., :dn].to(F32))
+        qq = torch.cat([q_lat, q_pe[:, 0].to(F32)], dim=-1)             # [B, H, r + rope]
+        kv = cache[:, :, 0].to(F32)                                     # [B, cap, r + rope]
+        s = torch.einsum("bhc,btc->bht", qq, kv) * mla_softmax_scale(cfg)
+        kpos = torch.arange(kv.shape[1], device=x.device)
+        s = s + _mask_bias(positions, kpos, True, 0)
+        prob = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bht,btc->bhc", prob, kv[..., :r])
+        o = torch.einsum("bhc,che->bhe", o_lat, w[..., dn:].to(F32)).to(x.dtype)
+    return mm(o.reshape(B, 1, H * dv), p["wo"])
 
 
 # ------------------------------------------------------------------- MLP

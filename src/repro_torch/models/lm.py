@@ -32,6 +32,11 @@ constraints sit where the reference's do, a MoE FFN runs
 place (``write_slot``, ``copy_into``), and every entry point runs in
 ``ctx.scope()``, where the plain tensors every rank makes alike
 (positions, masks, fresh buffers) meet DTensors as replicated ones.
+A config with leading dense layers (``first_dense_layers``, DeepSeek-V2)
+keeps them unstacked under ``lead`` (params and caches), run before the
+stacked groups; an MLA block (``cfg.kv_lora_rank``) caches one latent
+leaf ``kv`` [B, cap, 1, kv_lora_rank + qk_rope_head_dim] instead of K and
+V, serves on one device, and does not train.
 The vision frontend is the reference's stub: a batch
 may carry precomputed ``patch_embeds`` [B, P, D], projected by
 ``patch_proj`` and put before the text; the loss is taken over the text,
@@ -59,6 +64,10 @@ from .layers import (
     embed_init,
     embed_lookup,
     logits_head,
+    mla_decode,
+    mla_init,
+    mla_latent_width,
+    mla_prefill,
     mlp,
     mlp_init,
     rmsnorm,
@@ -76,8 +85,11 @@ def group_pattern(cfg: ArchConfig) -> Tuple[str, ...]:
 
 
 def group_counts(cfg: ArchConfig) -> Tuple[int, int]:
+    """(stacked groups, unrolled remainder) of the layers after the leading
+    dense ones."""
     g = len(group_pattern(cfg))
-    return cfg.num_layers // g, cfg.num_layers % g
+    n = cfg.num_layers - cfg.first_dense_layers
+    return n // g, n % g
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -89,15 +101,21 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 # ---------------------------------------------------------------- init
-def block_init(gen, kind: str, cfg: ArchConfig, lead=()):
+def block_init(gen, kind: str, cfg: ArchConfig, lead=(), dense: bool = False):
+    """One block's params; ``dense``: a leading dense layer (FFN width
+    ``dense_d_ff``)."""
     dev = gen.device
     p = {"norm1": rmsnorm_init(cfg.d_model, dev, lead),
          "norm2": rmsnorm_init(cfg.d_model, dev, lead)}
     if kind in ("A", "L"):
-        p["attn"] = attn_init(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                              cfg.head_dim, lead)
-        if cfg.num_experts:
-            p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts, lead)
+        p["attn"] = (mla_init(gen, cfg, lead) if cfg.kv_lora_rank else
+                     attn_init(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.head_dim, lead))
+        if dense:
+            p["ffn"] = mlp_init(gen, cfg.d_model, cfg.dense_d_ff, lead)
+        elif cfg.num_experts:
+            p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts, lead,
+                                shared_d_ff=cfg.shared_d_ff)
         else:
             p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, lead)
     elif kind == "R":
@@ -121,6 +139,9 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig):
     params.update(embed_init(gen, cfg.padded_vocab, cfg.d_model))
     if cfg.frontend == "vision":
         params["patch_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model))
+    if cfg.first_dense_layers:
+        params["lead"] = [block_init(gen, "A", cfg, dense=True)
+                          for _ in range(cfg.first_dense_layers)]
     params["groups"] = {f"b{j}": block_init(gen, kind, cfg, lead=(n_groups,))
                         for j, kind in enumerate(pat)}
     params["rem"] = [block_init(gen, pat[i], cfg) for i in range(rem)]
@@ -140,6 +161,9 @@ def block_cache_init(kind: str, cfg: ArchConfig, batch: int, cap: int,
         return rw.rwkv_state_init(batch, cfg.d_model, cfg.rwkv_head_dim, device, lead)
     if kind not in ("A", "L"):
         raise ValueError(kind)
+    if cfg.kv_lora_rank:
+        shape = tuple(lead) + (batch, cap, 1, mla_latent_width(cfg))
+        return {"kv": torch.zeros(shape, dtype=BF16, device=device)}
     w = cap if kind == "A" else min(cfg.window_size or cap, cap)
     shape = tuple(lead) + (batch, w, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=BF16, device=device),
@@ -154,7 +178,11 @@ def lm_cache_init(cfg: ArchConfig, batch: int, cap: int, device="cuda"):
               for j, k in enumerate(pat)}
     rem_caches = [block_cache_init(pat[i], cfg, batch, cap, device)
                   for i in range(rem)]
-    return {"groups": groups, "rem": rem_caches}
+    caches = {"groups": groups, "rem": rem_caches}
+    if cfg.first_dense_layers:
+        caches["lead"] = [block_cache_init("A", cfg, batch, cap, device)
+                          for _ in range(cfg.first_dense_layers)]
+    return caches
 
 
 # ---------------------------------------------------------------- blocks
@@ -169,8 +197,8 @@ def _ffn_apply(bp, cfg: ArchConfig, h2, train: bool, ctx: ShardCtx = ShardCtx())
     dense.  Under a mesh whose model axis divides the sequence and the
     experts, a MoE FFN runs expert-parallel (``moe_ffn_sharded``); under
     any other (a decode step) on each rank's block of the capacity buffer
-    in serving (``moe_ffn``)."""
-    if cfg.num_experts:
+    in serving (``moe_ffn``).  A leading dense layer's block has ``ffn``."""
+    if "moe" in bp:
         B, S, D = h2.shape
         kw = dict(n_experts=cfg.num_experts, top_k=cfg.moe_top_k,
                   capacity_factor=cfg.capacity_factor)
@@ -182,7 +210,7 @@ def _ffn_apply(bp, cfg: ArchConfig, h2, train: bool, ctx: ShardCtx = ShardCtx())
         if use_smap:
             return moe_ffn_sharded(bp["moe"], h2, ctx=ctx, train=train, **kw)
         out, aux = moe_ffn(bp["moe"], reshape(h2, B * S, D), train=train, ctx=ctx,
-                           **kw)
+                           renorm=cfg.norm_topk_prob, dropless=cfg.dropless, **kw)
         return reshape(out, B, S, D), aux
     return mlp(bp["ffn"], h2, ctx=ctx), None
 
@@ -248,7 +276,18 @@ def apply_block(bp, kind: str, h, *, cfg: ArchConfig, positions, mode: str,
     window = cfg.window_size if kind == "L" else 0
     # the norm output in the seq-sharded layout, as the reference has it
     hn = ctx.cstr(rmsnorm(bp["norm1"], h, cfg.norm_eps), "dp", "tp", None)
-    if mode == "decode":
+    if cfg.kv_lora_rank:
+        if train or ctx.mesh is not None:
+            raise NotImplementedError(f"{cfg.name}: latent attention serves on one "
+                                      "device only; it does not train")
+        if mode == "decode":
+            attn_out = mla_decode(bp["attn"], hn, cache["kv"], cfg=cfg,
+                                  positions=positions, pos=pos)
+            new_cache = cache
+        else:
+            attn_out, lat = mla_prefill(bp["attn"], hn, cfg=cfg, positions=positions)
+            new_cache = {"kv": lat}
+    elif mode == "decode":
         B = h.shape[0]
         Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
         k_new = reshape(mm(hn, bp["attn"]["wk"]), B, 1, Hkv, Dh)
@@ -335,6 +374,12 @@ def _run_stack(params, h, *, cfg, positions, mode, caches=None, pos=None,
         return h, aux, new
 
     aux = None
+    lead_caches = []
+    for i, bp in enumerate(params.get("lead", [])):
+        bcache = caches["lead"][i] if caches is not None else None
+        h, _, nc = apply_block(bp, "A", h, cfg=cfg, positions=positions, mode=mode,
+                               cache=bcache, pos=pos, chunk=chunk, ctx=ctx)
+        lead_caches.append(nc)
     built = {f"b{j}": [] for j in range(len(pat))}
     for g, gp in enumerate(_unbind(params["groups"], n_groups)):
         if mode == "train":
@@ -359,7 +404,10 @@ def _run_stack(params, h, *, cfg, positions, mode, caches=None, pos=None,
     if mode == "decode":
         return h, aux, caches
     groups = {k: _stack(v) for k, v in built.items()} if n_groups else {}
-    return h, aux, {"groups": groups, "rem": rem_caches}
+    out = {"groups": groups, "rem": rem_caches}
+    if lead_caches:
+        out["lead"] = lead_caches
+    return h, aux, out
 
 
 def _embed(params, tokens):

@@ -11,6 +11,17 @@ The scatter accumulates (``index_add_``), as the reference's ``.at[].add``
 does: a dropped entry shares its clipped slot with a kept one, and a plain
 index assignment would let its zero overwrite the kept row.
 
+DeepSeek-V2's variant, chosen by its config (``_ffn_apply``): top-k gates
+not renormalised (``renorm=False``: the picks' own probabilities, as
+DeepSeek-V2-Lite's ``routed_scaling_factor`` of 1 leaves them); no token
+dropped (``dropless``): the capacity holds the fullest expert, 8 rows at a
+decode step (a token routes to an expert at most once) and the fullest
+count, read to the host once a call, rounded up to 8, in prefill, which
+serves its tokens in groups of ``DROPLESS_GROUP`` so that routing skewed
+onto one expert cannot grow the [E, C, .] buffers past that; and a shared
+SwiGLU (``p["shared"]``) added for every token.  The defaults are
+the port's own MoE, which olmoe-1b-7b runs unchanged.
+
 Serving (``train=False``) runs the experts through the grouped-GEMM kernel
 (``kernels.moe_gmm``).  Each expert's fill, ``min(assignments, C)``, goes to
 the three GEMMs as ``counts``: rows at and past it are empty, so the kernel
@@ -61,20 +72,23 @@ rank routes all T tokens alike and runs the kernel on its own block.
 
 from __future__ import annotations
 
+import collections
 import math
+import time
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.moe_gmm.ops import moe_gmm
-from .layers import F32, dense_init
+from ..obs.spans import profiling, span
+from .layers import F32, dense_init, mlp, mlp_init
 from ..tree import tree_map
 from .sharding import P, ShardCtx, is_dtensor
 
 
-def moe_init(gen, d_model: int, d_ff: int, n_experts: int, lead=()):
-    return {
+def moe_init(gen, d_model: int, d_ff: int, n_experts: int, lead=(), shared_d_ff: int = 0):
+    p = {
         "router": dense_init(gen, (d_model, n_experts), dtype=F32, lead=lead),
         "experts": {
             "w1": dense_init(gen, (n_experts, d_model, d_ff), lead=lead),   # gate
@@ -82,12 +96,42 @@ def moe_init(gen, d_model: int, d_ff: int, n_experts: int, lead=()):
             "w2": dense_init(gen, (n_experts, d_ff, d_model), lead=lead),   # down
         },
     }
+    if shared_d_ff:
+        p["shared"] = mlp_init(gen, d_model, shared_d_ff, lead)
+    return p
+
+
+# tokens a dispatch group of a dropless prefill in serving: the [E, C, F]
+# f32 gate and up products of DeepSeek-V2-Lite (64 experts of 1,408) stay
+# under 0.74 GB each however skewed the routing
+DROPLESS_GROUP = 2048
 
 
 def capacity(T: int, top_k: int, n_experts: int, factor: float,
              multiple: int = 8) -> int:
     c = int(math.ceil(T * top_k / n_experts * factor))
     return max(multiple, ((c + multiple - 1) // multiple) * multiple)
+
+
+# (host clock, the fullest expert's count, tokens) of each dropless group
+# whose count was read to the host: the routing's skew, which the benchmark
+# reports over its measured window
+FILL_READS = collections.deque(maxlen=1 << 16)
+
+
+def dropless_capacity(assigned, T: int, multiple: int = 8) -> int:
+    """A capacity that drops nothing: the fullest expert's count rounded up
+    to ``multiple``.  One token (a decode step) fills an expert at most
+    once, so nothing is read; more read the count to the host once, in the
+    span ``moe.fill``, which so holds the wait for the device work queued
+    before it."""
+    if T == 1:
+        n = 1
+    else:
+        with span("moe.fill"):
+            n = int(assigned.max())
+        FILL_READS.append((time.perf_counter(), n, T))
+    return max(multiple, -(-n // multiple) * multiple)
 
 
 def _rank_positions(flat_e):
@@ -138,25 +182,36 @@ def _expert_mlp(w, buf, counts=None, train=False):
     return moe_gmm(h, w["w2"], counts=counts)
 
 
-def _dispatch(p, x2d, E: int, K: int, C: int):
-    """Routing of x2d's T tokens into a capacity-C buffer: (gate values and
-    expert ids [T, K], each expert's fill ``min(assigned, C)``, aux, and the
-    keep flag and slot of each of the T * K picks)."""
+def _route(p, x2d, E: int, K: int, renorm: bool = True):
+    """Routing of x2d's T tokens: (gate values and expert ids [T, K], each
+    expert's assignments [E], aux, and each of the T * K picks' rank within
+    its expert)."""
     T = x2d.shape[0]
     probs, gate_vals, gate_idx = _router(p, x2d, K)
+    if not renorm:          # the picks' own probabilities
+        gate_vals = torch.gather(probs, 1, gate_idx)
     flat_e = gate_idx.reshape(T * K)
     assigned = _expert_counts(flat_e, E)
-    aux = _aux_loss(probs, assigned, T * K)
-    pos = _rank_positions(flat_e)
-    return (gate_vals, gate_idx, torch.clamp(assigned, max=C), aux, pos < C,
-            torch.clamp(pos, 0, C - 1))
+    return (gate_vals, gate_idx, assigned, _aux_loss(probs, assigned, T * K),
+            _rank_positions(flat_e))
+
+
+def _slots(assigned, pos, C: int):
+    """Into a capacity-C buffer: each expert's fill ``min(assigned, C)``,
+    and the keep flag and slot of each pick."""
+    return torch.clamp(assigned, max=C), pos < C, torch.clamp(pos, 0, C - 1)
 
 
 def moe_ffn(p, x2d, *, n_experts: int, top_k: int, capacity_factor: float,
-            train: bool = False, ctx: ShardCtx = ShardCtx()
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            train: bool = False, ctx: ShardCtx = ShardCtx(), renorm: bool = True,
+            dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x2d: [T, D] -> ([T, D], aux).  ``train``: the experts run the
-    reference's einsums instead of the kernel.  Given DTensors (a mesh
+    reference's einsums instead of the kernel.  ``renorm``, ``dropless``
+    and a ``shared`` SwiGLU in ``p``: the module's note.
+    Routing runs in the span ``moe.route``, a dropless prefill's read of
+    its fullest count in ``moe.fill``, the routed experts in
+    ``moe.experts``; while the profiler runs, a dropless prefill on the
+    card waits for its queued device work before ``moe.route``.  Given DTensors (a mesh
     whose model axis ``moe_ffn_sharded`` cannot split the tokens over:
     a decode step), serving runs each rank's block of the capacity buffer
     (``_moe_ffn_blocks``, on ``ctx``'s mesh), as the reference lays it
@@ -170,8 +225,25 @@ def moe_ffn(p, x2d, *, n_experts: int, top_k: int, capacity_factor: float,
                            capacity_factor=capacity_factor, train=train)
     T, D = x2d.shape
     E, K = n_experts, top_k
-    C = capacity(T, K, E, capacity_factor)
-    gate_vals, gate_idx, fill, aux, keep, slot = _dispatch(p, x2d, E, K, C)
+    if dropless and not train and T > DROPLESS_GROUP:
+        # each group routed and served on its own (no token depends on
+        # another's routing when none is dropped); aux, which serving
+        # drops, is the groups' mean
+        parts = [moe_ffn(p, x2d[i:i + DROPLESS_GROUP], n_experts=E, top_k=K,
+                         capacity_factor=capacity_factor, renorm=renorm, dropless=True)
+                 for i in range(0, T, DROPLESS_GROUP)]
+        return (torch.cat([o for o, _ in parts]),
+                torch.stack([a for _, a in parts]).mean())
+    if dropless and T > 1 and x2d.is_cuda and profiling():
+        # traced, a prefill group first waits for the device work queued
+        # before it (as its count read after the span would), so that
+        # ``moe.route`` holds the routing's host time and no stall on a
+        # full launch queue
+        torch.cuda.current_stream(x2d.device).synchronize()
+    with span("moe.route"):
+        gate_vals, gate_idx, assigned, aux, pos = _route(p, x2d, E, K, renorm)
+    C = dropless_capacity(assigned, T) if dropless else capacity(T, K, E, capacity_factor)
+    fill, keep, slot = _slots(assigned, pos, C)
     flat_e = gate_idx.reshape(T * K)
     row = flat_e * C + slot                                           # into [E*C]
 
@@ -179,11 +251,14 @@ def moe_ffn(p, x2d, *, n_experts: int, top_k: int, capacity_factor: float,
     zero = torch.zeros((), dtype=x2d.dtype, device=x2d.device)
     for k in range(K):      # k-sliced scatters cap the transient at [T, D]
         buf.index_add_(0, row[k::K], torch.where(keep[k::K, None], x2d, zero))
-    y = _expert_mlp(p["experts"], buf.view(E, C, D), fill, train).view(E * C, D)
+    with span("moe.experts"):
+        y = _expert_mlp(p["experts"], buf.view(E, C, D), fill, train).view(E * C, D)
     out = torch.zeros((T, D), dtype=F32, device=x2d.device)
     for k in range(K):
         w = (gate_vals[:, k] * keep[k::K]).to(F32)
         out = out + y[row[k::K]].to(F32) * w[:, None]
+    if "shared" in p:
+        out = out + mlp(p["shared"], x2d).to(F32)
     return out.to(x2d.dtype), aux
 
 
@@ -211,7 +286,8 @@ def _moe_ffn_blocks(p, x2d, *, n_experts: int, top_k: int, capacity_factor: floa
     every = [Replicate()] * mesh.ndim
     x = x2d.redistribute(mesh, every).to_local()                     # the T tokens
     router = p["router"].redistribute(mesh, every).to_local()
-    gate_vals, gate_idx, fill, aux, keep, slot = _dispatch({"router": router}, x, E, K, C)
+    gate_vals, gate_idx, assigned, aux, pos = _route({"router": router}, x, E, K)
+    fill, keep, slot = _slots(assigned, pos, C)
 
     e_lo, n_e = ctx.span(ctx.tp_axis, E)
     c_lo, n_c = ctx.span(ctx.dp_axes, C)

@@ -27,6 +27,9 @@ The port's spans (``PERF.md`` section 3 names the metric each feeds):
     serve.decode     a request's decode loop (ring: "decode")
     serve.payload    a swap-in's KV tensors handed back (ring: the object)
     model.decode     one decode step of the model
+    moe.route        a MoE layer's router, top-k and counts
+    moe.fill         a dropless prefill's read of its fullest expert's count
+    moe.experts      a MoE layer's routed experts (K4's three GEMMs, SwiGLU)
     train.grad       forward and backward of one (micro)batch
     train.optimizer  the optimizer's update
     attn_scores, rglru_rec, wkv_scan   the cost model's regions
@@ -42,7 +45,7 @@ import torch
 from torch.autograd import profiler as _profiler
 from torch.profiler import record_function
 
-__all__ = ["span", "NULL_SPAN"]
+__all__ = ["span", "NULL_SPAN", "profiling"]
 
 NULL_SPAN = contextlib.nullcontext()
 _mode_depth = torch._C._len_torch_dispatch_stack
@@ -69,6 +72,11 @@ class _Recorded:
         self.trace.record(rid, name, phase, self.t0, t1, replica=replica, parent=parent,
                           detail=detail)
         return False
+
+
+def profiling() -> bool:
+    """Whether ``torch.profiler`` is recording: a traced window."""
+    return _profiler._is_profiler_enabled
 
 
 def span(name: str, trace: Optional[Any] = None, request_id: int = -1, phase: str = "",

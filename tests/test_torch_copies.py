@@ -32,9 +32,49 @@ _ABS_REPRO = re.compile(r"^\s*(from|import)\s+repro(\.|\s|$)", re.M)
 _JAX = re.compile(r"^\s*(import\s+jax|from\s+jax)|ml_dtypes", re.M)
 
 
+# copies the port extends: every line of the reference's file, in order,
+# with lines of the port's own between them (``ArchConfig``'s latent
+# attention, YaRN and DeepSeek MoE fields, with defaults that leave every
+# architecture of the reference as it is; the JAX package has no such model)
+EXTENDED = ("configs/base.py",)
+
+
+def _keeps_every_line(port: bytes, ref: bytes) -> bool:
+    rest = iter(port.splitlines())
+    return all(any(line == mine for mine in rest) for line in ref.splitlines())
+
+
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_verbatim_copy_is_byte_identical(rel):
-    assert (PORT / rel).read_bytes() == (REF / rel).read_bytes(), rel
+    port, ref = (PORT / rel).read_bytes(), (REF / rel).read_bytes()
+    if rel in EXTENDED:
+        assert _keeps_every_line(port, ref), rel
+    else:
+        assert port == ref, rel
+
+
+def _ref_registry():
+    from repro.configs import ALL_ARCHS, get_arch
+    return [get_arch(a) for a in ALL_ARCHS]
+
+
+@pytest.mark.parametrize("ref", _ref_registry(), ids=lambda a: a.name)
+def test_extended_arch_config_behaves_as_the_reference(ref):
+    """``configs/base.py``'s added lines change nothing of the reference's
+    architectures: the port's ``ArchConfig`` made from a reference
+    architecture's fields, its added fields at their defaults, counts the
+    same parameters and reduces to the same fields."""
+    from dataclasses import asdict, fields
+
+    from repro_torch.configs.base import ArchConfig
+    port = ArchConfig(**asdict(ref))
+    added = [f for f in fields(ArchConfig) if f.name not in asdict(ref)]
+    assert added and all(getattr(port, f.name) == f.default for f in added)
+    assert port.param_count() == ref.param_count()
+    assert port.active_param_count() == ref.active_param_count()
+    small, ref_small = asdict(port.reduced()), asdict(ref.reduced())
+    assert {k: small[k] for k in ref_small} == ref_small
+    assert all(small[f.name] == f.default for f in added)
 
 
 def test_verbatim_set_covers_the_jax_free_control_plane():

@@ -122,6 +122,34 @@ def test_flash_wrapper_on_cpu_is_the_plain_version():
     assert flash_attention.launches == before     # plain versions never count
 
 
+@pytest.mark.parametrize("D,Dv,scale,causal", [
+    (24, 16, 0.3, True),
+    (192, 128, 0.114721, True),     # latent attention's expanded prefill
+    (64, 32, None, False),
+])
+def test_attention_ref_scale_and_value_width_against_plain_softmax(D, Dv, scale, causal):
+    """A softmax scale and values narrower than the keys, against a direct
+    float64 softmax (float32 rounding only: 2e-5)."""
+    rng = np.random.default_rng(4)
+    B, S, H, Hkv = 1, 40, 4, 2
+    q, k, v = (rng.standard_normal(s) for s in ((B, S, H, D), (B, S, Hkv, D),
+                                                (B, S, Hkv, Dv)))
+    out = attention_ref(*(torch.from_numpy(a.astype(np.float32)) for a in (q, k, v)),
+                        causal=causal, scale=scale)
+    kk, vv = np.repeat(k, H // Hkv, axis=2), np.repeat(v, H // Hkv, axis=2)
+    s = np.einsum("bqhd,bkhd->bhqk", q, kk) * (D ** -0.5 if scale is None else scale)
+    if causal:
+        s = np.where(np.tril(np.ones((S, S), bool)), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    want = np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), vv)
+    assert out.shape == (B, S, H, Dv)
+    assert rel_err(out.numpy(), want) < 2e-5
+    # the wrapper's CPU path is the plain version, value width and scale kept
+    got = flash_attention(*(torch.from_numpy(a.astype(np.float32)) for a in (q, k, v)),
+                          causal=causal, scale=scale)
+    assert torch.equal(got, out)
+
+
 def test_flash_wrapper_rejects_bad_shapes():
     q = torch.zeros(1, 4, 3, 16)
     k = torch.zeros(1, 4, 2, 16)
@@ -701,6 +729,32 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, B, Sq, Skv, H, Hkv, D,
     ref = attention_ref(q, k, v, causal=causal, window=window)
     tol = 2e-2 if dtype == "bf16" else 2e-5
     assert rel_err(_np(out), _np(ref)) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("S,H,D,Dv,scale", [
+    (16, 16, 192, 128, 0.114721),      # latent attention: a short prefill
+    (70, 4, 192, 128, 0.114721),       # ragged tiles
+    (2048, 16, 192, 128, 0.114721),
+    (4096, 16, 192, 128, 0.114721),
+    (256, 4, 16, 16, 0.3),             # every older width, given a scale
+    (256, 4, 32, 32, 0.3),
+    (256, 4, 64, 64, 0.3),
+    (256, 4, 128, 128, 0.3),
+    (256, 4, 256, 256, 0.3),
+])
+def test_flash_kernel_scale_and_value_width_on_card(cuda_device, S, H, D, Dv, scale, dtype):
+    """Values of their own width and a given softmax scale, causal, against
+    the plain version (the tolerances of the other flash cases)."""
+    q, k, v = _torch(attn_inputs(1, S, S, H, H, D), dtype, cuda_device)
+    v = v[..., :Dv].contiguous()
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.shape == (1, S, H, Dv)
+    ref = attention_ref(q, k, v, causal=True, scale=scale)
+    assert rel_err(_np(out), _np(ref)) < (2e-2 if dtype == "bf16" else 2e-5)
 
 
 @pytest.mark.cuda
